@@ -1,0 +1,35 @@
+"""Config registry of the port: the architectures it runs.
+
+``get_config(arch)`` / ``get_smoke(arch)`` resolve an architecture id
+(dashes as published) to its full / reduced config.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import (  # noqa: F401  (public re-exports)
+    Config,
+    ModelConfig,
+    ParallelismConfig,
+    smoke_variant,
+)
+
+ARCH_MODULES: Dict[str, str] = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "granite-3-2b": "granite_3_2b",
+}
+
+
+def _module(arch: str):
+    if arch not in ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> Config:
+    return _module(arch).config()
+
+
+def get_smoke(arch: str) -> Config:
+    return _module(arch).smoke()

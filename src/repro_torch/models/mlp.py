@@ -1,0 +1,30 @@
+"""Feed-forward blocks: SwiGLU (llama-style) and GELU (bert/whisper-style).
+Port of ``repro/models/mlp.py``."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import normal_init
+
+
+def mlp_init(gen, d_model: int, d_ff: int, act: str, device="cpu") -> Dict:
+    p = {
+        "wi": normal_init(gen, (d_model, d_ff), device=device),
+        "wd": normal_init(gen, (d_ff, d_model), fan_in=d_ff, device=device),
+    }
+    if act == "swiglu":
+        p["wg"] = normal_init(gen, (d_model, d_ff), device=device)
+    return p
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    dtype = x.dtype
+    h = x @ p["wi"].to(dtype)
+    if act == "swiglu":
+        h = F.silu(x @ p["wg"].to(dtype)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+    return h @ p["wd"].to(dtype)
