@@ -11,10 +11,12 @@ The counterpart of ``repro/backend.py::Backend`` with one subsystem so far:
   ============  ====================================  ======================
 
 Each mode is one of ``"fused" | "reference" | "auto"``.  ``"auto"`` resolves
-per tensor: fused for a CUDA tensor on a Hopper card (capability (9, 0)),
-reference otherwise — so the CPU tests run the plain paths without a flag.
-A fused plan on a CPU tensor runs the kernel wrappers, which on the CPU
-compute their plain version.
+per tensor: fused for every CUDA tensor, reference for a CPU tensor — so the
+CPU tests run the plain paths without a flag, and on a card the kernels run
+or their wrappers raise (a card other than Hopper, capability (9, 0), is
+refused there; it never gets the plain version).  A fused plan on a CPU
+tensor runs the kernel wrappers, which on the CPU compute their plain
+version.
 """
 from __future__ import annotations
 
@@ -38,14 +40,6 @@ def device_info(index: int):
     return (props.major, props.minor), props.multi_processor_count
 
 
-def is_hopper(device) -> bool:
-    device = torch.device(device)
-    if device.type != "cuda":
-        return False
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return device_info(index)[0] == HOPPER
-
-
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """Per-subsystem execution plan (frozen, hashable)."""
@@ -65,7 +59,7 @@ class Backend:
             raise KeyError(f"unknown subsystem {subsystem!r}; one of {SUBSYSTEMS}")
         mode = getattr(self, subsystem)
         if mode == AUTO:
-            return FUSED if is_hopper(device) else REFERENCE
+            return FUSED if torch.device(device).type == "cuda" else REFERENCE
         return mode
 
     def fused(self, subsystem: str, device) -> bool:

@@ -235,7 +235,7 @@ def attention(
     else:
         seg_k = seg_q
     fused = plan.fused("attention", x.device)
-    if fused and mode in ("train", "prefill") and k.shape[1] == s:
+    if fused and mode in ("train", "prefill"):
         if implicit_layout:
             out = kops.flash_attention(qh, k, v, causal=causal, window=window)
         else:

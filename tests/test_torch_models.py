@@ -157,6 +157,17 @@ def _check_cache(jcache, tcache, exact_kv):
                                        err_msg=name)
 
 
+@pytest.mark.parametrize("device,want", [("cuda", "fused"), ("cuda:1", "fused"),
+                                          ("cpu", "reference")])
+def test_auto_plan_is_fused_on_every_card_and_reference_only_on_cpu(device, want):
+    # The plain attention never serves a CUDA tensor under the default plan:
+    # there the kernels run, or their wrappers raise on a card they refuse.
+    assert Backend().resolve("attention", torch.device(device)) == want
+    assert Backend().resolve("attention", device) == want
+    assert Backend.all_reference().resolve("attention", device) == "reference"
+    assert Backend.all_fused().resolve("attention", device) == "fused"
+
+
 @pytest.mark.parametrize("path", ["sdpa", "chunked", "fused"])
 def test_attention_train_packed(path):
     rs = _rng(5)
