@@ -20,6 +20,22 @@ Phases, in order; any failure exits non-zero:
   5. reference — the same weights through the plain ("reference") attention
                 plan: prefill logits and greedy tokens agree.
   6. continuous — ContinuousEngine at full width drains 8 requests.
+  7. train kernels — the training slice's kernels against their plain
+                versions at the shapes its main path gives them: the
+                attention forward with its LSE and the attention backward (bert-large's B=32 S=128 H=16 D=64
+                bidirectional, internlm2-1.8b's B=8 S=512 H=16/8 D=128
+                causal packed with pads, and through the autograd
+                Function), the flat moment carry and the flat VR-LAMB
+                update on bert-large's full flat layout (f32 and bf16
+                state); times beside bounds, plain versions and library
+                calls.
+  8. train    — bert-large at published width and depth (seeded random
+                weights), seq 128, global batch 256, k=8: three VR-LAMB
+                steps through make_train_step on the fused plan (every
+                kernel, launch counts asserted per step) and three on the
+                reference plan (plain versions) from the same params and
+                batches, compared step by step; step time, tokens/s and a
+                torch.profiler breakdown of one more fused step.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -315,11 +331,21 @@ def phase_kernels(records):
 
 def counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flat_stats as fs
+    from repro_torch.kernels import flat_update as fu
 
     return {"flash_attention_fwd": fa.flash_attention,
             "flash_decode_split": fd.flash_decode_split,
-            "flash_decode_combine": fd.flash_decode_combine}
+            "flash_decode_combine": fd.flash_decode_combine,
+            "flash_attention_bwd": fab.flash_attention_bwd,
+            "flat_moments_accum": fs.flat_moments_accum,
+            "flat_moments_finalize": fs.flat_moments_finalize,
+            "flat_vr_lamb": fu.flat_vr_lamb}
+
+
+SERVE_KERNELS = ("flash_attention_fwd", "flash_decode_split", "flash_decode_combine")
 
 
 def reset_counts():
@@ -342,9 +368,9 @@ def host_ms(fn):
 
 
 def device_profile(fn):
-    """(device-busy ms, kernel launches, top kernels) of one fn() call, from
-    torch.profiler's CUDA kernel events; busy is None if the profiler saw no
-    device time."""
+    """(device-busy ms, kernel launches, per-kernel rows by device time) of
+    one fn() call, from torch.profiler's CUDA kernel events; busy is None if
+    the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -358,19 +384,41 @@ def device_profile(fn):
     if not rows:
         return None, 0, []
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:6]
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
-def report_profile(name, fn, wall_ms):
-    busy, launches, top = device_profile(fn)
+# device-time categories of a profile, by kernel name: the port's kernels,
+# cuBLAS GEMMs, and the rest (element-wise, copies, reductions)
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "decode_split_kernel",
+                "decode_combine_kernel", "accum_kernel", "finalize_kernel",
+                "r_partials_kernel", "compute_kernel", "apply_kernel")
+
+
+def category(key: str) -> str:
+    if any(k in key for k in PORT_KERNELS):
+        return "port kernels"
+    if "nvjet" in key or "gemm" in key.lower() or "cutlass" in key:
+        return "GEMMs"
+    return "other (element-wise, copies, reductions)"
+
+
+def report_profile(name, fn, wall_ms, top: int = 6):
+    busy, launches, rows = device_profile(fn)
     if busy is None:
         print(f"  {name}: wall {wall_ms:.2f} ms; device time not measured (no CUDA events)",
               flush=True)
         return
     print(f"  {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
           f"(idle share {1 - busy / wall_ms:.3f}), {launches} kernel launches", flush=True)
-    for key, ms, n in top:
-        print(f"    {ms:8.3f} ms  x{n:<4d} {key[:90]}", flush=True)
+    cats = {}
+    for key, ms, n in rows:
+        c = cats.setdefault(category(key), [0.0, 0])
+        c[0] += ms
+        c[1] += n
+    print("    by category: " + "; ".join(f"{c} {ms:.2f} ms x{n}" for c, (ms, n) in cats.items()),
+          flush=True)
+    for key, ms, n in rows[:top]:
+        print(f"    {ms:8.3f} ms  x{n:<5d} {key[:90]}", flush=True)
 
 
 def phase_engine(records):
@@ -408,10 +456,11 @@ def phase_engine(records):
     want = {"flash_attention_fwd": m.n_layers,
             "flash_decode_split": m.n_layers * new,
             "flash_decode_combine": m.n_layers * new}
+    want.update({name: 0 for name in counts if name not in SERVE_KERNELS})
     if counts != want:
         fail(f"launch counts {counts} != expected {want} (24 per prefill, 24 per decode step)")
-    for name, n in counts.items():
-        records[name]["launches"] = n
+    for name in SERVE_KERNELS:
+        records[name].setdefault("launches_by_path", {})["serve"] = counts[name]
     if res.tokens.shape != (b, new) or not np.isfinite(res.logprobs).all():
         fail(f"generate returned {res.tokens.shape} tokens / non-finite logprobs")
     if not ((res.tokens >= 0) & (res.tokens < m.vocab_size)).all():
@@ -479,9 +528,10 @@ def phase_engine(records):
     with torch.no_grad():
         reset_counts()
         tf_f = teacher_forced(eng)
-        if read_counts() != {"flash_attention_fwd": m.n_layers,
-                             "flash_decode_split": m.n_layers * (new - 1),
-                             "flash_decode_combine": m.n_layers * (new - 1)}:
+        got = read_counts()
+        if {k: got[k] for k in SERVE_KERNELS} != {
+                "flash_attention_fwd": m.n_layers, "flash_decode_split": m.n_layers * (new - 1),
+                "flash_decode_combine": m.n_layers * (new - 1)}:
             fail(f"the fused plan did not launch the kernels in every layer: {read_counts()}")
         tf_r = teacher_forced(reng)
     tf_max = check_logits(f"teacher-forced, all {new} steps,", tf_f, tf_r)
@@ -524,8 +574,429 @@ def phase_engine(records):
             fail(f"request {rid}: {len(r.tokens)} tokens, expected {k}")
     print(f"  drained {len(rids)} requests ({sum(news)} tokens) in {steps} steps, "
           f"{dt:.2f}s; launches {counts}", flush=True)
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in SERVE_KERNELS) == 0:
         fail("ContinuousEngine did not run every kernel")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+# Stated tolerances of the training kernels.  The attention backward and its
+# plain version do the same f32 math from the same bf16 inputs and round
+# the gradients to bf16 (dq is summed in f32 first), so an element may land
+# on a neighbouring bf16 value: one ulp, at most 2^-7 of its magnitude.
+# The gradients are much smaller than the forward outputs (a typical |dq| at
+# bert's shape is ~0.1), so the bound scales with what is compared:
+# rtol 2^-7 and atol 2^-7 * max|plain| (tol_scaled); the forward's out at
+# the training shape is held to the same rule, its lse to TOL_F32.  The
+# moment carry is element-wise f32: exact up to
+# one FMA rounding (rtol 1e-6); the finalize multiplies by the same 1/k
+# (exact).  The VR-LAMB update's per-leaf sums (of r, u^2 and w^2, up to
+# 1e8 terms) are f32 atomics over 64-row partials in the kernel and a
+# pairwise torch sum in the plain version: upd and f32 state rtol 1e-4 with
+# atol 1e-4 of the largest magnitude; bf16 state one bf16 ulp (rtol 2^-7).
+TOL_CARRY = dict(atol=0.0, rtol=1e-6)
+TOL_EXACT = dict(atol=0.0, rtol=0.0)
+TOL_BF16_STATE = dict(atol=1e-6, rtol=2.0**-7)
+
+
+def tol_scaled(want):
+    """One bf16 ulp of each element, and of the largest one near zero."""
+    return dict(atol=2.0**-7 * float(want.float().abs().max()), rtol=2.0**-7)
+
+
+def sdpa_bwd_ms(q, k, v, do, mask):
+    """Device ms of the backward of F.scaled_dot_product_attention under
+    ``mask`` (None = no mask): forward+backward minus forward."""
+    import torch
+    import torch.nn.functional as F
+
+    h, kvh = q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_(True)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_(True)
+    dot = do.transpose(1, 2).contiguous()
+    am = None if mask is None else mask[:, None]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def train_layout(cfg):
+    """The ParamLayout of ``cfg``'s reference (stacked) param tree, from
+    meta tensors (no memory)."""
+    import torch
+
+    from repro_torch.core.layout import ParamLayout, stack_groups
+    from repro_torch.models import init_params
+
+    meta = init_params(cfg.model, torch.Generator().manual_seed(0), device="meta")
+    return ParamLayout.for_tree(stack_groups(meta))
+
+
+def check_attention_bwd(name, q, k, v, do, pos, causal):
+    """K1 with the LSE (the training forward's operands), then K2, each
+    against its plain version on one input; returns (K1 max err, K2 max err,
+    K2 inputs, K2 outputs)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    b, s = q.shape[:2]
+    qp, kp, qs, ks = fa.resolve_positions(pos, pos, s, s, device=q.device)
+    qp, kp, qs, ks = (fa.as_rows(t, b, s, q.device) for t in (qp, kp, qs, ks))
+    out, lse = fa.flash_attention(q, k, v, qp, kp, qs, ks, causal=causal, with_lse=True)
+    want_out, want_lse = fa.attention_fwd_ref(q, k, v, causal=causal, q_pos=qp, k_pos=kp,
+                                              q_seg=qs, k_seg=ks)
+    err_fwd = max(check_close(f"{name} fwd out", out, want_out, tol_scaled(want_out)),
+                  check_close(f"{name} fwd lse", lse, want_lse, TOL_F32))
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, lse, delta, do, qp, kp, qs, ks)
+    got = fab.flash_attention_bwd(*args, causal=causal)
+    want = fab.attention_bwd_ref(q, k, v, lse, delta, do, causal=causal, q_pos=qp, k_pos=kp,
+                                 q_seg=qs, k_seg=ks)
+    err = max(check_close(f"{name} {g}", a, w, tol_scaled(w))
+              for g, a, w in zip(("dq", "dk", "dv"), got, want))
+    dead = qp < 0
+    if dead.any() and got[0][dead].abs().max() != 0:
+        fail(f"{name}: padded query rows must get dq exactly 0")
+    return err_fwd, err, args, got
+
+
+def phase_train_kernels(records, layout):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.layout import pad_mask
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import flat_stats as fs
+    from repro_torch.kernels import flat_update as fu
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    # ---- K2 flash_attention_bwd --------------------------------------------
+    print("[train kernels] flash_attention_bwd", flush=True)
+    b, s, h, d = 32, 128, 16, 64  # bert-large, one microbatch of 32 x 128
+    q, k, v, do = (randn(b, s, h, d) for _ in range(4))
+    fwd_err, err_bert, args, got = check_attention_bwd(
+        "bert B32 S128 H16 D64 bf16 bidirectional", q, k, v, do, None, False)
+    pairs = b * h * s * s
+    # K1 at this shape: the training forward and its remat (both with the LSE)
+    qp, kp, qs, ks = args[6:]
+    t1 = cuda_ms(lambda: fa.flash_attention(q, k, v, qp, kp, qs, ks, causal=False,
+                                            with_lse=True))
+    t1_plain = cuda_ms(lambda: fa.attention_fwd_ref(q, k, v, causal=False, q_pos=qp, k_pos=kp,
+                                                    q_seg=qs, k_seg=ks))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t1_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    del qt, kt, vt
+    b1_ms, b1_by = bound(nbytes(q, k, v, qp, kp, qs, ks, q, args[3]), pairs * 4 * d, "bfloat16")
+    print(f"  K1 at bert's training shape (ms): kernel with_lse={t1:.4f} plain={t1_plain:.4f} "
+          f"sdpa={t1_lib:.4f} bound={b1_ms:.4f} ({b1_by})", flush=True)
+    records["flash_attention_fwd"].update(
+        max_abs_err=max(records["flash_attention_fwd"]["max_abs_err"], fwd_err),
+        train_shape="B32 S128 H16 D64 bf16 bidirectional with_lse", train_max_abs_err=fwd_err,
+        train_ms=t1, train_plain_ms=t1_plain, train_bound_ms=b1_ms, train_bound_by=b1_by,
+        train_library_ms=t1_lib)
+    t_kernel = cuda_ms(lambda: fab.flash_attention_bwd(*args, causal=False))
+    t_plain = cuda_ms(lambda: fab.attention_bwd_ref(
+        *args[:6], causal=False, q_pos=args[6], k_pos=args[7], q_seg=args[8], k_seg=args[9]))
+    t_lib = sdpa_bwd_ms(q, k, v, do, None)
+    b_ms, b_by = bound(nbytes(*args, *got), pairs * 10 * d, "bfloat16")
+    print(f"  bert times (ms): kernel={t_kernel:.4f} plain={t_plain:.4f} "
+          f"sdpa backward={t_lib:.4f} bound={b_ms:.4f} ({b_by})", flush=True)
+
+    b2, s2, h2, kvh2, d2 = 8, 512, 16, 8, 128  # internlm2-1.8b: GQA, causal, packed + pads
+    pos = torch.from_numpy(packed_positions(b2, s2, rng)).to(dev)
+    q2, do2 = randn(b2, s2, h2, d2), randn(b2, s2, h2, d2)
+    k2, v2 = randn(b2, s2, kvh2, d2), randn(b2, s2, kvh2, d2)
+    fwd_err2, err_intern, args2, got2 = check_attention_bwd(
+        "internlm2 B8 S512 H16/8 D128 bf16 causal packed", q2, k2, v2, do2, pos, True)
+    records["flash_attention_fwd"]["max_abs_err"] = max(
+        records["flash_attention_fwd"]["max_abs_err"], fwd_err2)
+    mask2 = fa.attention_mask(args2[6], args2[7], args2[8], args2[9], causal=True)
+    t2_kernel = cuda_ms(lambda: fab.flash_attention_bwd(*args2, causal=True))
+    t2_plain = cuda_ms(lambda: fab.attention_bwd_ref(
+        *args2[:6], causal=True, q_pos=args2[6], k_pos=args2[7], q_seg=args2[8],
+        k_seg=args2[9]))
+    t2_lib = sdpa_bwd_ms(q2, k2, v2, do2, mask2)
+    b2_ms, b2_by = bound(nbytes(*args2, *got2), int(mask2.sum()) * h2 * 10 * d2, "bfloat16")
+    print(f"  internlm2 times (ms): kernel={t2_kernel:.4f} plain={t2_plain:.4f} "
+          f"sdpa backward={t2_lib:.4f} bound={b2_ms:.4f} ({b2_by})", flush=True)
+
+    # through the autograd Function, against autograd through the plain forward
+    launches = (fa.flash_attention.launches, fab.flash_attention_bwd.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_train(*leaves, causal=False).backward(do)
+    if (fa.flash_attention.launches - launches[0], fab.flash_attention_bwd.launches - launches[1]) \
+            != (1, 1):
+        fail("the autograd Function did not run one forward and one backward kernel")
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.attention_fwd_ref(*plain, causal=False)[0].backward(do)
+    err_fn = max(check_close(f"Function d{n} vs autograd of the plain forward", a.grad, w.grad,
+                             tol_scaled(w.grad)) for n, a, w in zip("qkv", leaves, plain))
+    records["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:104",
+        max_abs_err=max(err_bert, err_intern, err_fn), ms=t_kernel, plain_ms=t_plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+        internlm2_ms=t2_kernel, internlm2_plain_ms=t2_plain, internlm2_bound_ms=b2_ms,
+        internlm2_library_ms=t2_lib,
+    )
+    del q, k, v, do, args, got, q2, k2, v2, do2, args2, got2, leaves, plain
+
+    # ---- K3 / K4 on bert-large's full flat layout ---------------------------
+    n = layout.n_rows * 128
+    print(f"[train kernels] flat layout: {layout.n_leaves} leaves, {layout.n_rows} rows, "
+          f"{n * 4 / 1e9:.3f} GB per f32 buffer", flush=True)
+    mask = pad_mask(layout, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(scale=1.0, positive=False):
+        x = torch.randn((layout.n_rows, 128), generator=gen, device=dev)
+        if positive:
+            x.abs_()
+        return x.mul_(scale).mul_(mask)
+
+    gs, g2s, g = rand(), rand(positive=True), rand()
+    kg, kg2 = fs.flat_moments_accum(gs.clone(), g2s.clone(), g)
+    pg, pg2 = fs.moments_accum_ref(gs.clone(), g2s.clone(), g)
+    err3 = max(check_close("flat_moments_accum g_sum", kg, pg, TOL_CARRY),
+               check_close("flat_moments_accum g2_sum", kg2, pg2, TOL_CARRY))
+    t3 = cuda_ms(lambda: fs.flat_moments_accum(gs, g2s, g))
+    t3_plain = cuda_ms(lambda: fs.moments_accum_ref(gs, g2s, g))
+    t3_lib = cuda_ms(lambda: (gs.add_(g), g2s.addcmul_(g, g)))
+    b3_ms, b3_by = bound(5 * n * 4, 3 * n, "float32")
+    print(f"  flat_moments_accum (ms): kernel={t3:.4f} plain={t3_plain:.4f} "
+          f"add_+addcmul_={t3_lib:.4f} bound={b3_ms:.4f} ({b3_by})", flush=True)
+    km, ksq = fs.flat_moments_finalize(pg.clone(), pg2.clone(), 8)  # the same carry for both
+    pm, psq = fs.moments_finalize_ref(pg, pg2, 8)
+    err4 = max(check_close("flat_moments_finalize mean", km, pm, TOL_EXACT),
+               check_close("flat_moments_finalize sq_mean", ksq, psq, TOL_EXACT))
+    t4 = cuda_ms(lambda: fs.flat_moments_finalize(gs, g2s, 8))
+    t4_plain = cuda_ms(lambda: fs.moments_finalize_ref(gs, g2s, 8))
+    t4_lib = cuda_ms(lambda: (gs.mul_(0.125), g2s.mul_(0.125)))
+    b4_ms, b4_by = bound(4 * n * 4, 2 * n, "float32")
+    print(f"  flat_moments_finalize (ms): kernel={t4:.4f} plain={t4_plain:.4f} "
+          f"2x mul_={t4_lib:.4f} bound={b4_ms:.4f} ({b4_by})", flush=True)
+    records["flat_moments_accum"] = dict(
+        name="flat_moments_accum", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
+        replaces="src/repro/kernels/grad_stats.py:35", max_abs_err=err3, ms=t3,
+        plain_ms=t3_plain, bound_ms=b3_ms, bound_by=b3_by, library_ms=t3_lib)
+    records["flat_moments_finalize"] = dict(
+        name="flat_moments_finalize", route="cuda",
+        source="src/repro_torch/kernels/csrc/flat_stats.cu",
+        replaces="src/repro/kernels/grad_stats.py:41", max_abs_err=err4, ms=t4,
+        plain_ms=t4_plain, bound_ms=b4_ms, bound_by=b4_by, library_ms=t4_lib)
+    del gs, g2s, g, kg, kg2, pg, pg2, km, ksq, pm, psq
+
+    # ---- K5 flat_vr_lamb ----------------------------------------------------
+    print("[train kernels] flat_vr_lamb", flush=True)
+    g = rand(1e-3)
+    g2 = (g * g).add_(rand(1e-6, positive=True))
+    ga, w = g * 0.5, rand(0.03)
+    m0, v0 = rand(1e-4), rand(1e-7, positive=True)
+    p0 = mask.float().mul_(0.4)
+    hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12)
+    scal = (3.5e-6, 0.19, 0.001999, 0.19)
+    err5, times = 0.0, {}
+    for sd_name in ("float32", "bfloat16"):
+        sd = getattr(torch, sd_name)
+        km, kv, kp = (t.to(sd) for t in (m0, v0, p0))
+        pm, pv, pp = (t.clone() for t in (km, kv, kp))
+        upd = fu.flat_vr_lamb(g, ga, g2, km, kv, kp, w, scal, layout, state_dtype=sd_name,
+                              **hyper)[0]
+        want = fu.flat_vr_lamb_ref(g, ga, g2, pm, pv, pp, w, scal, layout, state_dtype=sd_name,
+                                   **hyper)[0]
+        tol_upd = dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)
+        err5 = max(err5, check_close(f"flat_vr_lamb {sd_name} state: upd", upd, want, tol_upd))
+        del upd, want
+        for nm, a, b_ in zip(("m", "v", "p"), (km, kv, kp), (pm, pv, pp)):
+            tol = TOL_BF16_STATE if sd_name == "bfloat16" else \
+                dict(atol=1e-4 * float(b_.abs().max()), rtol=1e-4)
+            err5 = max(err5, check_close(f"flat_vr_lamb {sd_name} state: {nm}'", a, b_, tol))
+        del pm, pv, pp
+        t5 = cuda_ms(lambda: fu.flat_vr_lamb(g, ga, g2, km, kv, kp, w, scal, layout,
+                                             state_dtype=sd_name, **hyper))
+        t5_plain = cuda_ms(lambda: fu.flat_vr_lamb_ref(g, ga, g2, km, kv, kp, w, scal, layout,
+                                                       state_dtype=sd_name, **hyper), iters=5)
+        state_bytes = 6 * n * km.element_size()
+        b5_ms, b5_by = bound(5 * n * 4 + state_bytes + 4 * layout.n_blocks
+                             + 4 * layout.leaf_slots, 40 * n, "float32")
+        times[sd_name] = (t5, t5_plain, b5_ms, b5_by)
+        print(f"  {sd_name} state (ms): kernel (3 launches)={t5:.4f} plain={t5_plain:.4f} "
+              f"bound={b5_ms:.4f} ({b5_by}); no single PyTorch call computes it", flush=True)
+        del km, kv, kp
+    t5, t5_plain, b5_ms, b5_by = times["float32"]
+    records["flat_vr_lamb"] = dict(
+        name="flat_vr_lamb", route="cuda", source="src/repro_torch/kernels/csrc/flat_update.cu",
+        replaces="src/repro/kernels/flat_update.py:304", max_abs_err=err5, ms=t5,
+        plain_ms=t5_plain, bound_ms=b5_ms, bound_by=b5_by, library_ms=None,
+        bf16_state_ms=times["bfloat16"][0], bf16_state_bound_ms=times["bfloat16"][2],
+    )
+    del g, g2, ga, w, m0, v0, p0, mask
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training main path at full width
+# ---------------------------------------------------------------------------
+
+# Fused plan against the reference plan at full width in bf16 compute.  The
+# plans differ where attention rounds: the kernels keep scores and p in f32,
+# the plain path computes scores and p @ V in bf16; the difference compounds
+# over 24 layers, the backward and k = 8 microbatches.  The GSNR ratio
+# r = g^2 / (g2 - g^2 + eps) amplifies it where a variance nearly cancels,
+# so p (a running mean of r) differs most.
+# Bounds, set from the first full-width run on an H100 (700 W), which
+# measured loss 3.8e-6, grad_norm 1.3e-4, gsnr/* 2.7e-4 (all relative or
+# absolute as printed), and after step 1 the update 2.1e-2, m and v 1.3e-2
+# and p 4.8e-2 relative to their norms (PERF.md): three to thirty times
+# those.  On the CPU rehearsal at smoke size, a copy whose update dropped
+# the trust ratio moved the second step's loss by 2.1e-2 relative.
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 3e-3, "mv": 0.05, "p": 0.15, "upd": 0.1}
+TRAIN_STEPS = 3
+
+
+def rel_diff(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm((a.float() - b.float())) /
+                 torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+
+
+def flat_state(state, name):
+    """Optimizer state ``name`` as a new flat f32 buffer (packing a tree)."""
+    import torch
+
+    from repro_torch.core.layout import is_flat
+
+    x = state.opt_state[name]
+    if is_flat(x):
+        return x.data.to(torch.float32, copy=True)
+    return state.params.layout.pack(x, device=state.params.device)
+
+
+def phase_train(records):
+    import torch
+
+    from repro_torch.backend import Backend
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("bert-large").replace(global_batch=256, seq_len=128)
+    m, o = cfg.model, cfg.optimizer
+    print(f"[train] {m.name}: {m.n_layers} layers, d_model {m.d_model}, heads {m.n_heads}, "
+          f"d_ff {m.d_ff}, vocab {m.vocab_size}; VR-LAMB k={o.k}, global batch "
+          f"{cfg.global_batch} (the paper's 64k cut to 256), seq {cfg.seq_len}, "
+          f"{cfg.parallel.compute_dtype} compute, {cfg.parallel.param_dtype} params and "
+          f"{o.state_dtype} state, remat={cfg.parallel.remat}", flush=True)
+    t0 = time.perf_counter()
+    params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+    plans = {}
+    for plan, bk in (("fused", Backend.all_fused()), ("reference", Backend.all_reference())):
+        pc = cfg.replace(parallel=dataclasses.replace(cfg.parallel, backend=bk))
+        plans[plan] = (init_state(pc, params=params, device=dev),
+                       make_train_step(pc, log_gsnr=True, device=dev)[0])
+    del params
+    layout = plans["fused"][0].params.layout
+    n_params = sum(layout.sizes)
+    print(f"  {n_params / 1e6:.1f} M params in {layout.n_leaves} stacked leaves, "
+          f"{layout.n_rows} flat rows; init {time.perf_counter() - t0:.1f}s", flush=True)
+    # the analytic count leaves out the final norm and the LayerNorm biases
+    norms = 2 * m.d_model + 2 * m.n_layers * m.d_model
+    if n_params != m.param_count() + norms:
+        fail(f"param count {n_params} != the config's {m.param_count()} + {norms} norm params")
+    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+
+    n_l, k = m.n_layers, o.k
+    want_fused = {"flash_attention_fwd": 2 * n_l * k, "flash_attention_bwd": n_l * k,
+                  "flat_moments_accum": k, "flat_moments_finalize": 1, "flat_vr_lamb": 1,
+                  "flash_decode_split": 0, "flash_decode_combine": 0}
+    hist, step1, walls, path_counts = {}, {}, [], {}
+    for plan in ("fused", "reference"):
+        state, step = plans[plan]
+        hist[plan] = []
+        for i in range(TRAIN_STEPS):
+            w0 = state.params.data.clone() if i == 0 else None
+            reset_counts()
+            (state, metrics), ms = host_ms(lambda: step(state, batches[i]))
+            counts = read_counts()
+            want = want_fused if plan == "fused" else {n_: 0 for n_ in counts}
+            if counts != want:
+                fail(f"{plan} step {i}: kernel launches {counts} != expected {want}")
+            if plan == "fused":
+                for name, c in counts.items():
+                    path_counts[name] = path_counts.get(name, 0) + c
+                walls.append(ms)
+            vals = {key: float(val) for key, val in metrics.items()}
+            if not all(np.isfinite(list(vals.values()))):
+                fail(f"{plan} step {i}: non-finite metrics {vals}")
+            hist[plan].append(vals)
+            print(f"  {plan} step {i}: {ms:.1f} ms  loss {vals['loss']:.5f} "
+                  f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e} "
+                  f"gsnr mean {vals['gsnr/mean']:.5f} min {vals['gsnr/min']:.4f} "
+                  f"frac_floor {vals['gsnr/frac_floor']:.5f}; launches {counts}", flush=True)
+            if i == 0:
+                step1[plan] = {"upd": state.params.data - w0,
+                               **{nm: flat_state(state, nm) for nm in "mvp"}}
+                del w0
+        plans[plan] = (state, step)
+
+    # the fused and reference plans agree, step by step
+    for i, (a, b_) in enumerate(zip(hist["fused"], hist["reference"])):
+        d_loss = abs(a["loss"] - b_["loss"]) / abs(b_["loss"])
+        d_gn = abs(a["grad_norm"] - b_["grad_norm"]) / abs(b_["grad_norm"])
+        d_gsnr = max(abs(a[key] - b_[key]) for key in ("gsnr/mean", "gsnr/min", "gsnr/frac_floor"))
+        print(f"  step {i}: |loss rel diff| {d_loss:.3e} (tol {TRAIN_TOL['loss']}), "
+              f"|grad_norm rel diff| {d_gn:.3e} (tol {TRAIN_TOL['grad_norm']}), "
+              f"max |gsnr/* diff| {d_gsnr:.3e} (tol {TRAIN_TOL['gsnr']})", flush=True)
+        if d_loss > TRAIN_TOL["loss"] or d_gn > TRAIN_TOL["grad_norm"] \
+                or d_gsnr > TRAIN_TOL["gsnr"]:
+            fail(f"step {i}: the fused and reference plans disagree")
+    for nm, tol_key in (("upd", "upd"), ("m", "mv"), ("v", "mv"), ("p", "p")):
+        d = rel_diff(step1["fused"][nm], step1["reference"][nm])
+        print(f"  after step 1: ||{nm}_fused - {nm}_ref|| / ||{nm}_ref|| = {d:.4e} "
+              f"(tol {TRAIN_TOL[tol_key]})", flush=True)
+        if not d <= TRAIN_TOL[tol_key]:
+            fail(f"after step 1, {nm} of the fused and reference plans disagree")
+    del step1
+    for name, c in path_counts.items():
+        if c:
+            records[name].setdefault("launches_by_path", {})["train"] = c
+
+    # step time, tokens/s and the device's share of it (one more fused step)
+    state, step = plans["fused"]
+    del plans["reference"]
+    torch.cuda.empty_cache()
+    warm = walls[1:]
+    tokens = cfg.global_batch * cfg.seq_len
+    step_ms = float(np.mean(warm))
+    print(f"  fused step wall (host clock, synchronized): {', '.join(f'{w:.1f}' for w in walls)} "
+          f"ms; warm mean {step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    _, t_prof = host_ms(lambda: step(state, batches[TRAIN_STEPS]))
+    report_profile("fused train step (profiled)", lambda: step(state, batches[TRAIN_STEPS]),
+                   t_prof, top=14)
+    del state, plans
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -565,14 +1036,26 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    from repro_torch.configs import get_config
+
     records = {}
     phase_kernels(records)
     phase_engine(records)
+    torch.cuda.empty_cache()
+    phase_train_kernels(records, train_layout(get_config("bert-large")))
+    phase_train(records)
     torch.cuda.synchronize()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} for r in records.values()]
+    kernels = []
+    for r in records.values():
+        by_path = r.get("launches_by_path", {})
+        r["launches"] = sum(by_path.values())
+        if r["launches"] == 0:
+            fail(f"{r['name']} was launched no time on the main paths")
+        kernels.append({**{k: r[k] for k in keys},
+                        **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

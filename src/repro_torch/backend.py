@@ -1,14 +1,20 @@
 """Execution plan of the port: which implementation serves each subsystem.
 
-The counterpart of ``repro/backend.py::Backend`` with one subsystem so far:
+The counterpart of ``repro/backend.py::Backend``:
 
-  ============  ====================================  ======================
-  subsystem     fused                                 reference
-  ============  ====================================  ======================
-  ``attention``  hand-written CUDA kernels             plain PyTorch SDPA /
-                 (kernels/flash_attention.py,          chunked softmax
-                 kernels/flash_decode.py)              (models/attention.py)
-  ============  ====================================  ======================
+  =============  ===================================  =======================
+  subsystem      fused                                reference
+  =============  ===================================  =======================
+  ``attention``  hand-written CUDA kernels            plain PyTorch SDPA /
+                 (kernels/flash_attention.py,         chunked softmax
+                 kernels/flash_attention_bwd.py,      (models/attention.py)
+                 kernels/flash_decode.py)
+  ``optimizer``  flat m/v/p state, one VR-LAMB        per-leaf tree math
+                 kernel pass (kernels/flat_update.py)  (core/vrgd.py)
+  ``stats``      flat (g_sum, g2_sum) carry, one      per-leaf tree carry
+                 kernel per microbatch + finalize     (core/accumulate.py)
+                 (kernels/flat_stats.py)
+  =============  ===================================  =======================
 
 Each mode is one of ``"fused" | "reference" | "auto"``.  ``"auto"`` resolves
 per tensor: fused for every CUDA tensor, reference for a CPU tensor — so the
@@ -29,7 +35,7 @@ FUSED = "fused"
 REFERENCE = "reference"
 AUTO = "auto"
 _MODES = (FUSED, REFERENCE, AUTO)
-SUBSYSTEMS = ("attention",)
+SUBSYSTEMS = ("attention", "optimizer", "stats")
 HOPPER = (9, 0)
 
 
@@ -45,6 +51,8 @@ class Backend:
     """Per-subsystem execution plan (frozen, hashable)."""
 
     attention: str = AUTO
+    optimizer: str = AUTO
+    stats: str = AUTO
 
     def __post_init__(self):
         for sub in SUBSYSTEMS:
@@ -67,8 +75,8 @@ class Backend:
 
     @classmethod
     def all_fused(cls) -> "Backend":
-        return cls(attention=FUSED)
+        return cls(attention=FUSED, optimizer=FUSED, stats=FUSED)
 
     @classmethod
     def all_reference(cls) -> "Backend":
-        return cls(attention=REFERENCE)
+        return cls(attention=REFERENCE, optimizer=REFERENCE, stats=REFERENCE)

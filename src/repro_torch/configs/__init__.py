@@ -11,11 +11,13 @@ from typing import Dict
 from repro_torch.configs.base import (  # noqa: F401  (public re-exports)
     Config,
     ModelConfig,
+    OptimizerConfig,
     ParallelismConfig,
     smoke_variant,
 )
 
 ARCH_MODULES: Dict[str, str] = {
+    "bert-large": "bert_large",
     "internlm2-1.8b": "internlm2_1_8b",
     "granite-3-2b": "granite_3_2b",
 }

@@ -1,9 +1,8 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the parts of ``repro/configs/base.py`` that the port runs: the
-model and runtime configs and ``smoke_variant`` (the optimizer config comes
-with the training slice).  The port keeps its own copy because the
-reference module imports the JAX execution plan.
+model, optimizer and runtime configs and ``smoke_variant``.  The port keeps
+its own copy because the reference module imports the JAX execution plan.
 
 Block kinds the port's transformer runs:
 
@@ -82,11 +81,44 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "vr_lamb"  # {sgd,momentum,adam,lars,lamb} or vr_ prefixed
+    lr: float = 1e-3
+    warmup_steps: int = 0  # 0 = no warm-up (explicit opt-in)
+    total_steps: int = 1000
+    schedule: str = "cosine"  # cosine | poly | linear | constant
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    b3: float = 0.9  # GSNR momentum decay (paper beta_3)
+    eps: float = 1e-6
+    momentum: float = 0.9
+    grad_clip: float = 1.0
+    # --- VRGD hyper-parameters (paper defaults) ---
+    gamma: float = 0.1  # GSNR clip floor, paper sec. 4.1 (never tuned in paper)
+    k: int = 8  # statistic groups; paper: min devices holding LB, >= 8
+    gsnr_source: str = "microbatch"  # microbatch | data_axis
+    gsnr_eps: float = 1e-12
+    stats_method: str = "scan"  # scan (paper) | vmap (shared FSDP gathers)
+    gsnr_refresh: int = 1  # recompute GradStats every R steps (1 = paper)
+    state_dtype: str = "float32"  # storage dtype for m/v/p moments (math in f32)
+    # --- batch-size LR scaling (paper sec. 6) ---
+    base_batch: int = 0  # reference batch cfg.lr was tuned at; 0 = no rescale
+    lr_scale_rule: str = "sqrt"  # sqrt (paper's choice) | linear | none
+    noise_beta: float = 0.9  # EMA decay for tr(Sigma)/|G|^2 noise-scale smoothing
+
+    @property
+    def is_vr(self) -> bool:
+        return self.name.startswith("vr_")
+
+
+@dataclasses.dataclass(frozen=True)
 class ParallelismConfig:
+    remat: bool = True  # recompute each layer group's forward in the backward
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # Execution plan (repro_torch.backend.Backend): which attention
-    # implementation serves the model.
+    # Execution plan (repro_torch.backend.Backend): which implementation
+    # serves attention, the optimizer update and the gradient statistics.
     backend: Backend = Backend()
     attn_chunk: int = 1024  # q-chunk for online-softmax attention (0 = naive)
 
@@ -94,9 +126,15 @@ class ParallelismConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     parallel: ParallelismConfig = dataclasses.field(default_factory=ParallelismConfig)
     seed: int = 0
+    global_batch: int = 32
     seq_len: int = 512  # serving default: cache_len = seq_len + 64, prefill chunk = seq_len
+    # Cross-entropy normalization for packed batches: "token" = mean over
+    # live tokens; "document" = every packed document contributes its own
+    # token-mean NLL with equal weight.  Ignored for unpacked batches.
+    loss_norm: str = "token"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

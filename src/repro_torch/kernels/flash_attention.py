@@ -13,7 +13,11 @@ and window ``k_pos > q_pos - window``.  A query row with no valid key gives
 exactly 0 and ``lse = NEG_INF``.
 
 ``flash_attention`` launches the kernel for a CUDA tensor (or raises) and
-computes ``attention_fwd_ref`` for a CPU tensor.
+computes ``attention_fwd_ref`` for a CPU tensor; it is forward only.
+``flash_attention_train`` is the differentiable form (``FlashAttentionFn``,
+the counterpart of the reference's custom VJP ``_flash_fn``): its forward
+is the kernel with the LSE, its backward the kernel of
+``kernels/flash_attention_bwd.py``.
 """
 from __future__ import annotations
 
@@ -213,3 +217,49 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=None, *,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernels in both directions.
+
+    Forward: ``flash_attention(..., with_lse=True)``, saving (q, k, v, out,
+    lse) and the int operands.  Backward: ``delta = sum_d dO * O`` in f32 (one
+    plain reduction outside the kernel, as the reference computes it in jnp
+    outside Pallas), then ``flash_attention_bwd``; the position and segment
+    operands get no gradient.  First order only: differentiating the
+    backward again raises (``once_differentiable``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window):
+        out, lse = flash_attention(q, k, v, q_pos, k_pos, q_seg, k_seg, causal=causal,
+                                   window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos, q_seg, k_seg)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+        q, k, v, out, lse, q_pos, k_pos, q_seg, k_seg = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_train(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=None, *,
+                          causal: bool = True, window: int = 0):
+    """Differentiable ``flash_attention``: (B,Sq,H,D) out, whose gradient
+    runs the backward kernel (the plain versions on a CPU tensor)."""
+    b, sq = q.shape[:2]
+    skv = k.shape[1]
+    q_pos, k_pos, q_seg, k_seg = resolve_positions(
+        q_pos, k_pos, sq, skv, q_seg, k_seg, device=q.device
+    )
+    q_pos, q_seg = (as_rows(t, b, sq, q.device) for t in (q_pos, q_seg))
+    k_pos, k_seg = (as_rows(t, b, skv, q.device) for t in (k_pos, k_seg))
+    return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  q_pos, k_pos, q_seg, k_seg, causal, window)

@@ -1,0 +1,110 @@
+"""Flat gradient-moment carry: the CUDA kernels' wrappers and their plain
+versions.
+
+Counterpart of ``repro/kernels/flat_stats.py::flat_moments_accum`` and
+``::flat_moments_finalize`` (kernel bodies ``repro/kernels/grad_stats.py::
+_accum_kernel`` / ``_finalize_kernel``).  The kernels are
+``csrc/flat_stats.cu``; its source note gives the design and bound.
+
+Both functions work IN PLACE on the carry and return it (the reference
+returns new buffers with the same values):
+
+  flat_moments_accum(gs, g2s, g)     gs += g, g2s += g * g  (g cast to f32)
+  flat_moments_finalize(gs, g2s, k)  gs, g2s *= 1/k  -> (mean, sq_mean)
+
+On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
+computes the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.backend import HOPPER, device_info
+from repro_torch.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flat_moments_accum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _I, _P],
+}
+
+
+def inv_k(k) -> float:
+    """1/k as the reference computes it: an f32 division."""
+    return float(np.float32(1.0) / np.float32(k))
+
+
+def moments_accum_ref(gs, g2s, g):
+    """Plain version of the accumulate, in place."""
+    gf = g.float()
+    gs.add_(gf)
+    g2s.add_(gf * gf)
+    return gs, g2s
+
+
+def moments_finalize_ref(gs, g2s, k):
+    """Plain version of the finalize, in place: (mean, sq_mean)."""
+    inv = inv_k(k)
+    gs.mul_(inv)
+    g2s.mul_(inv)
+    return gs, g2s
+
+
+def _check(name, carry, others):
+    for t in (*carry, *others):
+        if t.device != carry[0].device or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous and on {carry[0].device}")
+        if t.shape != carry[0].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(carry[0].shape)}")
+    if any(t.dtype != torch.float32 for t in carry):
+        raise TypeError(f"{name}: the carry must be float32")
+    if carry[0].numel() % 4:
+        raise ValueError(f"{name}: {carry[0].numel()} elements is not a multiple of 4")
+    capability = device_info(carry[0].device.index)[0]
+    if capability != HOPPER:
+        raise RuntimeError(f"{name}: the kernel is built for sm_90a (Hopper), got {capability}")
+
+
+def flat_moments_accum(gs: torch.Tensor, g2s: torch.Tensor, g: torch.Tensor):
+    """One microbatch into the (g_sum, g2_sum) carry, in place; g is f32 or
+    bf16 of the same shape.  Returns (gs, g2s)."""
+    if gs.device.type == "cpu":
+        return moments_accum_ref(gs, g2s, g)
+    if gs.device.type != "cuda":
+        raise ValueError(f"flat_moments_accum: no implementation for device {gs.device}")
+    _check("flat_moments_accum", (gs, g2s), (g,))
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flat_moments_accum: g must be float32 or bfloat16, got {g.dtype}")
+    lib = _build.library("flat_stats", _SIGNATURES)
+    err = lib.flat_moments_accum(
+        gs.data_ptr(), g2s.data_ptr(), g.data_ptr(), gs.numel(), int(g.dtype == torch.bfloat16),
+        device_info(gs.device.index)[1], torch.cuda.current_stream(gs.device).cuda_stream,
+    )
+    _build.check(err, "flat_moments_accum")
+    flat_moments_accum.launches += 1
+    return gs, g2s
+
+
+def flat_moments_finalize(gs: torch.Tensor, g2s: torch.Tensor, k):
+    """The terminal /k of both carries, in place: returns (mean, sq_mean),
+    the same tensors as (gs, g2s)."""
+    if gs.device.type == "cpu":
+        return moments_finalize_ref(gs, g2s, k)
+    if gs.device.type != "cuda":
+        raise ValueError(f"flat_moments_finalize: no implementation for device {gs.device}")
+    _check("flat_moments_finalize", (gs, g2s), ())
+    lib = _build.library("flat_stats", _SIGNATURES)
+    err = lib.flat_moments_finalize(
+        gs.data_ptr(), g2s.data_ptr(), inv_k(k), gs.numel(), device_info(gs.device.index)[1],
+        torch.cuda.current_stream(gs.device).cuda_stream,
+    )
+    _build.check(err, "flat_moments_finalize")
+    flat_moments_finalize.launches += 1
+    return gs, g2s
+
+
+flat_moments_accum.launches = 0
+flat_moments_finalize.launches = 0

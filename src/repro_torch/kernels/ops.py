@@ -1,21 +1,38 @@
-"""Model-facing adapters of the attention kernels (the counterpart of the
-attention entries of ``repro/kernels/ops.py``): they reshape the model's
-grouped query layout (B, S, KV, G, D) to the kernels' (B, S, H, D) and back.
+"""Adapters between the port's model and optimizer stacks and its kernels
+(the counterpart of ``repro/kernels/ops.py``).
+
+The attention adapters reshape the model's grouped query layout
+(B, S, KV, G, D) to the kernels' (B, S, H, D) and back.  The flat-state
+entries run the k-group moment carry (``moments_*_flat``) and the VR-LAMB
+update (``vr_lamb_update``) over the ParamLayout flat buffers: one kernel
+wrapper call each.  The GSNR ratio derives from the raw group moments
+(stats.mean, stats.sq_mean) but multiplies the gradient entering the update
+(``grads``, possibly grad-clipped); moments are stored in ``state_dtype``
+and the GSNR-momentum bias correction uses the stats counter ``pt``.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core.gsnr import GradStats
+from repro_torch.core.layout import FlatBuffer, ParamLayout
+from repro_torch.core.vrgd import bias_corrections
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flat_stats as fs
+from repro_torch.kernels import flat_update as fu
 
 
 def flash_attention(qh, k, v, q_pos=None, k_pos=None, *, q_seg=None, k_seg=None,
-                    causal: bool = True, window: int = 0):
+                    causal: bool = True, window: int = 0, train: bool = False):
     """qh (B,S,KV,G,D) against k, v (B,Skv,KV,D) -> (B,S,KV,G,D).  Omitted
     positions mean the implicit arange layout; segments are derived from the
-    positions when not supplied."""
+    positions when not supplied.  ``train`` with autograd on runs the
+    differentiable form (forward and backward kernels)."""
     b, s, kvh, g, d = qh.shape
-    out = fa.flash_attention(qh.reshape(b, s, kvh * g, d), k, v, q_pos, k_pos, q_seg, k_seg,
-                             causal=causal, window=window)
+    fn = fa.flash_attention_train if train and torch.is_grad_enabled() else fa.flash_attention
+    out = fn(qh.reshape(b, s, kvh * g, d), k, v, q_pos, k_pos, q_seg, k_seg,
+             causal=causal, window=window)
     return out.reshape(b, s, kvh, g, d)
 
 
@@ -26,3 +43,37 @@ def flash_decode(qh, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, w
     out = fd.flash_decode(qh.reshape(b, l, kvh * g, d), k, v, q_pos, k_pos, q_seg, k_seg,
                           causal=causal, window=window)
     return out.reshape(b, l, kvh, g, d)
+
+
+def vr_lamb_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
+                   gsnr_eps, params: FlatBuffer, state_dtype: str = "float32"):
+    """The full VR-LAMB update as one ``flat_vr_lamb`` call: returns (upd
+    FlatBuffer, new state).  m, v, p are updated in place."""
+    t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3)
+    layout = state["m"].layout
+    upd, m, v, p = fu.flat_vr_lamb(
+        stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data, state["v"].data,
+        state["p"].data, params.data, (lr, bc1, bc2, bc3), layout,
+        b1=b1, b2=b2, b3=b3, eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps,
+        state_dtype=state_dtype,
+    )
+    new_state = {"step": t, "pt": pt, "m": FlatBuffer(m, layout), "v": FlatBuffer(v, layout),
+                 "p": FlatBuffer(p, layout)}
+    return FlatBuffer(upd, layout), new_state
+
+
+def moments_init_flat(layout: ParamLayout, device):
+    """Flat zero carries (g_sum, g2_sum) for the accumulation loop."""
+    return layout.zeros(torch.float32, device), layout.zeros(torch.float32, device)
+
+
+def moments_accum_flat(g_sum, g2_sum, g):
+    """One microbatch's flat gradient into both carries (one launch, in
+    place)."""
+    return fs.flat_moments_accum(g_sum, g2_sum, g)
+
+
+def moments_finalize_flat(g_sum, g2_sum, k: int, layout: ParamLayout) -> GradStats:
+    """The /k normalize (one launch, in place) -> GradStats of FlatBuffers."""
+    mean, sq = fs.flat_moments_finalize(g_sum, g2_sum, k)
+    return GradStats(mean=FlatBuffer(mean, layout), sq_mean=FlatBuffer(sq, layout), k=k)

@@ -7,8 +7,9 @@ comes with a later slice).  Three execution paths, one masking contract:
   * chunked    — ``_chunked_sdpa``: online softmax over q and kv chunks, for
                  long sequences;
   * fused      — the hand-written CUDA kernels through ``kernels/ops.py``:
-                 flash-attention forward for train/prefill and split-KV
-                 flash decode over the paged cache.  Selected by the plan's
+                 flash-attention forward for train/prefill (differentiable
+                 in train mode: its backward is the backward kernel) and
+                 split-KV flash decode over the paged cache.  Selected by the plan's
                  ``attention`` subsystem (repro_torch.backend.Backend).
 
 Positions < 0 are padding, causal/window compare absolute positions, and
@@ -236,11 +237,12 @@ def attention(
         seg_k = seg_q
     fused = plan.fused("attention", x.device)
     if fused and mode in ("train", "prefill"):
+        train = mode == "train"  # differentiable: the backward runs its kernel too
         if implicit_layout:
-            out = kops.flash_attention(qh, k, v, causal=causal, window=window)
+            out = kops.flash_attention(qh, k, v, causal=causal, window=window, train=train)
         else:
             out = kops.flash_attention(qh, k, v, q_pos, k_pos, q_seg=seg_q, k_seg=seg_k,
-                                       causal=causal, window=window)
+                                       causal=causal, window=window, train=train)
     elif fused and mode == "decode":
         out = kops.flash_decode(qh, k, v, q_pos, k_pos, seg_q, seg_k,
                                 causal=causal, window=window)

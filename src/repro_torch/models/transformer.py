@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig, ParallelismConfig
 from repro_torch.models import attention as attn_mod
@@ -125,8 +126,11 @@ def forward(
     (B, S) explicit segment ids (None = derived from positions); seg_base:
     (B,) offset into a cache row's segment numbering; gather_idx: (B, L)
     per-row token indices to unembed, which overrides last_only.  A cache
-    passed with mode="prefill" is appended to.  aux is empty: no MoE block
-    is ported."""
+    passed with mode="prefill" is appended to.  In mode "train" with
+    autograd on and ``pcfg.remat``, each layer group runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward), as the
+    reference wraps its scanned group in ``jax.checkpoint``; the tail is not
+    rematerialized there either.  aux is empty: no MoE block is ported."""
     dtype = getattr(torch, pcfg.compute_dtype)
     b, s = tokens.shape
     implicit_layout = positions is None
@@ -140,12 +144,25 @@ def forward(
     use_cache_in = cache is not None and mode in ("decode", "prefill")
 
     x = embed_tokens(params["embed"], tokens, dtype)
+    kw = dict(q_pos=q_pos, mode=mode, cache_len=cache_len, implicit_layout=implicit_layout,
+              q_seg=segments, seg_base=seg_base)
     layer_caches = []
-    for kind, p, blk_cache in _layers(cfg, params, cache if use_cache_in else None):
-        x, nc = _block_apply(cfg, pcfg, kind, p, x, q_pos=q_pos, cache=blk_cache, mode=mode,
-                             cache_len=cache_len, implicit_layout=implicit_layout,
-                             q_seg=segments, seg_base=seg_base)
-        layer_caches.append(nc)
+    if mode == "train" and pcfg.remat and torch.is_grad_enabled():
+        # the counterpart of jax.checkpoint around each scanned layer group:
+        # a group's activations are recomputed in the backward
+        def group_fn(xx, gp):
+            for i, kind in enumerate(cfg.block_pattern):
+                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None, **kw)
+            return xx
+
+        for gp in params["groups"]:
+            x = checkpoint(group_fn, x, gp, use_reentrant=False)
+        for kind, p in zip(cfg.tail_kinds(), params["tail"]):
+            x, _ = _block_apply(cfg, pcfg, kind, p, x, cache=None, **kw)
+    else:
+        for kind, p, blk_cache in _layers(cfg, params, cache if use_cache_in else None):
+            x, nc = _block_apply(cfg, pcfg, kind, p, x, cache=blk_cache, **kw)
+            layer_caches.append(nc)
 
     if gather_idx is not None:
         idx = gather_idx.long()[:, :, None].expand(-1, -1, x.shape[-1])
@@ -225,7 +242,7 @@ def cache_shapes(cfg: ModelConfig, pcfg: ParallelismConfig, batch: int, prompt_l
 def _fill(m: nn.Module, tree: Dict) -> nn.Module:
     for k, val in tree.items():
         if isinstance(val, torch.Tensor):
-            m.register_parameter(k, nn.Parameter(val, requires_grad=False))
+            m.register_parameter(k, nn.Parameter(val))
         elif isinstance(val, (list, tuple)):
             m.add_module(k, nn.ModuleList([_fill(nn.Module(), t) for t in val]))
         else:
@@ -245,7 +262,11 @@ def _to_tree(m: nn.Module, cast):
 class Transformer(nn.Module):
     """Holds a params tree as module parameters.  Parameter names are the
     reference checkpoint paths with '/' -> '.' and the stacked group axis
-    split out (``groups/pos0/attn/wq``[i] -> ``groups.i.pos0.attn.wq``)."""
+    split out (``groups/pos0/attn/wq``[i] -> ``groups.i.pos0.attn.wq``).
+    The parameters take gradients; ``forward`` serves from the cached
+    compute-dtype copy.  Training runs the functional ``forward`` over a
+    FlatParams tree (train/trainer.py), which casts the f32 weights to the
+    compute dtype at every call, as the reference does."""
 
     def __init__(self, cfg: ModelConfig, params: Dict):
         super().__init__()
@@ -255,8 +276,10 @@ class Transformer(nn.Module):
 
     def compute_params(self, dtype: torch.dtype) -> Dict:
         """The params tree with the projection and embedding weights cast to
-        ``dtype`` once.  The reference casts them at every call; the values
-        are identical, the copy saves the per-call cast.  Cached per dtype."""
+        ``dtype`` once, detached.  The reference casts them at every call;
+        the values are identical, the copy saves the per-call cast.  Cached
+        per dtype: a snapshot for serving, stale once the parameters are
+        updated, so training never reads it."""
         if dtype not in self._compute:
             # a tied table also feeds the f32 head, so it keeps its dtype
             leaves = set(COMPUTE_CAST_LEAVES) - ({"embed"} if self.cfg.tie_embeddings else set())

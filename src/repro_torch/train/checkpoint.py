@@ -7,6 +7,12 @@ Its transformer stacks the layer groups along a leading ``n_groups`` axis
 or keeps a list (``groups/0/pos0/...``) otherwise.  The port's tree holds
 one entry per group (models/transformer.py), so stacked leaves are split
 here.  Weights keep the reference's (in, out) layout: nothing is transposed.
+
+Flat buffers (core/layout.py) carry across in the reference's stacked
+layout: ``flat_from_numpy`` packs a reference tree (e.g. its params or an
+unpacked m/v/p state) row for row as the reference's ParamLayout does, and
+``flat_to_numpy`` is the inverse.  Saving and restoring a whole train state
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layout import ParamLayout
 
 
 def _tensor(a, device, dtype):
@@ -120,3 +127,23 @@ def save_npz(path: str, params: Dict, cfg: ModelConfig) -> None:
     with open(tmp, "wb") as fh:
         np.savez(fh, **flat)
     os.replace(tmp, path)
+
+
+def flat_from_numpy(tree: Dict[str, Any], layout: ParamLayout = None, device="cpu",
+                    dtype=torch.float32) -> torch.Tensor:
+    """The reference's stacked tree (numpy leaves) packed into the port's
+    ``(n_rows, 128)`` layout (``layout`` defaults to the tree's own)."""
+    layout = layout or ParamLayout.for_tree(tree)
+    return layout.pack(_convert(tree, device, torch.float32), dtype, device=device)
+
+
+def flat_to_numpy(buf: torch.Tensor, layout: ParamLayout) -> Dict[str, Any]:
+    """Inverse of ``flat_from_numpy``: the stacked tree of f32 numpy arrays."""
+    def to_np(tree):
+        if isinstance(tree, dict):
+            return {k: to_np(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_np(v) for v in tree]
+        return tree.detach().float().cpu().numpy()
+
+    return to_np(layout.unpack(buf))

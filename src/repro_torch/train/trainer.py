@@ -1,0 +1,144 @@
+"""Training loop: the VR-LAMB train step with k-microbatch GSNR statistics.
+
+Port of ``repro/train/trainer.py::make_train_step`` (microbatch GSNR source,
+no mesh), ``init_state`` and ``train_loop``.  One step is the paper's
+Algorithm 5 end to end:
+
+  1. split the batch into k microbatches; forward + backward of each, its
+     gradient folded into the (g_sum, g2_sum) carry; then /k
+     (core/accumulate.py);
+  2. clip the MEAN gradient to the global norm ``grad_clip`` -> ga (the
+     GSNR ratio still reads the raw moments);
+  3. VR-LAMB: GSNR -> normalize -> clip -> GSNR momentum -> Adam direction
+     -> per-leaf trust ratio (core/vrgd.py);
+  4. params += update, in place on the flat parameter buffer.
+
+On the fused plan steps 1 and 3 run the kernels (K1 forward and remat
+forward, K2 backward, K3 per microbatch, K4, K5); on the reference plan
+their plain PyTorch versions.  Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``.  Not yet ported: the data-axis GSNR source
+and mesh sharding, the stale-GSNR (``gsnr_refresh > 1``) steps, the
+noise-scale readings and every optimizer but vr_lamb.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import Config
+from repro_torch.core.accumulate import grad_stats
+from repro_torch.core.gsnr import gsnr_scale, gsnr_summary
+from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat, tree_leaves, tree_map
+from repro_torch.core.vrgd import make_optimizer
+from repro_torch.models import init_params
+from repro_torch.serve.engine import resolve_device
+from repro_torch.train.loss import make_loss_fn
+from repro_torch.train.train_state import TrainState
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in f32 (the zero tail of
+    a flat buffer adds nothing)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+
+
+def _to_device(batch: Dict, device) -> Dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_train_step(
+    cfg: Config,
+    loss_fn: Optional[Callable] = None,
+    log_gsnr: bool = False,
+    device=None,
+) -> Tuple[Callable, object]:
+    """Returns (train_step(state, batch) -> (state, metrics), optimizer).
+
+    ``batch`` is a dict of (B, ...) arrays or tensors (moved to the device);
+    metrics are 0-dim tensors: loss, grad_norm, update_norm, the loss's own
+    (ce, pack_efficiency) and, with ``log_gsnr``, gsnr/mean, gsnr/min and
+    gsnr/frac_floor."""
+    opt_cfg = cfg.optimizer
+    if opt_cfg.gsnr_source != "microbatch":
+        raise NotImplementedError(f"gsnr_source={opt_cfg.gsnr_source!r} is not yet ported")
+    device = resolve_device(device)
+    bk = cfg.parallel.backend
+    if bk.resolve("stats", device) != bk.resolve("optimizer", device):
+        raise NotImplementedError(
+            "a plan whose stats and optimizer subsystems resolve to different modes "
+            f"({bk.resolve('stats', device)} / {bk.resolve('optimizer', device)}) is not yet "
+            "ported: the flat carry feeds only the flat update")
+    opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch)
+    loss_fn = loss_fn or make_loss_fn(cfg)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        flat: FlatParams = state.params
+        loss, aux, stats = grad_stats(loss_fn, flat, _to_device(batch, flat.device), opt_cfg.k,
+                                      method=opt_cfg.stats_method, backend=bk)
+        grads = stats.mean
+        fused_opt = is_flat(state.opt_state["m"])
+        gnorm = global_norm(grads)
+        if opt_cfg.grad_clip > 0:
+            scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        w = FlatBuffer(flat.data, flat.layout) if fused_opt else flat.stacked()
+        with torch.no_grad():
+            upd, opt_state = opt.update(grads, state.opt_state, w, stats=stats)
+            tree_map(lambda p, u: p.add_(u), w, upd)
+        metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": global_norm(upd), **aux}
+        if log_gsnr:
+            with torch.no_grad():
+                metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma), opt_cfg.gamma))
+        return state._replace(opt_state=opt_state, step=opt_state["step"]), metrics
+
+    return train_step, opt
+
+
+def init_state(cfg: Config, params: Optional[Dict] = None, device=None) -> TrainState:
+    """TrainState with the params (the port's tree; default: seeded random
+    init from ``cfg.seed``) copied into a FlatParams on ``device``, and the
+    optimizer state of the plan ``cfg.parallel.backend`` resolves to."""
+    device = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        params = init_params(cfg.model, gen, device=device)
+    flat = FlatParams(params, cfg.model.n_groups(), device=device)
+    opt = make_optimizer(cfg.optimizer, backend=cfg.parallel.backend,
+                         effective_batch=cfg.global_batch)
+    return TrainState(flat, opt.init(flat), 0)
+
+
+def train_loop(
+    cfg: Config,
+    batches: Iterable,
+    steps: int,
+    state: Optional[TrainState] = None,
+    loss_fn: Optional[Callable] = None,
+    log_every: int = 0,
+    log_gsnr: bool = False,
+    device=None,
+):
+    """Simple driver: returns (state, history)."""
+    if cfg.optimizer.gsnr_refresh > 1:
+        raise NotImplementedError("gsnr_refresh > 1 (stale-GSNR steps) is not yet ported")
+    device = resolve_device(device)
+    step_fn, _ = make_train_step(cfg, loss_fn, log_gsnr=log_gsnr, device=device)
+    state = state or init_state(cfg, device=device)
+    history = []
+    it = iter(batches)
+    t0 = time.time()
+    for i in range(steps):
+        state, metrics = step_fn(state, next(it))
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            m = {k_: float(v) for k_, v in metrics.items()}
+            m["step"], m["wall"] = i, time.time() - t0
+            history.append(m)
+            print(
+                f"  step {i:5d} loss {m['loss']:.4f} |g| {m['grad_norm']:.3f}"
+                + (f" gsnr {m['gsnr/mean']:.3f}" if "gsnr/mean" in m else "")
+                + (f" pack {m['pack_efficiency']:.2f}" if "pack_efficiency" in m else ""),
+                flush=True,
+            )
+    return state, history

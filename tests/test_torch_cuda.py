@@ -7,8 +7,13 @@ package, so it also runs on a machine with the card and no JAX:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: bf16 outputs 2e-2 (one bf16 ulp at |x| < 4 — both sides do the
-math in f32 from the same inputs and round the output), f32 results 1e-4
-(summation order over at most a few hundred terms).
+math in f32 from the same inputs and round the output); bf16 attention
+gradients, which are far smaller, one ulp of their own scale (rtol 2^-7,
+atol 2^-7 of the largest magnitude); f32 results 1e-4
+(summation order over at most a few hundred terms); the moment carry is
+exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
+(its per-leaf sums are f32 atomics in another order), bf16 state one bf16
+ulp (rtol 2^-7).
 """
 import dataclasses
 
@@ -18,10 +23,16 @@ import torch
 
 from repro_torch.backend import Backend
 from repro_torch.configs import get_smoke
+from repro_torch.core.layout import ParamLayout, pad_mask
+from repro_torch.data import lm_batches
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flat_stats as fs
+from repro_torch.kernels import flat_update as fu
 from repro_torch.models import init_params
 from repro_torch.serve import Engine
+from repro_torch.train import init_state, make_train_step
 
 BF16 = dict(atol=2e-2, rtol=2e-2)
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -122,3 +133,143 @@ def test_engine_fused_plan_matches_reference_plan(dev):
                  params, cache_len=32, device=dev).generate(prompts, 6)
     np.testing.assert_array_equal(fused.tokens, ref.tokens)
     np.testing.assert_allclose(fused.logprobs, ref.logprobs, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,causal", [(torch.bfloat16, 64, False), (torch.bfloat16, 128, True),
+                                            (torch.float32, 128, True)])
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, d, causal):
+    rng = np.random.default_rng(7)
+    b, s, h, kvh = 2, 160, 4, 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                   for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d), (b, s, h, d)))
+    pos = torch.from_numpy(_packed(b, s, rng)).to(dev)
+    seg = fa.segment_ids_from_positions(pos)
+    out, lse = fa.flash_attention(q, k, v, pos, pos, seg, seg, causal=causal, window=37,
+                                  with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fab.flash_attention_bwd(q, k, v, lse, delta, do, pos, pos, seg, seg, causal=causal,
+                                  window=37)
+    want = fab.attention_bwd_ref(q, k, v, lse, delta, do, causal=causal, window=37, q_pos=pos,
+                                 k_pos=pos, q_seg=seg, k_seg=seg)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        tol = F32 if dtype == torch.float32 else \
+            dict(atol=2.0**-7 * float(w.float().abs().max()), rtol=2.0**-7)
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+    assert bool((got[0][pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_matches_autograd_of_plain(dev):
+    rng = np.random.default_rng(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 128, 4, 64), dtype=np.float32)).to(dev)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fab.flash_attention_bwd.launches
+    fa.flash_attention_train(*leaves, causal=False).backward(do)
+    assert fab.flash_attention_bwd.launches == before + 1
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.attention_fwd_ref(*plain, causal=False)[0].backward(do)
+    for a, w in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, w.grad, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_flat_kernels_match_plain(dev, state_dtype):
+    rng = np.random.default_rng(9)
+    tree = {"a": torch.empty(70000), "b": {"c": torch.empty(3, 5, 7), "d": torch.empty(4096)}}
+    layout = ParamLayout.for_tree(tree)
+    mask = pad_mask(layout, dev)
+
+    def rand(scale=1.0, positive=False):
+        x = torch.from_numpy(rng.standard_normal((layout.n_rows, 128), dtype=np.float32)).to(dev)
+        x = x.abs() if positive else x
+        return torch.where(mask, x * scale, 0.0)
+
+    gs, g2s, g = rand(), rand(positive=True), rand()
+    got = fs.flat_moments_accum(gs.clone(), g2s.clone(), g)
+    want = fs.moments_accum_ref(gs.clone(), g2s.clone(), g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-6, atol=0)
+    got = fs.flat_moments_finalize(*[t.clone() for t in want], 8)
+    want = fs.moments_finalize_ref(*[t.clone() for t in want], 8)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+    sd = getattr(torch, state_dtype)
+    g = rand(0.1)
+    g2 = g * g + rand(0.01, positive=True)
+    ga, w = g * 0.7, rand(0.5)
+    m, v, p = rand(0.01), rand(1e-3, positive=True), torch.where(mask, 0.5, 0.0)
+    hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12,
+                 state_dtype=state_dtype)
+    scal = (1e-3, 0.19, 0.002, 0.19)
+    ks = [t.to(sd).clone() for t in (m, v, p)]
+    ps = [t.to(sd).clone() for t in (m, v, p)]
+    launches = fu.flat_vr_lamb.launches
+    upd = fu.flat_vr_lamb(g, ga, g2, *ks, w, scal, layout, **hyper)[0]
+    assert fu.flat_vr_lamb.launches == launches + 1
+    want = fu.flat_vr_lamb_ref(g, ga, g2, *ps, w, scal, layout, **hyper)[0]
+    torch.testing.assert_close(upd, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    tol = dict(rtol=1e-4, atol=1e-7) if state_dtype == "float32" else dict(rtol=2.0**-7, atol=1e-6)
+    for a, b_ in zip(ks, ps):
+        torch.testing.assert_close(a.float(), b_.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_default_optimizer_keeps_flat_state_on_the_card(dev):
+    """make_optimizer(cfg) on the default (auto) plan gives flat m/v/p for
+    params on the card, and its update launches K5."""
+    from repro_torch.core.gsnr import GradStats
+    from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat
+    from repro_torch.core.vrgd import make_optimizer
+
+    cfg = get_smoke("bert-large")
+    flat = FlatParams(init_params(cfg.model, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev), cfg.model.n_groups(), device=dev)
+    opt = make_optimizer(cfg.optimizer)
+    state = opt.init(flat)
+    assert all(is_flat(state[k]) for k in ("m", "v", "p"))
+    w = FlatBuffer(flat.data, flat.layout)
+    g = FlatBuffer(torch.full_like(flat.data, 1e-3), flat.layout)
+    g2 = FlatBuffer(torch.full_like(flat.data, 2e-6), flat.layout)
+    launches = fu.flat_vr_lamb.launches
+    opt.update(g, state, w, stats=GradStats(g, g2, 8))
+    assert fu.flat_vr_lamb.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_train_step_fused_matches_reference_on_card(dev):
+    """bert-large smoke in f32 on the card: three VR-LAMB steps through the
+    kernels (K1, K2, K3, K4, K5) agree with the plain plan, and every kernel
+    ran its expected count per step."""
+    cfg = get_smoke("bert-large")
+    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32"))
+    params = init_params(cfg.model, torch.Generator(device=dev).manual_seed(0), device=dev)
+    runs = {}
+    for plan in ("fused", "reference"):
+        pc = cfg.replace(parallel=dataclasses.replace(
+            cfg.parallel, backend=Backend.all_fused() if plan == "fused" else Backend.all_reference()))
+        state = init_state(pc, params=params, device=dev)
+        step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+        batches = lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len)
+        hist = []
+        for _ in range(3):
+            counts = (fa.flash_attention.launches, fab.flash_attention_bwd.launches,
+                      fs.flat_moments_accum.launches, fs.flat_moments_finalize.launches,
+                      fu.flat_vr_lamb.launches)
+            state, metrics = step(state, next(batches))
+            delta = tuple(n - c for n, c in zip(
+                (fa.flash_attention.launches, fab.flash_attention_bwd.launches,
+                 fs.flat_moments_accum.launches, fs.flat_moments_finalize.launches,
+                 fu.flat_vr_lamb.launches), counts))
+            k, n = cfg.optimizer.k, cfg.model.n_layers
+            assert delta == ((2 * n * k, n * k, k, 1, 1) if plan == "fused" else (0,) * 5)
+            hist.append({key: float(val) for key, val in metrics.items()})
+        runs[plan] = (hist, state.params.data.clone())
+    for a, b_ in zip(runs["fused"][0], runs["reference"][0]):
+        for key in ("loss", "grad_norm", "update_norm", "gsnr/mean", "gsnr/frac_floor"):
+            np.testing.assert_allclose(a[key], b_[key], rtol=1e-3, atol=5e-4, err_msg=key)
+    torch.testing.assert_close(runs["fused"][1], runs["reference"][1], rtol=2e-4, atol=2e-5)
