@@ -25,10 +25,10 @@ Phases, in order; any failure exits non-zero:
                 attention forward with its LSE and the attention backward (bert-large's B=32 S=128 H=16 D=64
                 bidirectional, internlm2-1.8b's B=8 S=512 H=16/8 D=128
                 causal packed with pads, and through the autograd
-                Function), the flat moment carry and the flat VR-LAMB
-                update on bert-large's full flat layout (f32 and bf16
-                state); times beside bounds, plain versions and library
-                calls.
+                Function), the flat moment carry, the g-only carry and the
+                flat VR-LAMB, VR-Adam (f32 and bf16 state), VR-LARS and
+                VR-scale updates on bert-large's full flat layout; times
+                beside bounds, plain versions and library calls.
   8. train    — bert-large at published width and depth (seeded random
                 weights), seq 128, global batch 256, k=8: three VR-LAMB
                 steps through make_train_step on the fused plan (every
@@ -36,6 +36,13 @@ Phases, in order; any failure exits non-zero:
                 reference plan (plain versions) from the same params and
                 batches, compared step by step; step time, tokens/s and a
                 torch.profiler breakdown of one more fused step.
+  9. train optimizers — the same model and cut: two fresh steps of each of
+                VR-Adam, VR-LARS, VR-SGD and VR-Momentum on each plan; a
+                fresh then a stale step (gsnr_refresh 2) of VR-Adam and
+                VR-LAMB, the reference plan through train_loop; one LAMB
+                baseline step (a single backward over the whole batch).
+                Launch counts asserted per fused step, the plans compared
+                within TRAIN_TOL, warm step times and tokens/s.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -342,7 +349,11 @@ def counters():
             "flash_attention_bwd": fab.flash_attention_bwd,
             "flat_moments_accum": fs.flat_moments_accum,
             "flat_moments_finalize": fs.flat_moments_finalize,
-            "flat_vr_lamb": fu.flat_vr_lamb}
+            "flat_g_accum": fs.flat_g_accum,
+            "flat_vr_lamb": fu.flat_vr_lamb,
+            "flat_vr_adam": fu.flat_vr_adam,
+            "flat_vr_lars": fu.flat_vr_lars,
+            "flat_vr_scale": fu.flat_vr_scale}
 
 
 SERVE_KERNELS = ("flash_attention_fwd", "flash_decode_split", "flash_decode_combine")
@@ -391,7 +402,8 @@ def device_profile(fn):
 # cuBLAS GEMMs, and the rest (element-wise, copies, reductions)
 PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "accum_kernel", "finalize_kernel",
-                "r_partials_kernel", "compute_kernel", "apply_kernel")
+                "r_partials_kernel", "adam_kernel", "apply_kernel", "scale_kernel",
+                "lars_compute_kernel")
 
 
 def category(key: str) -> str:
@@ -803,50 +815,117 @@ def phase_train_kernels(records, layout):
         plain_ms=t4_plain, bound_ms=b4_ms, bound_by=b4_by, library_ms=t4_lib)
     del gs, g2s, g, kg, kg2, pg, pg2, km, ksq, pm, psq
 
-    # ---- K5 flat_vr_lamb ----------------------------------------------------
-    print("[train kernels] flat_vr_lamb", flush=True)
+    # ---- K5 flat_vr_lamb and K6 flat_vr_adam ---------------------------------
+    print("[train kernels] flat_vr_lamb, flat_vr_adam", flush=True)
     g = rand(1e-3)
     g2 = (g * g).add_(rand(1e-6, positive=True))
     ga, w = g * 0.5, rand(0.03)
     m0, v0 = rand(1e-4), rand(1e-7, positive=True)
     p0 = mask.float().mul_(0.4)
+    meta_bytes = 4 * layout.n_blocks + 4 * layout.leaf_slots
     hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12)
     scal = (3.5e-6, 0.19, 0.001999, 0.19)
-    err5, times = 0.0, {}
-    for sd_name in ("float32", "bfloat16"):
-        sd = getattr(torch, sd_name)
-        km, kv, kp = (t.to(sd) for t in (m0, v0, p0))
-        pm, pv, pp = (t.clone() for t in (km, kv, kp))
-        upd = fu.flat_vr_lamb(g, ga, g2, km, kv, kp, w, scal, layout, state_dtype=sd_name,
-                              **hyper)[0]
-        want = fu.flat_vr_lamb_ref(g, ga, g2, pm, pv, pp, w, scal, layout, state_dtype=sd_name,
-                                   **hyper)[0]
-        tol_upd = dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)
-        err5 = max(err5, check_close(f"flat_vr_lamb {sd_name} state: upd", upd, want, tol_upd))
-        del upd, want
-        for nm, a, b_ in zip(("m", "v", "p"), (km, kv, kp), (pm, pv, pp)):
-            tol = TOL_BF16_STATE if sd_name == "bfloat16" else \
-                dict(atol=1e-4 * float(b_.abs().max()), rtol=1e-4)
-            err5 = max(err5, check_close(f"flat_vr_lamb {sd_name} state: {nm}'", a, b_, tol))
-        del pm, pv, pp
-        t5 = cuda_ms(lambda: fu.flat_vr_lamb(g, ga, g2, km, kv, kp, w, scal, layout,
-                                             state_dtype=sd_name, **hyper))
-        t5_plain = cuda_ms(lambda: fu.flat_vr_lamb_ref(g, ga, g2, km, kv, kp, w, scal, layout,
-                                                       state_dtype=sd_name, **hyper), iters=5)
-        state_bytes = 6 * n * km.element_size()
-        b5_ms, b5_by = bound(5 * n * 4 + state_bytes + 4 * layout.n_blocks
-                             + 4 * layout.leaf_slots, 40 * n, "float32")
-        times[sd_name] = (t5, t5_plain, b5_ms, b5_by)
-        print(f"  {sd_name} state (ms): kernel (3 launches)={t5:.4f} plain={t5_plain:.4f} "
-              f"bound={b5_ms:.4f} ({b5_by}); no single PyTorch call computes it", flush=True)
-        del km, kv, kp
-    t5, t5_plain, b5_ms, b5_by = times["float32"]
-    records["flat_vr_lamb"] = dict(
-        name="flat_vr_lamb", route="cuda", source="src/repro_torch/kernels/csrc/flat_update.cu",
-        replaces="src/repro/kernels/flat_update.py:304", max_abs_err=err5, ms=t5,
-        plain_ms=t5_plain, bound_ms=b5_ms, bound_by=b5_by, library_ms=None,
-        bf16_state_ms=times["bfloat16"][0], bf16_state_bound_ms=times["bfloat16"][2],
-    )
+    adam_family = {"flat_vr_lamb": (fu.flat_vr_lamb, fu.flat_vr_lamb_ref, "304", 3),
+                   "flat_vr_adam": (fu.flat_vr_adam, fu.flat_vr_adam_ref, "217", 2)}
+    for name, (kernel, plain, line, n_launch) in adam_family.items():
+        err, times = 0.0, {}
+        for sd_name in ("float32", "bfloat16"):
+            sd = getattr(torch, sd_name)
+            km, kv, kp = (t.to(sd) for t in (m0, v0, p0))
+            pm, pv, pp = (t.clone() for t in (km, kv, kp))
+            upd = kernel(g, ga, g2, km, kv, kp, w, scal, layout, state_dtype=sd_name, **hyper)[0]
+            want = plain(g, ga, g2, pm, pv, pp, w, scal, layout, state_dtype=sd_name, **hyper)[0]
+            tol_upd = dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)
+            err = max(err, check_close(f"{name} {sd_name} state: upd", upd, want, tol_upd))
+            del upd, want
+            for nm, a, b_ in zip(("m", "v", "p"), (km, kv, kp), (pm, pv, pp)):
+                tol = TOL_BF16_STATE if sd_name == "bfloat16" else \
+                    dict(atol=1e-4 * float(b_.abs().max()), rtol=1e-4)
+                err = max(err, check_close(f"{name} {sd_name} state: {nm}'", a, b_, tol))
+            del pm, pv, pp
+            t_k = cuda_ms(lambda: kernel(g, ga, g2, km, kv, kp, w, scal, layout,
+                                         state_dtype=sd_name, **hyper))
+            t_p = cuda_ms(lambda: plain(g, ga, g2, km, kv, kp, w, scal, layout,
+                                        state_dtype=sd_name, **hyper), iters=5)
+            state_bytes = 6 * n * km.element_size()
+            b_ms, b_by = bound(5 * n * 4 + state_bytes + meta_bytes, 40 * n, "float32")
+            times[sd_name] = (t_k, t_p, b_ms, b_by)
+            print(f"  {name} {sd_name} state (ms): kernel ({n_launch} launches)={t_k:.4f} "
+                  f"plain={t_p:.4f} bound={b_ms:.4f} ({b_by}); no single PyTorch call "
+                  "computes it", flush=True)
+            del km, kv, kp
+        t_k, t_p, b_ms, b_by = times["float32"]
+        records[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/flat_update.cu",
+            replaces=f"src/repro/kernels/flat_update.py:{line}", max_abs_err=err, ms=t_k,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bf16_state_ms=times["bfloat16"][0], bf16_state_plain_ms=times["bfloat16"][1],
+            bf16_state_bound_ms=times["bfloat16"][2],
+        )
+    torch.cuda.empty_cache()
+
+    # ---- K7 flat_vr_lars ----------------------------------------------------
+    print("[train kernels] flat_vr_lars", flush=True)
+    lars = dict(mu=0.9, wd=0.01, trust=0.001, eps=1e-12)
+    lscal = (3.5e-3, 0.1)
+    km, pm = m0.clone(), m0.clone()
+    upd = fu.flat_vr_lars(g, ga, g2, km, w, lscal, layout, **lars)[0]
+    want = fu.flat_vr_lars_ref(g, ga, g2, pm, w, lscal, layout, **lars)[0]
+    err7 = max(check_close("flat_vr_lars upd", upd, want,
+                           dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)),
+               check_close("flat_vr_lars m'", km, pm,
+                           dict(atol=1e-4 * float(pm.abs().max()), rtol=1e-4)))
+    del upd, want, pm
+    t7 = cuda_ms(lambda: fu.flat_vr_lars(g, ga, g2, km, w, lscal, layout, **lars))
+    t7_plain = cuda_ms(lambda: fu.flat_vr_lars_ref(g, ga, g2, km, w, lscal, layout, **lars),
+                       iters=5)
+    b7_ms, b7_by = bound(7 * n * 4 + meta_bytes, 20 * n, "float32")
+    print(f"  flat_vr_lars (ms): kernel (3 launches)={t7:.4f} plain={t7_plain:.4f} "
+          f"bound={b7_ms:.4f} ({b7_by}); no single PyTorch call computes it", flush=True)
+    records["flat_vr_lars"] = dict(
+        name="flat_vr_lars", route="cuda", source="src/repro_torch/kernels/csrc/flat_update.cu",
+        replaces="src/repro/kernels/flat_update.py:393", max_abs_err=err7, ms=t7,
+        plain_ms=t7_plain, bound_ms=b7_ms, bound_by=b7_by, library_ms=None)
+    del km
+
+    # ---- K8 flat_vr_scale ---------------------------------------------------
+    print("[train kernels] flat_vr_scale", flush=True)
+    sg, r = fu.flat_vr_scale(g, ga, g2, layout, gamma=0.1, eps=1e-12)
+    wsg, wr = fu.flat_vr_scale_ref(g, ga, g2, layout, gamma=0.1, eps=1e-12)
+    err8 = max(check_close("flat_vr_scale sg", sg, wsg,
+                           dict(atol=1e-4 * float(wsg.abs().max()), rtol=1e-4)),
+               check_close("flat_vr_scale r", r, wr, dict(atol=1e-4, rtol=1e-4)))
+    if not (bool((r[~mask] == 0.1).all()) and bool((sg[~mask] == 0).all())):
+        fail("flat_vr_scale: the padded tail must hold r = gamma and sg = 0")
+    del sg, r, wsg, wr
+    t8 = cuda_ms(lambda: fu.flat_vr_scale(g, ga, g2, layout, gamma=0.1, eps=1e-12))
+    t8_plain = cuda_ms(lambda: fu.flat_vr_scale_ref(g, ga, g2, layout, gamma=0.1, eps=1e-12),
+                       iters=5)
+    b8_ms, b8_by = bound(5 * n * 4 + meta_bytes, 10 * n, "float32")
+    print(f"  flat_vr_scale (ms): kernel (2 launches)={t8:.4f} plain={t8_plain:.4f} "
+          f"bound={b8_ms:.4f} ({b8_by}); no single PyTorch call computes it", flush=True)
+    records["flat_vr_scale"] = dict(
+        name="flat_vr_scale", route="cuda", source="src/repro_torch/kernels/csrc/flat_update.cu",
+        replaces="src/repro/kernels/flat_update.py:153", max_abs_err=err8, ms=t8,
+        plain_ms=t8_plain, bound_ms=b8_ms, bound_by=b8_by, library_ms=None)
+    torch.cuda.empty_cache()
+
+    # ---- K9 flat_g_accum ----------------------------------------------------
+    print("[train kernels] flat_g_accum", flush=True)
+    gs = rand()
+    err9 = check_close("flat_g_accum g_sum", fs.flat_g_accum(gs.clone(), g),
+                       fs.g_accum_ref(gs.clone(), g), TOL_EXACT)
+    t9 = cuda_ms(lambda: fs.flat_g_accum(gs, g))
+    t9_plain = cuda_ms(lambda: fs.g_accum_ref(gs, g))
+    t9_lib = cuda_ms(lambda: gs.add_(g))
+    b9_ms, b9_by = bound(3 * n * 4, n, "float32")
+    print(f"  flat_g_accum (ms): kernel={t9:.4f} plain={t9_plain:.4f} add_={t9_lib:.4f} "
+          f"bound={b9_ms:.4f} ({b9_by})", flush=True)
+    records["flat_g_accum"] = dict(
+        name="flat_g_accum", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
+        replaces="src/repro/kernels/flat_stats.py:77", max_abs_err=err9, ms=t9,
+        plain_ms=t9_plain, bound_ms=b9_ms, bound_by=b9_by, library_ms=t9_lib)
+    del gs
     del g, g2, ga, w, m0, v0, p0, mask
     torch.cuda.empty_cache()
 
@@ -866,8 +945,20 @@ def phase_train_kernels(records, layout):
 # absolute as printed), and after step 1 the update 2.1e-2, m and v 1.3e-2
 # and p 4.8e-2 relative to their norms (PERF.md): three to thirty times
 # those.  On the CPU rehearsal at smoke size, a copy whose update dropped
-# the trust ratio moved the second step's loss by 2.1e-2 relative.
-TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 3e-3, "mv": 0.05, "p": 0.15, "upd": 0.1}
+# the trust ratio moved the second step's loss by 2.1e-2 relative.  Phase 9
+# holds VR-Adam, VR-LARS and the stale steps to the same bounds.  The update
+# compared is the change of the f32 params over the step.  VR-SGD's and
+# VR-Momentum's first update, -lr * r * ga at warm-up step 0 (lr 3.5e-6), is
+# ~1e-10 per element, below half an ulp of most weights (1.9e-9 at |w| ~
+# 0.02), so that change is rounding quanta, and which elements round up
+# flips between the plans with the update's last bits: the first full-width
+# run on an H100 (700 W) measured 0.107 there, while VR-Momentum's m, which
+# is r * ga itself, differs by 1.3e-2.  Their update gets a bound of its
+# own, "upd_rounded" = 0.25, 2.3 times that; on the CPU rehearsal at smoke
+# size, a copy whose VR scale dropped r moved VR-SGD's update by 0.495,
+# twice the bound.
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 3e-3, "mv": 0.05, "p": 0.15, "upd": 0.1,
+             "upd_rounded": 0.25}
 TRAIN_STEPS = 3
 
 
@@ -890,17 +981,117 @@ def flat_state(state, name):
     return state.params.layout.pack(x, device=state.params.device)
 
 
+def run_plan(plan, state, step, batches, want_fused, label, fresh=None):
+    """Steps ``state`` through ``batches`` on one plan, the counts set to 0
+    before and read after each step and held against ``want_fused(i)`` on
+    the fused plan (0 everywhere on the reference plan).  Returns (state,
+    metrics per step, the first step's update and flat state buffers, step
+    walls, launches summed over the fused steps).  ``fresh[i]`` False makes
+    step i stale."""
+    import torch
+
+    hist, walls, path_counts, step1 = [], [], {}, {}
+    for i, batch in enumerate(batches):
+        with_stats = True if fresh is None else fresh[i]
+        w0 = state.params.data.clone() if i == 0 else None
+        reset_counts()
+        (state, metrics), ms = host_ms(lambda: step(state, batch, with_stats))
+        counts = read_counts()
+        want = want_fused(i) if plan == "fused" else {n_: 0 for n_ in counts}
+        if counts != want:
+            fail(f"{label} {plan} step {i}: kernel launches {counts} != expected {want}")
+        if plan == "fused":
+            for name, c in counts.items():
+                path_counts[name] = path_counts.get(name, 0) + c
+        walls.append(ms)
+        vals = {key: float(val) for key, val in metrics.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            fail(f"{label} {plan} step {i}: non-finite metrics {vals}")
+        hist.append(vals)
+        gsnr = (f" gsnr mean {vals['gsnr/mean']:.5f} min {vals['gsnr/min']:.4f} frac_floor "
+                f"{vals['gsnr/frac_floor']:.5f}" if "gsnr/mean" in vals else " (no GSNR)")
+        print(f"  {label} {plan} step {i}{'' if with_stats else ' (stale)'}: {ms:.1f} ms  "
+              f"loss {vals['loss']:.5f} |g| {vals['grad_norm']:.4f} "
+              f"|upd| {vals['update_norm']:.4e}{gsnr}; launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        if i == 0:
+            step1 = {"upd": state.params.data - w0,
+                     **{nm: flat_state(state, nm) for nm in "mvp" if nm in state.opt_state}}
+            del w0
+    return state, hist, step1, walls, path_counts
+
+
+def compare_plans(label, hist, step1, when="after step 1", tol_keys=None):
+    """The fused plan against the reference plan within TRAIN_TOL: loss,
+    grad_norm and gsnr/* (where logged) at every step, the update and each
+    state buffer in ``step1`` (taken after step 1 unless ``when`` says
+    otherwise), each under the TRAIN_TOL key ``tol_keys`` maps it to."""
+    for i, (a, b_) in enumerate(zip(hist["fused"], hist["reference"])):
+        d_loss = abs(a["loss"] - b_["loss"]) / abs(b_["loss"])
+        d_gn = abs(a["grad_norm"] - b_["grad_norm"]) / abs(b_["grad_norm"])
+        keys = [k for k in ("gsnr/mean", "gsnr/min", "gsnr/frac_floor") if k in b_]
+        d_gsnr = max((abs(a[key] - b_[key]) for key in keys), default=0.0)
+        print(f"  {label} step {i}: |loss rel diff| {d_loss:.3e} (tol {TRAIN_TOL['loss']}), "
+              f"|grad_norm rel diff| {d_gn:.3e} (tol {TRAIN_TOL['grad_norm']}), "
+              f"max |gsnr/* diff| {d_gsnr:.3e} (tol {TRAIN_TOL['gsnr']})", flush=True)
+        if d_loss > TRAIN_TOL["loss"] or d_gn > TRAIN_TOL["grad_norm"] \
+                or d_gsnr > TRAIN_TOL["gsnr"]:
+            fail(f"{label} step {i}: the fused and reference plans disagree")
+    for nm in step1["reference"]:
+        tol_key = (tol_keys or {"m": "mv", "v": "mv"}).get(nm, nm)
+        d = rel_diff(step1["fused"][nm], step1["reference"][nm])
+        print(f"  {label} {when}: ||{nm}_fused - {nm}_ref|| / ||{nm}_ref|| = {d:.4e} "
+              f"(tol {TRAIN_TOL[tol_key]})", flush=True)
+        if not d <= TRAIN_TOL[tol_key]:
+            fail(f"{label}: {when}, {nm} of the fused and reference plans disagree")
+
+
+def add_path(records, path, path_counts):
+    for name, c in path_counts.items():
+        if c:
+            by_path = records[name].setdefault("launches_by_path", {})
+            by_path[path] = by_path.get(path, 0) + c
+
+
+def bert_train_config():
+    from repro_torch.configs import get_config
+
+    return get_config("bert-large").replace(global_batch=256, seq_len=128)
+
+
+def plan_config(cfg, plan, **opt):
+    from repro_torch.backend import Backend
+
+    bk = Backend.all_fused() if plan == "fused" else Backend.all_reference()
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel, backend=bk),
+                       optimizer=dataclasses.replace(cfg.optimizer, **opt))
+
+
+def fused_counts(n_layers, k, update=None, carry="moments", backward_passes=None):
+    """Launches of one fused step: K1 twice and K2 once per layer per
+    backward pass (k microbatches, or one whole-batch pass), the carry's
+    kernels and one call of the update's kernel; every other count 0."""
+    passes = k if backward_passes is None else backward_passes
+    want = {name: 0 for name in counters()}
+    want.update(flash_attention_fwd=2 * n_layers * passes, flash_attention_bwd=n_layers * passes)
+    if carry == "moments":
+        want.update(flat_moments_accum=k, flat_moments_finalize=1)
+    elif carry == "g":
+        want.update(flat_g_accum=k)
+    if update:
+        want[update] = 1
+    return want
+
+
 def phase_train(records):
     import torch
 
-    from repro_torch.backend import Backend
-    from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.models import init_params
     from repro_torch.train import init_state, make_train_step
 
     dev = torch.device("cuda")
-    cfg = get_config("bert-large").replace(global_batch=256, seq_len=128)
+    cfg = bert_train_config()
     m, o = cfg.model, cfg.optimizer
     print(f"[train] {m.name}: {m.n_layers} layers, d_model {m.d_model}, heads {m.n_heads}, "
           f"d_ff {m.d_ff}, vocab {m.vocab_size}; VR-LAMB k={o.k}, global batch "
@@ -910,8 +1101,8 @@ def phase_train(records):
     t0 = time.perf_counter()
     params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
     plans = {}
-    for plan, bk in (("fused", Backend.all_fused()), ("reference", Backend.all_reference())):
-        pc = cfg.replace(parallel=dataclasses.replace(cfg.parallel, backend=bk))
+    for plan in ("fused", "reference"):
+        pc = plan_config(cfg, plan)
         plans[plan] = (init_state(pc, params=params, device=dev),
                        make_train_step(pc, log_gsnr=True, device=dev)[0])
     del params
@@ -926,61 +1117,18 @@ def phase_train(records):
     stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=0)
     batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
 
-    n_l, k = m.n_layers, o.k
-    want_fused = {"flash_attention_fwd": 2 * n_l * k, "flash_attention_bwd": n_l * k,
-                  "flat_moments_accum": k, "flat_moments_finalize": 1, "flat_vr_lamb": 1,
-                  "flash_decode_split": 0, "flash_decode_combine": 0}
-    hist, step1, walls, path_counts = {}, {}, [], {}
+    want = fused_counts(m.n_layers, o.k, "flat_vr_lamb")
+    hist, step1, walls = {}, {}, None
     for plan in ("fused", "reference"):
         state, step = plans[plan]
-        hist[plan] = []
-        for i in range(TRAIN_STEPS):
-            w0 = state.params.data.clone() if i == 0 else None
-            reset_counts()
-            (state, metrics), ms = host_ms(lambda: step(state, batches[i]))
-            counts = read_counts()
-            want = want_fused if plan == "fused" else {n_: 0 for n_ in counts}
-            if counts != want:
-                fail(f"{plan} step {i}: kernel launches {counts} != expected {want}")
-            if plan == "fused":
-                for name, c in counts.items():
-                    path_counts[name] = path_counts.get(name, 0) + c
-                walls.append(ms)
-            vals = {key: float(val) for key, val in metrics.items()}
-            if not all(np.isfinite(list(vals.values()))):
-                fail(f"{plan} step {i}: non-finite metrics {vals}")
-            hist[plan].append(vals)
-            print(f"  {plan} step {i}: {ms:.1f} ms  loss {vals['loss']:.5f} "
-                  f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e} "
-                  f"gsnr mean {vals['gsnr/mean']:.5f} min {vals['gsnr/min']:.4f} "
-                  f"frac_floor {vals['gsnr/frac_floor']:.5f}; launches {counts}", flush=True)
-            if i == 0:
-                step1[plan] = {"upd": state.params.data - w0,
-                               **{nm: flat_state(state, nm) for nm in "mvp"}}
-                del w0
+        state, hist[plan], step1[plan], plan_walls, path_counts = run_plan(
+            plan, state, step, batches[:TRAIN_STEPS], lambda i: want, "vr_lamb")
+        if plan == "fused":
+            walls = plan_walls
+            add_path(records, "train", path_counts)
         plans[plan] = (state, step)
-
-    # the fused and reference plans agree, step by step
-    for i, (a, b_) in enumerate(zip(hist["fused"], hist["reference"])):
-        d_loss = abs(a["loss"] - b_["loss"]) / abs(b_["loss"])
-        d_gn = abs(a["grad_norm"] - b_["grad_norm"]) / abs(b_["grad_norm"])
-        d_gsnr = max(abs(a[key] - b_[key]) for key in ("gsnr/mean", "gsnr/min", "gsnr/frac_floor"))
-        print(f"  step {i}: |loss rel diff| {d_loss:.3e} (tol {TRAIN_TOL['loss']}), "
-              f"|grad_norm rel diff| {d_gn:.3e} (tol {TRAIN_TOL['grad_norm']}), "
-              f"max |gsnr/* diff| {d_gsnr:.3e} (tol {TRAIN_TOL['gsnr']})", flush=True)
-        if d_loss > TRAIN_TOL["loss"] or d_gn > TRAIN_TOL["grad_norm"] \
-                or d_gsnr > TRAIN_TOL["gsnr"]:
-            fail(f"step {i}: the fused and reference plans disagree")
-    for nm, tol_key in (("upd", "upd"), ("m", "mv"), ("v", "mv"), ("p", "p")):
-        d = rel_diff(step1["fused"][nm], step1["reference"][nm])
-        print(f"  after step 1: ||{nm}_fused - {nm}_ref|| / ||{nm}_ref|| = {d:.4e} "
-              f"(tol {TRAIN_TOL[tol_key]})", flush=True)
-        if not d <= TRAIN_TOL[tol_key]:
-            fail(f"after step 1, {nm} of the fused and reference plans disagree")
+    compare_plans("vr_lamb", hist, step1)
     del step1
-    for name, c in path_counts.items():
-        if c:
-            records[name].setdefault("launches_by_path", {})["train"] = c
 
     # step time, tokens/s and the device's share of it (one more fused step)
     state, step = plans["fused"]
@@ -997,6 +1145,113 @@ def phase_train(records):
                    t_prof, top=14)
     del state, plans
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the optimizer family and the stale-GSNR step
+# ---------------------------------------------------------------------------
+
+# the kernel each VR optimizer's fused fresh step calls once
+UPDATE_KERNEL = {"vr_adam": "flat_vr_adam", "vr_lars": "flat_vr_lars",
+                 "vr_sgd": "flat_vr_scale", "vr_momentum": "flat_vr_scale",
+                 "vr_lamb": "flat_vr_lamb"}
+
+
+def phase_train_optimizers(records):
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step, train_loop
+
+    dev = torch.device("cuda")
+    cfg = bert_train_config()
+    m, k = cfg.model, cfg.optimizer.k
+    tokens = cfg.global_batch * cfg.seq_len
+    print(f"[train optimizers] {m.name} at full width, global batch {cfg.global_batch}, seq "
+          f"{cfg.seq_len}, k={k}: fresh VR-Adam/LARS/SGD/Momentum steps, stale VR-Adam/LAMB "
+          "steps and a LAMB baseline step, each fused against the reference plan", flush=True)
+    params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=1)
+    batches = [next(stream) for _ in range(2)]
+    path_counts = {}
+
+    def both_plans(name, fresh=None, use_loop=False, **opt):
+        """Two steps of ``name`` from the same params on each plan; with
+        ``use_loop`` the reference plan runs them through train_loop, and
+        the update and state compared are those after both steps."""
+        hist, step1, walls = {}, {}, None
+        for plan in ("fused", "reference"):
+            pc = plan_config(cfg, plan, name=name, **opt)
+            state = init_state(pc, params=params, device=dev)
+            w_init = state.params.data.clone() if use_loop else None
+            if use_loop and plan == "reference":
+                reset_counts()
+                state, loop_hist = train_loop(pc, iter(batches), 2, state=state, log_every=1,
+                                              log_gsnr=True, device=dev)
+                if any(read_counts().values()):
+                    fail(f"{name} reference train_loop launched {read_counts()}")
+                hist[plan] = [{kk: v for kk, v in h.items() if kk not in ("step", "wall")}
+                              for h in loop_hist]
+            else:
+                step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+                stale = fused_counts(m.n_layers, k, carry="g")
+                want = lambda i: fused_counts(m.n_layers, k, UPDATE_KERNEL[name]) \
+                    if fresh is None or fresh[i] else stale
+                state, hist[plan], step1[plan], plan_walls, counts = run_plan(
+                    plan, state, step, batches, want, name, fresh)
+                del step
+                if plan == "fused":
+                    walls = plan_walls
+                    for nm, c in counts.items():
+                        path_counts[nm] = path_counts.get(nm, 0) + c
+            if use_loop:
+                step1[plan] = {"upd": state.params.data - w_init,
+                               **{nm: flat_state(state, nm) for nm in "mvp"
+                                  if nm in state.opt_state}}
+            del state, w_init
+            torch.cuda.empty_cache()
+        return hist, step1, walls
+
+    # 1. fresh steps of each VR optimizer
+    for name in ("vr_adam", "vr_lars", "vr_sgd", "vr_momentum"):
+        hist, step1, walls = both_plans(name)
+        rounded = name in ("vr_sgd", "vr_momentum")  # an update below the weights' ulp
+        compare_plans(name, hist, step1,
+                      tol_keys={"upd": "upd_rounded", "m": "mv"} if rounded else None)
+        print(f"  {name} fused step wall (host clock, synchronized): "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms; warm {walls[-1]:.1f} ms = "
+              f"{tokens / walls[-1] * 1e3:.0f} tokens/s", flush=True)
+
+    # 2. a fresh then a stale step (gsnr_refresh 2): the fused plan step by
+    #    step, the reference plan through train_loop; the update compared is
+    #    the sum over both steps, the state the one after the stale step
+    for name in ("vr_adam", "vr_lamb"):
+        hist, step1, walls = both_plans(name, fresh=(True, False), use_loop=True,
+                                        gsnr_refresh=2)
+        if any("gsnr/mean" in h for h in (hist["fused"][1], hist["reference"][1])):
+            fail(f"{name}: the stale step logged GSNR statistics")
+        compare_plans(f"{name} fresh+stale", hist, step1, when="after the stale step 2")
+        print(f"  {name} stale step wall (host clock, synchronized): {walls[1]:.1f} ms = "
+              f"{tokens / walls[1] * 1e3:.0f} tokens/s (fresh {walls[0]:.1f} ms)", flush=True)
+
+    # 3. a baseline: one LAMB step, a single backward over the whole batch
+    pc = plan_config(cfg, "fused", name="lamb")
+    state = init_state(pc, params=params, device=dev)
+    del params
+    step = make_train_step(pc, device=dev)[0]
+    want = fused_counts(m.n_layers, k, carry=None, backward_passes=1)
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, _, walls, counts = run_plan("fused", state, step, batches[:1],
+                                             lambda i: want, "lamb (grad_only)")
+    for nm, c in counts.items():
+        path_counts[nm] = path_counts.get(nm, 0) + c
+    print(f"  lamb baseline step wall (host clock, synchronized): {walls[0]:.1f} ms (cold) = "
+          f"{tokens / walls[0] * 1e3:.0f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    add_path(records, "train_optimizers", path_counts)
 
 
 def _leaves(tree):
@@ -1044,6 +1299,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_kernels(records, train_layout(get_config("bert-large")))
     phase_train(records)
+    phase_train_optimizers(records)
     torch.cuda.synchronize()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

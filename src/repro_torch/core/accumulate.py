@@ -9,11 +9,14 @@ The parameters are a FlatParams (core/layout.py): every microbatch's
 backward writes its gradient straight into the flat gradient buffer.  On
 the fused ``stats`` plan that buffer feeds the flat (g_sum, g2_sum) carry,
 one kernel launch per microbatch, and one finalize launch divides by k
-(kernels/flat_stats.py through kernels/ops.py).  On the reference plan the
-carry is a tree over the reference's stacked leaves, added with plain torch.
+(kernels/flat_stats.py through kernels/ops.py).  A stale-GSNR step
+(``squares=False``) keeps only g_sum: one g-only launch per microbatch, then
+the /k as one plain in-place multiply, as the reference does it outside a
+kernel.  On the reference plan the carry is a tree over the reference's
+stacked leaves, added with plain torch.  ``grad_only`` is the baselines'
+single backward over the whole batch.
 
-Not yet ported: ``method="vmap"`` and ``squares=False`` (the g-only carry of
-stale-GSNR steps); both raise.
+Not yet ported: ``method="vmap"``, which raises.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.backend import Backend
 from repro_torch.core.gsnr import GradStats
-from repro_torch.core.layout import FlatParams, tree_map
+from repro_torch.core.layout import FlatBuffer, FlatParams, tree_map
 
 
 def split_batch(batch: Dict, k: int) -> Dict:
@@ -67,21 +70,22 @@ def grad_stats(
     loss_fn(params_tree, microbatch) -> (loss, aux dict of scalars); it is
     called on ``params.tree`` and its loss backpropagated into
     ``params.grad``.  GradStats holds FlatBuffers on the fused ``stats``
-    plan and stacked trees on the reference plan."""
+    plan and stacked trees on the reference plan; with ``squares=False``
+    its sq_mean is None (no Σg² stream)."""
     if method != "scan":
         raise NotImplementedError(f"grad_stats(method={method!r}) is not yet ported; use 'scan'")
-    if not squares:
-        raise NotImplementedError("grad_stats(squares=False) (stale-GSNR steps) is not yet ported")
     bk = backend if backend is not None else Backend()
     fused = bk.fused("stats", params.device)
     mb = split_batch(batch, k)
-    if fused:
-        from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ops as kops
 
+    if fused and squares:
         g_sum, g2_sum = kops.moments_init_flat(params.layout, params.device)
+    elif fused:
+        g_sum = params.layout.zeros(torch.float32, params.device)
     else:
         g_sum = tree_map(torch.zeros_like, params.stacked())
-        g2_sum = tree_map(torch.zeros_like, g_sum)
+        g2_sum = tree_map(torch.zeros_like, g_sum) if squares else None
     loss_sum = torch.zeros((), dtype=torch.float32, device=params.device)
     aux_sum: Dict = {}
     for i in range(k):
@@ -91,16 +95,31 @@ def grad_stats(
         loss_sum += loss.detach()
         for name, val in aux.items():
             aux_sum[name] = aux_sum.get(name, 0.0) + val.detach()
-        if fused:
+        if fused and squares:
             kops.moments_accum_flat(g_sum, g2_sum, params.grad)
+        elif fused:
+            kops.g_accum_flat(g_sum, params.grad)
         else:
             grads = params.stacked("grad")
             tree_map(lambda a, g: a.add_(g), g_sum, grads)
-            tree_map(lambda a, g: a.add_(g * g), g2_sum, grads)
+            if squares:
+                tree_map(lambda a, g: a.add_(g * g), g2_sum, grads)
     inv = float(np.float32(1.0) / np.float32(k))
-    if fused:
+    if fused and squares:
         stats = kops.moments_finalize_flat(g_sum, g2_sum, k, params.layout)
+    elif fused:
+        stats = GradStats(mean=FlatBuffer(g_sum.mul_(inv), params.layout), sq_mean=None, k=k)
     else:
-        stats = GradStats(mean=tree_map(lambda x: x.mul_(inv), g_sum),
-                          sq_mean=tree_map(lambda x: x.mul_(inv), g2_sum), k=k)
+        scale = lambda tree: tree_map(lambda x: x.mul_(inv), tree)
+        stats = GradStats(mean=scale(g_sum), sq_mean=scale(g2_sum) if squares else None, k=k)
     return loss_sum * inv, {n: v * inv for n, v in aux_sum.items()}, stats
+
+
+def grad_only(loss_fn: Callable, params: FlatParams, batch: Dict):
+    """(loss, aux, gradient) of one backward over the whole batch (the
+    baseline optimizers; no moment of squares).  The gradient is the
+    stacked tree of views of ``params.grad``."""
+    params.zero_grad()
+    loss, aux = loss_fn(params.tree, batch)
+    loss.backward()
+    return loss.detach(), {n: v.detach() for n, v in aux.items()}, params.stacked("grad")

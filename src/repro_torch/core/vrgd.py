@@ -1,32 +1,45 @@
-"""VRGD optimizers (the paper's contribution, sec. 4 + Appendix D): VR-LAMB.
+"""VRGD optimizers (the paper's contribution, sec. 4 + Appendix D).
 
-Port of the VR-LAMB path of ``repro/core/vrgd.py``:
+Port of ``repro/core/vrgd.py``.  Each VR optimizer consumes ``GradStats``
+(the k-group gradient moments) and element-wise rescales the gradient by the
+normalized, clipped GSNR ``r`` in [gamma, 1] before (or, for VR-SGD, inside)
+the base update:
 
-  VR-Adam direction  p_t = b3*p + (1-b3)*r ; ghat = p̂_t * g ; Adam(ghat)  (Alg. 3)
-  VR-LAMB            VR-Adam direction + LAMB layer-wise trust ratio      (Alg. 5)
+  VR-SGD      theta <- theta - lr * r * g                          (Alg. 1)
+  VR-Momentum r*g into heavy-ball momentum, m = mu m + r g         (sec. 4.2)
+  VR-Adam     p_t = b3*p + (1-b3)*r ; ghat = p̂_t * g ; Adam(ghat)  (Alg. 3)
+  VR-LARS     r*g into LARS                                        (sec. 4.2)
+  VR-LAMB     VR-Adam direction + LAMB layer-wise trust ratio      (Alg. 5)
 
-with r the normalized, clipped GSNR (core/gsnr.py) in [gamma, 1].  The ratio
-derives from the raw group moments (stats.mean, stats.sq_mean) but scales
-the gradient that enters the update (``grads``, which the global grad clip
-may have rescaled).  Moments are stored in ``state_dtype`` with all math in
-f32; the GSNR-momentum bias correction counts stats refreshes (``pt``).
+The ratio derives from the raw group moments (stats.mean, stats.sq_mean)
+but scales the gradient that enters the update (``grads``, which the global
+grad clip may have rescaled).  VR-Adam/LAMB moments are stored in
+``state_dtype`` with all math in f32; VR-Momentum and VR-LARS keep m in
+f32.  The GSNR-momentum bias correction counts stats refreshes (``pt``).
+``gamma=1.0`` collapses r to exactly 1, so every VR optimizer reduces to its
+base optimizer (core/baselines.py).
 
 Dispatch follows the plan's ``optimizer`` subsystem (repro_torch.backend),
-resolved for the device the parameters live on: fused keeps m/v/p as flat
-buffers (core/layout.py) and runs the whole update as one call of the
-kernel wrapper ``kernels/flat_update.py::flat_vr_lamb`` (through
-kernels/ops.py); reference runs the per-leaf tree math below on the
-reference's stacked tree.
+resolved for the device the parameters live on at ``init`` and for the
+gradient's device at ``update``, which raises if the gradient's or the
+state's form disagrees with it.  Fused keeps the state as flat buffers
+(core/layout.py), takes and returns FlatBuffers (updates in the form of the
+params), and runs a fresh-stats update as one kernel wrapper call through
+kernels/ops.py: ``flat_vr_scale`` for VR-SGD/Momentum (the momentum sum and
+-lr are then plain torch, as in the reference), ``flat_vr_adam``,
+``flat_vr_lamb``, ``flat_vr_lars``.  Reference runs the per-leaf tree math
+below on the reference's stacked tree.
 
-Not yet ported: the stale-GSNR step (``stats=None``), the other VR
-optimizers (vr_sgd, vr_momentum, vr_adam, vr_lars) and the baselines (sgd,
-momentum, adam, lars, lamb); ``make_optimizer`` raises for them.
+Amortized-GSNR "stale" steps (``stats=None``, VR-Adam and VR-LAMB only):
+the GSNR momentum p is left untouched and the stale p̂ rescales the fresh
+gradient.  On flat state the element-wise math below runs directly on the
+flat buffers (plain torch, no kernel), and VR-LAMB's trust ratio is
+``kernels/ops.py::lamb_trust_flat``.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.backend import Backend
@@ -34,45 +47,176 @@ from repro_torch.core import baselines as B
 from repro_torch.core.gsnr import GradStats, gsnr_scale
 from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat, tree_leaves, tree_map
 
-NOT_PORTED = ("sgd", "momentum", "adam", "lars", "lamb", "vr_sgd", "vr_momentum", "vr_adam",
-              "vr_lars")
-
 
 def _require(stats: Optional[GradStats]) -> GradStats:
     if stats is None:
-        raise ValueError(
-            "vr_lamb: GradStats (mean + sq_mean) are required; the stale-GSNR step "
-            "(stats=None) is not yet ported"
-        )
+        raise ValueError("VR optimizers require GradStats (mean + sq_mean); see "
+                         "core/accumulate.py")
     return stats
 
 
-def bias_corrections(state, b1: float, b2: float, b3: float):
-    """(t, pt, bc1, bc2, bc3) of a fresh-stats step, in float32 as the
-    reference computes them: b1/b2 correct by the optimizer step, b3 by the
-    stats-refresh counter pt."""
-    f32 = np.float32
+def _zeros(bk: Backend, params: FlatParams, dtype=torch.float32):
+    """Zero state of the plan resolved for the params' device: a flat buffer
+    when it is fused, the stacked tree otherwise."""
+    if bk.fused("optimizer", params.device):
+        return FlatBuffer(params.layout.zeros(dtype, params.device), params.layout)
+    return B.zeros_tree(params, dtype)
+
+
+def _fused(bk: Backend, name: str, grads, state) -> bool:
+    """The plan for the gradient's device; raises if the gradient or the
+    state (m) is in the other form."""
+    device = tree_leaves(grads)[0].device
+    fused = bk.fused("optimizer", device)
+    for what, x in (("gradient", grads), ("state", state.get("m"))):
+        if x is not None and is_flat(x) != fused:
+            raise ValueError(
+                f"{name}: the {what} is {'flat' if is_flat(x) else 'a tree'} but the plan "
+                f"resolves optimizer={bk.resolve('optimizer', device)!r} on {device}; init the "
+                "state on the device the update runs on")
+    return fused
+
+
+def bias_corrections(state, b1: float, b2: float, b3: float, fresh: bool = True):
+    """(t, pt, bc1, bc2, bc3) of a step, in float32 as the reference computes
+    them: b1/b2 correct by the optimizer step, b3 by the stats-refresh
+    counter pt, which a stale step (``fresh=False``) does not advance."""
     t = state["step"] + 1
-    pt = state.get("pt", state["step"]) + 1
-    tf, ptf = f32(t), max(f32(pt), f32(1))
-    bcs = [float(f32(1) - f32(b) ** x) for b, x in ((b1, tf), (b2, tf), (b3, ptf))]
-    return t, pt, *bcs
+    pt = state.get("pt", state["step"]) + int(fresh)
+    return (t, pt, B.bias_correction(b1, t), B.bias_correction(b2, t),
+            B.bias_correction(b3, pt))
+
+
+def _scaled_grads(grads, stats, gamma, eps, fused):
+    """(r * grads, r): one kernel call on the fused plan, tree math otherwise."""
+    stats = _require(stats)
+    if fused:
+        from repro_torch.kernels import ops as kops
+
+        return kops.vr_scale_tree(stats, grads, gamma, eps)
+    r = gsnr_scale(stats, gamma, eps)
+    return tree_map(lambda r_, g: r_ * g, r, grads), r
+
+
+def vr_sgd(lr_fn: Callable, gamma: float = 0.1, eps: float = 1e-12,
+           backend: Optional[Backend] = None) -> B.Transform:
+    bk = backend if backend is not None else Backend()
+
+    def init(params: FlatParams):
+        return {"step": 0}
+
+    def update(grads, state, params=None, stats=None):
+        lr = lr_fn(state["step"])
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, _fused(bk, "vr_sgd", grads, state))
+        return tree_map(lambda g: -lr * g, sg), {"step": state["step"] + 1}
+
+    return B.Transform(init, update)
+
+
+def vr_momentum(lr_fn: Callable, mu: float = 0.9, gamma: float = 0.1, eps: float = 1e-12,
+                backend: Optional[Backend] = None) -> B.Transform:
+    bk = backend if backend is not None else Backend()
+
+    def init(params: FlatParams):
+        return {"step": 0, "m": _zeros(bk, params)}
+
+    def update(grads, state, params=None, stats=None):
+        lr = lr_fn(state["step"])
+        sg, _r = _scaled_grads(grads, stats, gamma, eps,
+                               _fused(bk, "vr_momentum", grads, state))
+        m = tree_map(lambda m_, g: mu * m_ + g, state["m"], sg)
+        return tree_map(lambda m_: -lr * m_, m), {"step": state["step"] + 1, "m": m}
+
+    return B.Transform(init, update)
 
 
 def _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps, state_dtype="float32"):
-    """Shared VR-Adam machinery on trees (Alg. 3 lines 8-17): returns
-    (direction, new_state).  Moments are stored in state_dtype, math in f32."""
-    t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3)
+    """Shared VR-Adam machinery (Alg. 3 lines 8-17) on trees or FlatBuffers:
+    returns (direction, new_state).  Moments are stored in state_dtype, math
+    in f32.  With ``stats=None`` (a stale step) p is left as it is and the
+    stale p̂ rescales the fresh gradient; pt does not advance."""
+    t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3, fresh=stats is not None)
     sd = getattr(torch, state_dtype)
     f32 = lambda tree: tree_map(lambda x: x.float(), tree)
     store = lambda tree: tree_map(lambda x: x.to(sd), tree)
-    r = gsnr_scale(_require(stats), gamma, gsnr_eps)
-    p = tree_map(lambda p_, r_: b3 * p_ + (1 - b3) * r_, f32(state["p"]), r)
+    p = f32(state["p"])
+    if stats is not None:
+        r = gsnr_scale(stats, gamma, gsnr_eps)
+        p = tree_map(lambda p_, r_: b3 * p_ + (1 - b3) * r_, p, r)
     ghat = tree_map(lambda p_, g: (p_ / bc3) * g, p, grads)
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, f32(state["m"]), ghat)
     v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, f32(state["v"]), ghat)
     direction = tree_map(lambda m_, v_: (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps), m, v)
     return direction, {"step": t, "m": store(m), "v": store(v), "p": store(p), "pt": pt}
+
+
+def _adam_state(bk: Backend, params: FlatParams, state_dtype: str):
+    sd = getattr(torch, state_dtype)
+    return {"step": 0, "pt": 0, "m": _zeros(bk, params, sd), "v": _zeros(bk, params, sd),
+            "p": _zeros(bk, params, sd)}
+
+
+def vr_adam(
+    lr_fn: Callable,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    b3: float = 0.9,
+    eps: float = 1e-8,
+    wd: float = 0.0,
+    gamma: float = 0.1,
+    gsnr_eps: float = 1e-12,
+    backend: Optional[Backend] = None,
+    state_dtype: str = "float32",
+) -> B.Transform:
+    """VR-Adam; the weight decay ``wd * w`` is added only when params are
+    given."""
+    bk = backend if backend is not None else Backend()
+
+    def init(params: FlatParams):
+        return _adam_state(bk, params, state_dtype)
+
+    def update(grads, state, params=None, stats=None):
+        lr = lr_fn(state["step"])
+        fused = _fused(bk, "vr_adam", grads, state)
+        if fused and stats is not None:
+            from repro_torch.kernels import ops as kops
+
+            return kops.vr_adam_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
+                                       gsnr_eps, params, state_dtype)
+        d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
+                                    state_dtype)
+        if wd and params is not None:
+            d = tree_map(lambda d_, p_: d_ + wd * p_, d, params)
+        return tree_map(lambda d_: -lr * d_, d), new_state
+
+    return B.Transform(init, update)
+
+
+def vr_lars(
+    lr_fn: Callable,
+    mu: float = 0.9,
+    wd: float = 1e-4,
+    trust: float = 0.001,
+    gamma: float = 0.1,
+    eps: float = 1e-12,
+    backend: Optional[Backend] = None,
+) -> B.Transform:
+    bk = backend if backend is not None else Backend()
+    base = B.lars(lr_fn, mu=mu, wd=wd, trust=trust)
+
+    def init(params: FlatParams):
+        return {"step": 0, "m": _zeros(bk, params)}
+
+    def update(grads, state, params, stats=None):
+        if _fused(bk, "vr_lars", grads, state):
+            from repro_torch.kernels import ops as kops
+
+            return kops.vr_lars_update(grads, state, _require(stats), lr_fn(state["step"]), mu,
+                                       wd, trust, gamma, eps, params)
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, False)
+        return base.update(sg, state, params)
+
+    return B.Transform(init, update)
 
 
 def vr_lamb(
@@ -91,61 +235,55 @@ def vr_lamb(
     ``optimizer`` subsystem for the device they live on: flat m/v/p when it
     is fused, stacked trees otherwise.  ``update(grads, state, params,
     stats)`` takes the gradient to apply (FlatBuffer on the fused plan, the
-    stacked tree otherwise), the params in the same form and the GradStats,
-    and returns (updates in that form, new state)."""
+    stacked tree otherwise), the params in the same form and the GradStats
+    (None on a stale step), and returns (updates in that form, new state)."""
     bk = backend if backend is not None else Backend()
-    sd = getattr(torch, state_dtype)
 
     def init(params: FlatParams):
-        if bk.fused("optimizer", params.device):
-            z = lambda: FlatBuffer(params.layout.zeros(sd, params.device), params.layout)
-        else:
-            z = lambda: tree_map(lambda x: torch.zeros(x.shape, dtype=sd, device=x.device),
-                                 params.stacked())
-        return {"step": 0, "pt": 0, "m": z(), "v": z(), "p": z()}
+        return _adam_state(bk, params, state_dtype)
 
     def update(grads, state, params, stats=None):
         lr = lr_fn(state["step"])
-        fused = is_flat(state["m"])
-        device = tree_leaves(params)[0].device
-        if fused != bk.fused("optimizer", device):
-            raise ValueError(
-                f"vr_lamb: the state is {'flat' if fused else 'a tree'} but the plan resolves "
-                f"optimizer={bk.resolve('optimizer', device)!r} on {device}; init the state "
-                "on the device the update runs on")
-        if fused:
-            from repro_torch.kernels import ops as kops
+        fused = _fused(bk, "vr_lamb", grads, state)
+        from repro_torch.kernels import ops as kops
 
-            return kops.vr_lamb_update(grads, state, _require(stats), lr, b1, b2, b3, eps, wd,
-                                       gamma, gsnr_eps, params, state_dtype)
+        if fused and stats is not None:
+            return kops.vr_lamb_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
+                                       gsnr_eps, params, state_dtype)
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
                                     state_dtype)
-
-        def one(d_, p_):
-            u = d_ + wd * p_
-            pn, un = B._tensor_norm(p_), B._tensor_norm(u)
-            ok = (pn > 0) & (un > 0)
-            ratio = torch.where(ok, B._lamb_phi(pn) / (un + 1e-12), torch.ones_like(pn))
-            return -lr * ratio * u
-
-        return tree_map(one, d, params), new_state
+        if fused:
+            return kops.lamb_trust_flat(d, params, lr, wd), new_state
+        return tree_map(lambda d_, p_: B.lamb_trust(d_, p_, lr, wd), d, params), new_state
 
     return B.Transform(init, update)
 
 
 def make_optimizer(cfg, backend: Optional[Backend] = None,
                    effective_batch: Optional[int] = None) -> B.Transform:
-    """OptimizerConfig -> Transform.  Only ``vr_lamb`` is ported; the plan
+    """OptimizerConfig -> Transform (base or VR per cfg.name); the plan
     resolves for the parameters' device at ``init``.  effective_batch: the
-    live global batch (the schedule peak rescales through
-    cfg.lr_scale_rule when cfg.base_batch is set)."""
+    live global batch (the schedule peak rescales through cfg.lr_scale_rule
+    when cfg.base_batch is set)."""
     from repro_torch.core.schedule import make_schedule
 
-    if cfg.name in NOT_PORTED:
-        raise KeyError(f"optimizer {cfg.name!r} is not yet ported to repro_torch; "
-                       "the port has vr_lamb")
-    if cfg.name != "vr_lamb":
-        raise KeyError(f"unknown optimizer {cfg.name!r}")
     lr_fn = make_schedule(cfg, effective_batch=effective_batch)
-    return vr_lamb(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, cfg.gamma,
-                   cfg.gsnr_eps, backend, cfg.state_dtype)
+    g, ge, bk = cfg.gamma, cfg.gsnr_eps, backend
+    table = {
+        "sgd": lambda: B.sgd(lr_fn),
+        "momentum": lambda: B.momentum(lr_fn, cfg.momentum),
+        "adam": lambda: B.adam(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
+        "lars": lambda: B.lars(lr_fn, cfg.momentum, cfg.weight_decay),
+        "lamb": lambda: B.lamb(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
+        "vr_sgd": lambda: vr_sgd(lr_fn, g, ge, bk),
+        "vr_momentum": lambda: vr_momentum(lr_fn, cfg.momentum, g, ge, bk),
+        "vr_adam": lambda: vr_adam(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, g,
+                                   ge, bk, cfg.state_dtype),
+        "vr_lars": lambda: vr_lars(lr_fn, cfg.momentum, cfg.weight_decay, gamma=g, eps=ge,
+                                   backend=bk),
+        "vr_lamb": lambda: vr_lamb(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, g,
+                                   ge, bk, cfg.state_dtype),
+    }
+    if cfg.name not in table:
+        raise KeyError(f"unknown optimizer {cfg.name!r}")
+    return table[cfg.name]()

@@ -1,13 +1,17 @@
 // Flat gradient-moment carry for Hopper (sm_90a): the k-microbatch
-// accumulate and the /k finalize over the whole (n_rows, 128) flat buffer.
+// accumulate and the /k finalize over the whole (n_rows, 128) flat buffer,
+// and the g-only accumulate of stale-GSNR steps.
 //
 // Replaces the TPU kernels repro/kernels/grad_stats.py::_accum_kernel and
 // ::_finalize_kernel as launched by repro/kernels/flat_stats.py::
-// flat_moments_accum and ::flat_moments_finalize.  Same math:
+// flat_moments_accum and ::flat_moments_finalize, and flat_stats.py::
+// _g_accum_kernel (flat_g_accum).  Same math:
 //   accumulate:  g_sum += g,  g2_sum += g * g   (g cast to f32)
 //   finalize:    mean = g_sum * inv_k,  sq_mean = g2_sum * inv_k
-// Both work in place on the carry (the reference returns new buffers with
-// the same values), so a step keeps two f32 buffers for the moments.
+//   g-only:      g_sum += g                     (g cast to f32)
+// All work in place on the carry (the reference returns new buffers with
+// the same values), so a step keeps two f32 buffers for the moments (one on
+// a stale step).
 //
 // Design.  Pure streaming passes: each thread handles 16-byte vectors (four
 // f32 or four bf16 of g) in a grid-stride loop; no shared memory, no
@@ -16,7 +20,8 @@
 // Bound on the card: bytes.  At bert-large's flat layout (2.85 M rows,
 // 1.46 GB per f32 buffer) the accumulate reads three buffers and writes two
 // (~7.3 GB, ~2.2 ms at 3.35 TB/s); the finalize reads two and writes two
-// (~5.8 GB, ~1.7 ms).  The arithmetic is 3 and 2 flops per element.
+// (~5.8 GB, ~1.7 ms); the g-only accumulate reads two and writes one
+// (~4.4 GB, ~1.3 ms).  The arithmetic is 3, 2 and 1 flops per element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +54,17 @@ __global__ void __launch_bounds__(NT) accum_kernel(float4* __restrict__ gs, floa
     b.w = fmaf(x.w, x.w, b.w);
     gs[i] = a;
     g2s[i] = b;
+  }
+}
+
+template <typename G>
+__global__ void __launch_bounds__(NT) g_accum_kernel(float4* __restrict__ gs,
+                                                     const G* __restrict__ g, int64_t n4) {
+  for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
+    const float4 x = load_g(g, i);
+    float4 a = gs[i];
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    gs[i] = a;
   }
 }
 
@@ -85,6 +101,22 @@ extern "C" int flat_moments_accum(void* gs, void* g2s, const void* g, long long 
   else
     accum_kernel<float><<<grid_for(n4, n_sm), NT, 0, s>>>(
         static_cast<float4*>(gs), static_cast<float4*>(g2s), static_cast<const float*>(g), n4);
+  return cudaGetLastError();
+}
+
+// gs: n f32 (n a multiple of 4), updated in place; g: n elements, f32
+// (g_is_bf16=0) or bf16.
+extern "C" int flat_g_accum(void* gs, const void* g, long long n, int g_is_bf16, int n_sm,
+                            void* stream) {
+  if (n % 4) return cudaErrorInvalidValue;
+  const int64_t n4 = n / 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_is_bf16)
+    g_accum_kernel<__nv_bfloat16><<<grid_for(n4, n_sm), NT, 0, s>>>(
+        static_cast<float4*>(gs), static_cast<const __nv_bfloat16*>(g), n4);
+  else
+    g_accum_kernel<float><<<grid_for(n4, n_sm), NT, 0, s>>>(static_cast<float4*>(gs),
+                                                            static_cast<const float*>(g), n4);
   return cudaGetLastError();
 }
 

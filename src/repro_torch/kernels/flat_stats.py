@@ -1,16 +1,18 @@
 """Flat gradient-moment carry: the CUDA kernels' wrappers and their plain
 versions.
 
-Counterpart of ``repro/kernels/flat_stats.py::flat_moments_accum`` and
+Counterpart of ``repro/kernels/flat_stats.py::flat_moments_accum``,
 ``::flat_moments_finalize`` (kernel bodies ``repro/kernels/grad_stats.py::
-_accum_kernel`` / ``_finalize_kernel``).  The kernels are
-``csrc/flat_stats.cu``; its source note gives the design and bound.
+_accum_kernel`` / ``_finalize_kernel``) and ``::flat_g_accum`` (its
+``_g_accum_kernel``, the g-only carry of stale-GSNR steps).  The kernels
+are ``csrc/flat_stats.cu``; its source note gives the design and bound.
 
-Both functions work IN PLACE on the carry and return it (the reference
+The functions work IN PLACE on the carry and return it (the reference
 returns new buffers with the same values):
 
   flat_moments_accum(gs, g2s, g)     gs += g, g2s += g * g  (g cast to f32)
   flat_moments_finalize(gs, g2s, k)  gs, g2s *= 1/k  -> (mean, sq_mean)
+  flat_g_accum(gs, g)                gs += g                (g cast to f32)
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 computes the plain version.
@@ -29,6 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flat_moments_accum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _I, _P],
+    "flat_g_accum": [_P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 
@@ -43,6 +46,11 @@ def moments_accum_ref(gs, g2s, g):
     gs.add_(gf)
     g2s.add_(gf * gf)
     return gs, g2s
+
+
+def g_accum_ref(gs, g):
+    """Plain version of the g-only accumulate, in place."""
+    return gs.add_(g.float())
 
 
 def moments_finalize_ref(gs, g2s, k):
@@ -88,6 +96,26 @@ def flat_moments_accum(gs: torch.Tensor, g2s: torch.Tensor, g: torch.Tensor):
     return gs, g2s
 
 
+def flat_g_accum(gs: torch.Tensor, g: torch.Tensor):
+    """One microbatch into the g-only carry, in place; g is f32 or bf16 of
+    the same shape.  Returns gs."""
+    if gs.device.type == "cpu":
+        return g_accum_ref(gs, g)
+    if gs.device.type != "cuda":
+        raise ValueError(f"flat_g_accum: no implementation for device {gs.device}")
+    _check("flat_g_accum", (gs,), (g,))
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flat_g_accum: g must be float32 or bfloat16, got {g.dtype}")
+    lib = _build.library("flat_stats", _SIGNATURES)
+    err = lib.flat_g_accum(
+        gs.data_ptr(), g.data_ptr(), gs.numel(), int(g.dtype == torch.bfloat16),
+        device_info(gs.device.index)[1], torch.cuda.current_stream(gs.device).cuda_stream,
+    )
+    _build.check(err, "flat_g_accum")
+    flat_g_accum.launches += 1
+    return gs
+
+
 def flat_moments_finalize(gs: torch.Tensor, g2s: torch.Tensor, k):
     """The terminal /k of both carries, in place: returns (mean, sq_mean),
     the same tensors as (gs, g2s)."""
@@ -108,3 +136,4 @@ def flat_moments_finalize(gs: torch.Tensor, g2s: torch.Tensor, k):
 
 flat_moments_accum.launches = 0
 flat_moments_finalize.launches = 0
+flat_g_accum.launches = 0

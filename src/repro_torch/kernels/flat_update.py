@@ -1,17 +1,25 @@
-"""Flat VR-LAMB update: the CUDA kernels' wrapper and its plain version.
+"""Flat VR optimizer updates: the CUDA kernels' wrappers and their plain
+versions.
 
-Counterpart of ``repro/kernels/flat_update.py::flat_vr_lamb`` (the TPU
-kernel ``_vr_lamb_kernel``, bodies ``_raw_r``, ``_inv_mean_r``,
-``_adam_math`` and ``_trust_ratio``).  The kernels are
-``csrc/flat_update.cu`` (three launches: per-leaf sum of r, the element-wise
-chain with the per-leaf norm sums, the trust-ratio apply); its source note
-gives the design and bound.
+Counterpart of ``repro/kernels/flat_update.py`` (the TPU kernels
+``_vr_scale_kernel``, ``_vr_adam_kernel``, ``_vr_lamb_kernel`` and
+``_vr_lars_kernel``; bodies ``_raw_r``, ``_inv_mean_r``, ``_adam_math`` and
+``_trust_ratio``).  The kernels are ``csrc/flat_update.cu``; its source
+note gives the design and bound.  Every entry works on the ``(n_rows, 128)``
+f32 buffers of a ParamLayout:
 
-``flat_vr_lamb`` returns ``(upd, m', v', p')``.  m', v', p' are written IN
-PLACE into m, v, p (the reference returns new buffers with the same
-values); upd is a new f32 buffer holding ``-lr * ratio * u``.  On a CUDA
-tensor it launches the kernels or raises; on a CPU tensor it computes the
-plain version.
+  flat_vr_scale(g, ga, g2, ...)               -> (sg, r)            2 launches
+  flat_vr_adam(g, ga, g2, m, v, p, w, ...)    -> (upd, m', v', p')  2 launches
+  flat_vr_lamb(g, ga, g2, m, v, p, w, ...)    -> (upd, m', v', p')  3 launches
+  flat_vr_lars(g, ga, g2, m, w, ...)          -> (upd, m')          3 launches
+
+g, g2 are the raw group moments (mean, sq_mean) the GSNR ratio reads; ga
+the gradient the update applies (the clipped mean); w the params.  The
+state (m, v, p in ``state_dtype``; LARS's m in f32) is written IN PLACE and
+returned (the reference returns new buffers with the same values); upd, sg
+and r are new f32 buffers.  On a CUDA tensor each entry launches its
+kernels or raises; on a CPU tensor it computes the plain version
+(``*_ref``).  ``<entry>.launches`` counts the calls that launched.
 """
 from __future__ import annotations
 
@@ -26,8 +34,19 @@ from repro_torch.core.layout import LANE, ParamLayout, leaf_sums, rows_of
 from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"flat_vr_lamb": [_P] * 11 + [_I, _I, _I] + [_F] * 11 + [_P]}
+_ADAM_ARGS = [_P] * 11 + [_I, _I, _I] + [_F] * 11 + [_P]
+_SIGNATURES = {
+    "flat_vr_lamb": _ADAM_ARGS,
+    "flat_vr_adam": _ADAM_ARGS,
+    "flat_vr_scale": [_P] * 8 + [_I, _I] + [_F, _F] + [_P],
+    "flat_vr_lars": [_P] * 9 + [_I, _I] + [_F] * 6 + [_P],
+}
 STATE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 
 def raw_r(g, g2, gsnr_eps: float) -> torch.Tensor:
@@ -37,80 +56,203 @@ def raw_r(g, g2, gsnr_eps: float) -> torch.Tensor:
     return gg / (torch.clamp(g2 - gg, min=0.0) + gsnr_eps)
 
 
-def flat_vr_lamb_ref(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayout, *,
-                     b1, b2, b3, eps, wd, gamma, gsnr_eps, state_dtype="float32"):
-    """Plain version of ``flat_vr_lamb`` (the same three phases in torch
-    over the flat buffers); m, v, p are updated in place."""
-    lr, bc1, bc2, bc3 = (float(x) for x in scal[:4])
+def gsnr_ratio(g, g2, layout: ParamLayout, gamma: float, gsnr_eps: float) -> torch.Tensor:
+    """clip(r_raw / mean_leaf(r_raw), gamma, 1) over the flat buffer; the
+    mean is over each leaf's true size (the zero tail adds nothing)."""
     r_raw = raw_r(g, g2, gsnr_eps)
     inv = layout.device_meta(g.device)["inv_sizes"][: layout.n_leaves]
     inv_mean = 1.0 / torch.clamp(leaf_sums(layout, r_raw) * inv, min=1e-30)
-    r = torch.clamp(r_raw * rows_of(layout, inv_mean), gamma, 1.0)
-    del r_raw
-    p_new = b3 * p.float() + (1.0 - b3) * r
-    del r
+    return torch.clamp(r_raw * rows_of(layout, inv_mean), gamma, 1.0)
+
+
+def _adam_ref(g, ga, g2, m, v, p, w, scal, layout, b1, b2, b3, eps, wd, gamma, gsnr_eps):
+    """The element-wise VR-Adam chain: (u = direction + wd w, m', v', p')."""
+    _, bc1, bc2, bc3 = (float(x) for x in scal[:4])
+    p_new = b3 * p.float() + (1.0 - b3) * gsnr_ratio(g, g2, layout, gamma, gsnr_eps)
     ghat = (p_new / bc3) * ga.float()
     m_new = b1 * m.float() + (1.0 - b1) * ghat
     v_new = b2 * v.float() + (1.0 - b2) * ghat * ghat
     del ghat
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + wd * w.float()
+    return u, m_new, v_new, p_new
+
+
+def _store(dst, *news):
+    for d, n in zip(dst, news):
+        d.copy_(n)
+    return dst
+
+
+def flat_vr_scale_ref(g, ga, g2, layout: ParamLayout, *, gamma, eps):
+    """Plain version of ``flat_vr_scale``: (r * ga, r)."""
+    r = gsnr_ratio(g, g2, layout, gamma, eps)
+    return r * ga.float(), r
+
+
+def flat_vr_adam_ref(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayout, *,
+                     b1, b2, b3, eps, wd, gamma, gsnr_eps, state_dtype="float32"):
+    """Plain version of ``flat_vr_adam``; m, v, p are updated in place."""
+    u, *new = _adam_ref(g, ga, g2, m, v, p, w, scal, layout, b1, b2, b3, eps, wd, gamma,
+                        gsnr_eps)
+    return (-float(scal[0]) * u, *_store((m, v, p), *new))
+
+
+def flat_vr_lamb_ref(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayout, *,
+                     b1, b2, b3, eps, wd, gamma, gsnr_eps, state_dtype="float32"):
+    """Plain version of ``flat_vr_lamb`` (the same three phases in torch
+    over the flat buffers); m, v, p are updated in place."""
+    u, *new = _adam_ref(g, ga, g2, m, v, p, w, scal, layout, b1, b2, b3, eps, wd, gamma,
+                        gsnr_eps)
     wf = w.float()
-    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + wd * wf
     un = torch.sqrt(leaf_sums(layout, u * u))
     pn = torch.sqrt(leaf_sums(layout, wf * wf))
     ratio = torch.where((pn > 0) & (un > 0), _lamb_phi(pn) / (un + 1e-12), torch.ones_like(pn))
-    upd = (-lr * rows_of(layout, ratio)) * u
-    m.copy_(m_new)
-    v.copy_(v_new)
-    p.copy_(p_new)
-    return upd, m, v, p
+    upd = (-float(scal[0]) * rows_of(layout, ratio)) * u
+    return (upd, *_store((m, v, p), *new))
 
 
-def _check(g, ga, g2, m, v, p, w, layout: ParamLayout, state_dtype):
-    shape = (layout.n_rows, LANE)
-    for t in (g, ga, g2, m, v, p, w):
-        if tuple(t.shape) != shape or not t.is_contiguous() or t.device != g.device:
-            raise ValueError(f"flat_vr_lamb: operands must be contiguous {shape} on {g.device}, "
+def flat_vr_lars_ref(g, ga, g2, m, w, scal: Sequence[float], layout: ParamLayout, *,
+                     mu, wd, trust, eps):
+    """Plain version of ``flat_vr_lars``; m is updated in place."""
+    lr, gamma = (float(x) for x in scal[:2])
+    wf = w.float()
+    u = gsnr_ratio(g, g2, layout, gamma, eps) * ga.float() + wd * wf
+    un = torch.sqrt(leaf_sums(layout, u * u))
+    pn = torch.sqrt(leaf_sums(layout, wf * wf))
+    ratio = torch.where((pn > 0) & (un > 0), trust * pn / (un + 1e-12), torch.ones_like(pn))
+    m.copy_(mu * m + rows_of(layout, ratio) * u)
+    return -lr * m, m
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name, layout: ParamLayout, f32s, state=(), state_dtype=torch.float32):
+    """Raise unless every operand is a contiguous (n_rows, 128) tensor on one
+    Hopper card, ``f32s`` float32 and ``state`` of ``state_dtype``."""
+    shape, dev = (layout.n_rows, LANE), f32s[0].device
+    for t in (*f32s, *state):
+        if tuple(t.shape) != shape or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: operands must be contiguous {shape} on {dev}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    if any(t.dtype != torch.float32 for t in (g, ga, g2, w)):
-        raise TypeError("flat_vr_lamb: g, ga, g2 and w must be float32")
-    sd = getattr(torch, state_dtype)
-    if sd not in STATE_DTYPES or any(t.dtype != sd for t in (m, v, p)):
-        raise TypeError(f"flat_vr_lamb: m, v, p must be {state_dtype} (one of {STATE_DTYPES})")
-    capability = device_info(g.device.index)[0]
+    if any(t.dtype != torch.float32 for t in f32s):
+        raise TypeError(f"{name}: the gradients, moments and params must be float32")
+    if state_dtype not in STATE_DTYPES or any(t.dtype != state_dtype for t in state):
+        raise TypeError(f"{name}: the state must be {state_dtype} (one of {STATE_DTYPES})")
+    capability = device_info(dev.index)[0]
     if capability != HOPPER:
-        raise RuntimeError(f"flat_vr_lamb: the kernel is built for sm_90a (Hopper), got {capability}")
+        raise RuntimeError(f"{name}: the kernel is built for sm_90a (Hopper), got {capability}")
+
+
+def _device(name, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain version)."""
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type == "cuda"
+    raise ValueError(f"{name}: no implementation for device {t.device}")
+
+
+def _meta(layout: ParamLayout, dev, n_acc: int):
+    """The layout's block_leaf_ids and inv_sizes on ``dev``, and a new f32
+    (n_acc, leaf_slots) scratch for the per-leaf sums."""
+    meta = layout.device_meta(dev)
+    acc = torch.empty((n_acc, layout.leaf_slots), dtype=torch.float32, device=dev)
+    return meta["block_leaf_ids"], meta["inv_sizes"], acc
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _adam_call(name, g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, n_acc):
+    sd = getattr(torch, state_dtype)
+    _check(name, layout, (g, ga, g2, w), (m, v, p), sd)
+    lr, bc1, bc2, bc3 = (float(x) for x in scal[:4])
+    ids, inv, acc = _meta(layout, g.device, n_acc)
+    upd = torch.empty_like(g)
+    h = hyper
+    err = getattr(_build.library("flat_update", _SIGNATURES), name)(
+        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), v.data_ptr(), p.data_ptr(),
+        w.data_ptr(), upd.data_ptr(), ids.data_ptr(), inv.data_ptr(), acc.data_ptr(),
+        layout.leaf_slots, layout.n_blocks, int(sd == torch.bfloat16), lr, bc1, bc2, bc3,
+        h["b1"], h["b2"], h["b3"], h["eps"], h["wd"], h["gamma"], h["gsnr_eps"],
+        _stream(g.device),
+    )
+    _build.check(err, name)
+    return upd
+
+
+def flat_vr_scale(g, ga, g2, layout: ParamLayout, *, gamma, eps):
+    """The GSNR-scaled gradient over the flat buffers: returns (r * ga, r).
+
+    r = clip(r_raw / mean_leaf(r_raw), gamma, 1) with r_raw from (g, g2)."""
+    if not _device("flat_vr_scale", g):
+        return flat_vr_scale_ref(g, ga, g2, layout, gamma=gamma, eps=eps)
+    _check("flat_vr_scale", layout, (g, ga, g2))
+    ids, inv, acc = _meta(layout, g.device, 1)
+    sg, r = torch.empty_like(g), torch.empty_like(g)
+    err = _build.library("flat_update", _SIGNATURES).flat_vr_scale(
+        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), sg.data_ptr(), r.data_ptr(), ids.data_ptr(),
+        inv.data_ptr(), acc.data_ptr(), layout.leaf_slots, layout.n_blocks, gamma, eps,
+        _stream(g.device),
+    )
+    _build.check(err, "flat_vr_scale")
+    flat_vr_scale.launches += 1
+    return sg, r
+
+
+def flat_vr_adam(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayout, *,
+                 b1, b2, b3, eps, wd, gamma, gsnr_eps, state_dtype="float32"):
+    """The full VR-Adam step over the flat buffers: returns (upd, m', v', p')
+    with upd = -lr (direction + wd w); scal = (lr, bc1, bc2, bc3) as host
+    floats; m, v, p in ``state_dtype``, updated in place."""
+    hyper = dict(b1=b1, b2=b2, b3=b3, eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps)
+    if not _device("flat_vr_adam", g):
+        return flat_vr_adam_ref(g, ga, g2, m, v, p, w, scal, layout, state_dtype=state_dtype,
+                                **hyper)
+    upd = _adam_call("flat_vr_adam", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, 1)
+    flat_vr_adam.launches += 1
+    return upd, m, v, p
 
 
 def flat_vr_lamb(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayout, *,
                  b1, b2, b3, eps, wd, gamma, gsnr_eps, state_dtype="float32"):
-    """The full VR-LAMB step over the flat buffers: returns (upd, m', v', p').
-
-    g, g2: the raw group moments (mean, sq_mean) the GSNR ratio reads; ga:
-    the gradient the update applies (the clipped mean); w: the params;
-    m, v, p in ``state_dtype``, updated in place; scal = (lr, bc1, bc2, bc3)
-    as host floats."""
-    if g.device.type == "cpu":
-        return flat_vr_lamb_ref(g, ga, g2, m, v, p, w, scal, layout, b1=b1, b2=b2, b3=b3,
-                                eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps,
-                                state_dtype=state_dtype)
-    if g.device.type != "cuda":
-        raise ValueError(f"flat_vr_lamb: no implementation for device {g.device}")
-    _check(g, ga, g2, m, v, p, w, layout, state_dtype)
-    lr, bc1, bc2, bc3 = (float(x) for x in scal[:4])
-    meta = layout.device_meta(g.device)
-    upd = torch.empty_like(g)
-    acc = torch.empty((3, layout.leaf_slots), dtype=torch.float32, device=g.device)
-    lib = _build.library("flat_update", _SIGNATURES)
-    err = lib.flat_vr_lamb(
-        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), v.data_ptr(), p.data_ptr(),
-        w.data_ptr(), upd.data_ptr(), meta["block_leaf_ids"].data_ptr(),
-        meta["inv_sizes"].data_ptr(), acc.data_ptr(), layout.leaf_slots, layout.n_blocks,
-        int(m.dtype == torch.bfloat16), lr, bc1, bc2, bc3, b1, b2, b3, eps, wd, gamma, gsnr_eps,
-        torch.cuda.current_stream(g.device).cuda_stream,
-    )
-    _build.check(err, "flat_vr_lamb")
+    """The full VR-LAMB step over the flat buffers: returns (upd, m', v', p')
+    with upd = -lr ratio_leaf (direction + wd w); scal = (lr, bc1, bc2, bc3)
+    as host floats; m, v, p in ``state_dtype``, updated in place."""
+    hyper = dict(b1=b1, b2=b2, b3=b3, eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps)
+    if not _device("flat_vr_lamb", g):
+        return flat_vr_lamb_ref(g, ga, g2, m, v, p, w, scal, layout, state_dtype=state_dtype,
+                                **hyper)
+    upd = _adam_call("flat_vr_lamb", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, 3)
     flat_vr_lamb.launches += 1
     return upd, m, v, p
 
 
+def flat_vr_lars(g, ga, g2, m, w, scal: Sequence[float], layout: ParamLayout, *,
+                 mu, wd, trust, eps):
+    """The full VR-LARS step over the flat buffers: returns (upd, m') with
+    m' = mu m + ratio_leaf (r ga + wd w), upd = -lr m'; scal = (lr, gamma)
+    as host floats; m f32, updated in place."""
+    if not _device("flat_vr_lars", g):
+        return flat_vr_lars_ref(g, ga, g2, m, w, scal, layout, mu=mu, wd=wd, trust=trust,
+                                eps=eps)
+    _check("flat_vr_lars", layout, (g, ga, g2, m, w))
+    lr, gamma = (float(x) for x in scal[:2])
+    ids, inv, acc = _meta(layout, g.device, 3)
+    upd = torch.empty_like(g)
+    err = _build.library("flat_update", _SIGNATURES).flat_vr_lars(
+        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), w.data_ptr(), upd.data_ptr(),
+        ids.data_ptr(), inv.data_ptr(), acc.data_ptr(), layout.leaf_slots, layout.n_blocks,
+        lr, gamma, mu, wd, trust, eps, _stream(g.device),
+    )
+    _build.check(err, "flat_vr_lars")
+    flat_vr_lars.launches += 1
+    return upd, m
+
+
+flat_vr_scale.launches = 0
+flat_vr_adam.launches = 0
 flat_vr_lamb.launches = 0
+flat_vr_lars.launches = 0

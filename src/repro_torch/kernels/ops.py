@@ -3,19 +3,25 @@
 
 The attention adapters reshape the model's grouped query layout
 (B, S, KV, G, D) to the kernels' (B, S, H, D) and back.  The flat-state
-entries run the k-group moment carry (``moments_*_flat``) and the VR-LAMB
-update (``vr_lamb_update``) over the ParamLayout flat buffers: one kernel
-wrapper call each.  The GSNR ratio derives from the raw group moments
-(stats.mean, stats.sq_mean) but multiplies the gradient entering the update
-(``grads``, possibly grad-clipped); moments are stored in ``state_dtype``
-and the GSNR-momentum bias correction uses the stats counter ``pt``.
+entries run the k-group moment carry (``moments_*_flat``, and the g-only
+``g_accum_flat`` of stale-GSNR steps) and the VR updates (``vr_scale_tree``
+for VR-SGD/Momentum, ``vr_adam_update``, ``vr_lamb_update``,
+``vr_lars_update``) over the ParamLayout flat buffers: one kernel wrapper
+call each.  ``lamb_trust_flat``, the stale-step LAMB epilogue, is plain
+torch, as the reference computes it outside any kernel.  The GSNR ratio
+derives from the raw group moments (stats.mean, stats.sq_mean) but
+multiplies the gradient entering the update (``grads``, possibly
+grad-clipped); moments are stored in ``state_dtype`` and the GSNR-momentum
+bias correction uses the stats counter ``pt``.  Gradients, params, state
+and updates are FlatBuffers.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.baselines import _lamb_phi
 from repro_torch.core.gsnr import GradStats
-from repro_torch.core.layout import FlatBuffer, ParamLayout
+from repro_torch.core.layout import FlatBuffer, ParamLayout, leaf_sums, rows_of
 from repro_torch.core.vrgd import bias_corrections
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
@@ -45,13 +51,20 @@ def flash_decode(qh, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, w
     return out.reshape(b, l, kvh, g, d)
 
 
-def vr_lamb_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
-                   gsnr_eps, params: FlatBuffer, state_dtype: str = "float32"):
-    """The full VR-LAMB update as one ``flat_vr_lamb`` call: returns (upd
-    FlatBuffer, new state).  m, v, p are updated in place."""
+def vr_scale_tree(stats: GradStats, grads: FlatBuffer, gamma: float, eps: float):
+    """(r * grads, r) over the whole parameter set as one ``flat_vr_scale``
+    call, both FlatBuffers (VR-SGD / VR-Momentum)."""
+    layout = grads.layout
+    sg, r = fu.flat_vr_scale(stats.mean.data, grads.data, stats.sq_mean.data, layout,
+                             gamma=gamma, eps=eps)
+    return FlatBuffer(sg, layout), FlatBuffer(r, layout)
+
+
+def _adam_family(fn, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma, gsnr_eps, params,
+                 state_dtype):
     t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3)
     layout = state["m"].layout
-    upd, m, v, p = fu.flat_vr_lamb(
+    upd, m, v, p = fn(
         stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data, state["v"].data,
         state["p"].data, params.data, (lr, bc1, bc2, bc3), layout,
         b1=b1, b2=b2, b3=b3, eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps,
@@ -60,6 +73,49 @@ def vr_lamb_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, e
     new_state = {"step": t, "pt": pt, "m": FlatBuffer(m, layout), "v": FlatBuffer(v, layout),
                  "p": FlatBuffer(p, layout)}
     return FlatBuffer(upd, layout), new_state
+
+
+def vr_adam_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
+                   gsnr_eps, params, state_dtype: str = "float32"):
+    """The full VR-Adam update as one ``flat_vr_adam`` call: returns (upd
+    FlatBuffer, new state).  m, v, p are updated in place.  Without params
+    the weight decay is skipped (zeros stand in for w), as in the
+    reference."""
+    if params is None:
+        params, wd = FlatBuffer(torch.zeros_like(grads.data), grads.layout), 0.0
+    return _adam_family(fu.flat_vr_adam, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
+                        gsnr_eps, params, state_dtype)
+
+
+def vr_lamb_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
+                   gsnr_eps, params: FlatBuffer, state_dtype: str = "float32"):
+    """The full VR-LAMB update as one ``flat_vr_lamb`` call: returns (upd
+    FlatBuffer, new state).  m, v, p are updated in place."""
+    return _adam_family(fu.flat_vr_lamb, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
+                        gsnr_eps, params, state_dtype)
+
+
+def vr_lars_update(grads: FlatBuffer, state, stats: GradStats, lr, mu, wd, trust, gamma, eps,
+                   params: FlatBuffer):
+    """The full VR-LARS update as one ``flat_vr_lars`` call: returns (upd
+    FlatBuffer, new state).  m (f32) is updated in place."""
+    layout = state["m"].layout
+    upd, m = fu.flat_vr_lars(stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data,
+                             params.data, (lr, gamma), layout, mu=mu, wd=wd, trust=trust, eps=eps)
+    return FlatBuffer(upd, layout), {"step": state["step"] + 1, "m": FlatBuffer(m, layout)}
+
+
+def lamb_trust_flat(d: FlatBuffer, params: FlatBuffer, lr, wd) -> FlatBuffer:
+    """The stale-step LAMB epilogue over the flat buffer, in plain torch:
+    u = d + wd w, upd = -lr ratio_leaf u with the per-leaf norms summed by
+    leaf id (the zero tail adds nothing)."""
+    layout = d.layout
+    w = params.data
+    u = d.data + wd * w
+    un = torch.sqrt(leaf_sums(layout, u * u))
+    pn = torch.sqrt(leaf_sums(layout, w * w))
+    ratio = torch.where((pn > 0) & (un > 0), _lamb_phi(pn) / (un + 1e-12), torch.ones_like(pn))
+    return FlatBuffer(-lr * rows_of(layout, ratio) * u, layout)
 
 
 def moments_init_flat(layout: ParamLayout, device):
@@ -71,6 +127,12 @@ def moments_accum_flat(g_sum, g2_sum, g):
     """One microbatch's flat gradient into both carries (one launch, in
     place)."""
     return fs.flat_moments_accum(g_sum, g2_sum, g)
+
+
+def g_accum_flat(g_sum, g):
+    """One microbatch's flat gradient into the g-only carry of a stale-GSNR
+    step (one launch, in place)."""
+    return fs.flat_g_accum(g_sum, g)
 
 
 def moments_finalize_flat(g_sum, g2_sum, k: int, layout: ParamLayout) -> GradStats:

@@ -1,8 +1,11 @@
-"""Training launcher: the VR-LAMB step on the synthetic Markov LM stream.
+"""Training launcher: the train step on the synthetic Markov LM stream.
 
-  python -m repro_torch.launch.train --arch bert-large --batch 256 --seq 128 --steps 3
+  python -m repro_torch.launch.train --arch bert-large --optimizer vr_adam \
+      --batch 256 --seq 128 --steps 3
   python -m repro_torch.launch.train --arch bert-large --smoke --device cpu --steps 4
 
+``--optimizer`` takes any name of ``core/vrgd.py::make_optimizer`` (default:
+the config's).
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.
@@ -27,6 +30,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--optimizer", default="")
     ap.add_argument("--lr", type=float, default=0.0)
     ap.add_argument("--k", type=int, default=0)
     ap.add_argument("--gamma", type=float, default=-1.0)
@@ -41,6 +45,8 @@ def main(argv=None) -> None:
     if args.seq:
         cfg = cfg.replace(seq_len=args.seq)
     kw = {"total_steps": args.steps}
+    if args.optimizer:
+        kw["name"] = args.optimizer
     if args.lr:
         kw["lr"] = args.lr
     if args.k:

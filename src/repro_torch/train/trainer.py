@@ -1,24 +1,30 @@
-"""Training loop: the VR-LAMB train step with k-microbatch GSNR statistics.
+"""Training loop: the train step with k-microbatch GSNR statistics.
 
 Port of ``repro/train/trainer.py::make_train_step`` (microbatch GSNR source,
-no mesh), ``init_state`` and ``train_loop``.  One step is the paper's
-Algorithm 5 end to end:
+no mesh), ``init_state`` and ``train_loop``.  One fresh VR step is the
+paper's Algorithm 1/3/5 end to end:
 
   1. split the batch into k microbatches; forward + backward of each, its
      gradient folded into the (g_sum, g2_sum) carry; then /k
      (core/accumulate.py);
   2. clip the MEAN gradient to the global norm ``grad_clip`` -> ga (the
      GSNR ratio still reads the raw moments);
-  3. VR-LAMB: GSNR -> normalize -> clip -> GSNR momentum -> Adam direction
-     -> per-leaf trust ratio (core/vrgd.py);
+  3. the VR optimizer: GSNR -> normalize -> clip -> the scaled update
+     (core/vrgd.py);
   4. params += update, in place on the flat parameter buffer.
 
+A stale VR step (``with_stats=False``; ``train_loop`` runs one on every step
+but each ``gsnr_refresh``-th, for vr_adam and vr_lamb) carries the mean
+gradient only and hands the optimizer ``stats=None``.  The baselines (sgd,
+momentum, adam, lars, lamb) take one backward over the whole batch
+(``grad_only``) and tree math.
+
 On the fused plan steps 1 and 3 run the kernels (K1 forward and remat
-forward, K2 backward, K3 per microbatch, K4, K5); on the reference plan
-their plain PyTorch versions.  Entry points run on the CUDA card unless the
+forward, K2 backward, K3 per microbatch and K4, or K9 per microbatch on a
+stale step; K5, K6, K7 or K8 for the update); on the reference plan their
+plain PyTorch versions.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.  Not yet ported: the data-axis GSNR source
-and mesh sharding, the stale-GSNR (``gsnr_refresh > 1``) steps, the
-noise-scale readings and every optimizer but vr_lamb.
+and mesh sharding and the noise-scale readings.
 """
 from __future__ import annotations
 
@@ -28,9 +34,9 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import Config
-from repro_torch.core.accumulate import grad_stats
+from repro_torch.core.accumulate import grad_only, grad_stats
 from repro_torch.core.gsnr import gsnr_scale, gsnr_summary
-from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat, tree_leaves, tree_map
+from repro_torch.core.layout import FlatBuffer, FlatParams, tree_leaves, tree_map
 from repro_torch.core.vrgd import make_optimizer
 from repro_torch.models import init_params
 from repro_torch.serve.engine import resolve_device
@@ -54,11 +60,13 @@ def make_train_step(
     log_gsnr: bool = False,
     device=None,
 ) -> Tuple[Callable, object]:
-    """Returns (train_step(state, batch) -> (state, metrics), optimizer).
+    """Returns (train_step(state, batch, with_stats=True) -> (state, metrics),
+    optimizer).
 
     ``batch`` is a dict of (B, ...) arrays or tensors (moved to the device);
-    metrics are 0-dim tensors: loss, grad_norm, update_norm, the loss's own
-    (ce, pack_efficiency) and, with ``log_gsnr``, gsnr/mean, gsnr/min and
+    ``with_stats=False`` makes a VR step stale.  Metrics are 0-dim tensors:
+    loss, grad_norm, update_norm, the loss's own (ce, pack_efficiency) and,
+    with ``log_gsnr`` on a fresh VR step, gsnr/mean, gsnr/min and
     gsnr/frac_floor."""
     opt_cfg = cfg.optimizer
     if opt_cfg.gsnr_source != "microbatch":
@@ -72,23 +80,35 @@ def make_train_step(
             "ported: the flat carry feeds only the flat update")
     opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch)
     loss_fn = loss_fn or make_loss_fn(cfg)
+    is_vr = opt_cfg.is_vr
+    # the VR optimizers take and return FlatBuffers on the fused plan; the
+    # baselines are tree math on either plan (core/baselines.py)
+    flat_form = is_vr and bk.fused("optimizer", device)
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def train_step(state: TrainState, batch, with_stats: bool = True
+                   ) -> Tuple[TrainState, Dict]:
         flat: FlatParams = state.params
-        loss, aux, stats = grad_stats(loss_fn, flat, _to_device(batch, flat.device), opt_cfg.k,
-                                      method=opt_cfg.stats_method, backend=bk)
-        grads = stats.mean
-        fused_opt = is_flat(state.opt_state["m"])
+        batch = _to_device(batch, flat.device)
+        if is_vr:
+            loss, aux, stats = grad_stats(loss_fn, flat, batch, opt_cfg.k,
+                                          method=opt_cfg.stats_method, squares=with_stats,
+                                          backend=bk)
+            grads = stats.mean
+            if not with_stats:
+                stats = None
+        else:
+            loss, aux, grads = grad_only(loss_fn, flat, batch)
+            stats = None
         gnorm = global_norm(grads)
         if opt_cfg.grad_clip > 0:
             scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
-        w = FlatBuffer(flat.data, flat.layout) if fused_opt else flat.stacked()
+        w = FlatBuffer(flat.data, flat.layout) if flat_form else flat.stacked()
         with torch.no_grad():
             upd, opt_state = opt.update(grads, state.opt_state, w, stats=stats)
             tree_map(lambda p, u: p.add_(u), w, upd)
         metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": global_norm(upd), **aux}
-        if log_gsnr:
+        if log_gsnr and stats is not None:
             with torch.no_grad():
                 metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma), opt_cfg.gamma))
         return state._replace(opt_state=opt_state, step=opt_state["step"]), metrics
@@ -120,17 +140,22 @@ def train_loop(
     log_gsnr: bool = False,
     device=None,
 ):
-    """Simple driver: returns (state, history)."""
-    if cfg.optimizer.gsnr_refresh > 1:
-        raise NotImplementedError("gsnr_refresh > 1 (stale-GSNR steps) is not yet ported")
+    """The training loop: returns (state, history).
+
+    With cfg.optimizer.gsnr_refresh = R > 1, vr_adam and vr_lamb take a
+    fresh step (the k-group Σg² pass) every R-th step and stale steps (the
+    b3-smoothed GSNR momentum of the last fresh step) between; every other
+    optimizer steps fresh every time, as in the reference."""
     device = resolve_device(device)
     step_fn, _ = make_train_step(cfg, loss_fn, log_gsnr=log_gsnr, device=device)
+    supports_stale = cfg.optimizer.name in ("vr_adam", "vr_lamb")
+    refresh = max(1, cfg.optimizer.gsnr_refresh) if supports_stale else 1
     state = state or init_state(cfg, device=device)
     history = []
     it = iter(batches)
     t0 = time.time()
     for i in range(steps):
-        state, metrics = step_fn(state, next(it))
+        state, metrics = step_fn(state, next(it), refresh == 1 or i % refresh == 0)
         if log_every and (i % log_every == 0 or i == steps - 1):
             m = {k_: float(v) for k_, v in metrics.items()}
             m["step"], m["wall"] = i, time.time() - t0

@@ -13,7 +13,9 @@ atol 2^-7 of the largest magnitude); f32 results 1e-4
 (summation order over at most a few hundred terms); the moment carry is
 exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
 (its per-leaf sums are f32 atomics in another order), bf16 state one bf16
-ulp (rtol 2^-7).
+ulp (rtol 2^-7); the VR-Adam, VR-LARS and VR-scale updates likewise (rtol
+1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp), and the
+g-only carry exactly (the same f32 additions).
 """
 import dataclasses
 
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.backend import Backend
 from repro_torch.configs import get_smoke
-from repro_torch.core.layout import ParamLayout, pad_mask
+from repro_torch.core.layout import FlatBuffer, ParamLayout, pad_mask
 from repro_torch.data import lm_batches
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
@@ -216,6 +218,107 @@ def test_flat_kernels_match_plain(dev, state_dtype):
     tol = dict(rtol=1e-4, atol=1e-7) if state_dtype == "float32" else dict(rtol=2.0**-7, atol=1e-6)
     for a, b_ in zip(ks, ps):
         torch.testing.assert_close(a.float(), b_.float(), **tol)
+
+
+def _flat_case(dev, seed):
+    """A small multi-leaf layout, its pad mask and a generator of masked
+    random flat buffers."""
+    rng = np.random.default_rng(seed)
+    tree = {"a": torch.empty(70000), "b": {"c": torch.empty(3, 5, 7), "d": torch.empty(4096)}}
+    layout = ParamLayout.for_tree(tree)
+    mask = pad_mask(layout, dev)
+
+    def rand(scale=1.0, positive=False):
+        x = torch.from_numpy(rng.standard_normal((layout.n_rows, 128), dtype=np.float32)).to(dev)
+        x = x.abs() if positive else x
+        return torch.where(mask, x * scale, 0.0)
+
+    return layout, mask, rand
+
+
+def _close_scaled(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vr_adam-float32", "vr_adam-bfloat16", "vr_lars",
+                                    "vr_scale", "g_accum-float32", "g_accum-bfloat16"])
+def test_flat_optimizer_kernels_match_plain(dev, kernel):
+    """K6 (both state dtypes), K7, K8 and K9 against their plain versions,
+    one launch counted per call; the zero tail as the plain version has it."""
+    layout, mask, rand = _flat_case(dev, 10)
+    g = rand(0.1)
+    g2 = g * g + rand(0.01, positive=True)
+    ga, w = g * 0.7, rand(0.5)
+    name, _, dtype = kernel.partition("-")
+    fn = {"vr_adam": fu.flat_vr_adam, "vr_lars": fu.flat_vr_lars, "vr_scale": fu.flat_vr_scale,
+          "g_accum": fs.flat_g_accum}[name]
+    before = fn.launches
+    if name == "vr_adam":
+        sd = getattr(torch, dtype)
+        m, v, p = rand(0.01), rand(1e-3, positive=True), torch.where(mask, 0.5, 0.0)
+        ks = [t.to(sd) for t in (m, v, p)]
+        ps = [t.clone() for t in ks]
+        hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-8, wd=0.01, gamma=0.1, gsnr_eps=1e-12,
+                     state_dtype=dtype)
+        scal = (1e-3, 0.19, 0.002, 0.19)
+        upd = fu.flat_vr_adam(g, ga, g2, *ks, w, scal, layout, **hyper)[0]
+        _close_scaled(upd, fu.flat_vr_adam_ref(g, ga, g2, *ps, w, scal, layout, **hyper)[0])
+        tol = dict(rtol=1e-4, atol=1e-7) if dtype == "float32" else dict(rtol=2.0**-7, atol=1e-6)
+        for a, b_ in zip(ks, ps):
+            torch.testing.assert_close(a.float(), b_.float(), **tol)
+    elif name == "vr_lars":
+        m = rand(0.01)
+        hyper = dict(mu=0.9, wd=1e-4, trust=0.001, eps=1e-12)
+        km, pm = m.clone(), m.clone()
+        upd, km2 = fu.flat_vr_lars(g, ga, g2, km, w, (0.05, 0.1), layout, **hyper)
+        want, pm2 = fu.flat_vr_lars_ref(g, ga, g2, pm, w, (0.05, 0.1), layout, **hyper)
+        assert km2 is km
+        _close_scaled(upd, want)
+        _close_scaled(km, pm)
+    elif name == "vr_scale":
+        sg, r = fu.flat_vr_scale(g, ga, g2, layout, gamma=0.1, eps=1e-12)
+        wsg, wr = fu.flat_vr_scale_ref(g, ga, g2, layout, gamma=0.1, eps=1e-12)
+        _close_scaled(sg, wsg)
+        _close_scaled(r, wr)
+        assert bool((r[~mask] == 0.1).all()) and bool((sg[~mask] == 0).all())
+    else:
+        gs, gg = rand(), rand().to(getattr(torch, dtype))
+        got = fs.flat_g_accum(gs.clone(), gg)
+        torch.testing.assert_close(got, fs.g_accum_ref(gs.clone(), gg), rtol=0, atol=0)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vr_sgd", "vr_adam"])
+def test_fused_vr_steps_keep_flat_state_on_the_card(dev, name):
+    """One fused smoke step of vr_sgd (K8) or vr_adam (K6): flat state on the
+    card, one launch of the optimizer's kernel and none of the others, and
+    the same params as the plain plan after the step."""
+    cfg = get_smoke("bert-large")
+    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32"),
+                      optimizer=dataclasses.replace(cfg.optimizer, name=name))
+    params = init_params(cfg.model, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = next(lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len))
+    kernels = (fu.flat_vr_scale, fu.flat_vr_adam, fu.flat_vr_lamb, fu.flat_vr_lars)
+    own = fu.flat_vr_scale if name == "vr_sgd" else fu.flat_vr_adam
+    out = {}
+    for plan, bk in (("fused", Backend.all_fused()), ("reference", Backend.all_reference())):
+        pc = cfg.replace(parallel=dataclasses.replace(cfg.parallel, backend=bk))
+        state = init_state(pc, params=params, device=dev)
+        before = [fn.launches for fn in kernels]
+        state, _ = make_train_step(pc, device=dev)[0](state, batch)
+        delta = [fn.launches - b for fn, b in zip(kernels, before)]
+        if plan == "fused":
+            assert delta == [int(fn is own) for fn in kernels]
+            for key in ("m", "v", "p"):
+                if key in state.opt_state:
+                    x = state.opt_state[key]
+                    assert isinstance(x, FlatBuffer) and x.data.device.type == "cuda"
+        else:
+            assert delta == [0] * len(kernels)
+        out[plan] = state.params.data.clone()
+    torch.testing.assert_close(out["fused"], out["reference"], rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.cuda

@@ -53,16 +53,16 @@ GSNR = ("gsnr/mean", "gsnr/min", "gsnr/frac_floor")
 STATE_REL = 3e-3
 
 
-def _cfgs(arch, plan, **opt):
+def _cfgs(arch, plan, name="vr_lamb", **opt):
     jcfg, tcfg = j_get_smoke(arch), get_smoke(arch)
     tb = Backend.all_fused() if plan == "fused" else Backend.all_reference()
     jcfg = jcfg.replace(
         parallel=dataclasses.replace(jcfg.parallel, compute_dtype="float32",
                                      backend=JBackend.all_reference()),
-        optimizer=dataclasses.replace(jcfg.optimizer, name="vr_lamb", **opt))
+        optimizer=dataclasses.replace(jcfg.optimizer, name=name, **opt))
     tcfg = tcfg.replace(
         parallel=dataclasses.replace(tcfg.parallel, compute_dtype="float32", backend=tb),
-        optimizer=dataclasses.replace(tcfg.optimizer, name="vr_lamb", **opt))
+        optimizer=dataclasses.replace(tcfg.optimizer, name=name, **opt))
     return jcfg, tcfg
 
 
@@ -88,16 +88,26 @@ def _run_both(jcfg, tcfg, batches):
 
 
 def _compare(jstate, jm, tstate, tm, step):
+    """Metrics, params and every optimizer state buffer of one step (the
+    GSNR metrics where the step logged them; the reference's MoE readings
+    have no counterpart)."""
+    assert set(tm) <= set(jm) and ("gsnr/mean" in tm) == ("gsnr/mean" in jm), \
+        (sorted(tm), sorted(jm))
     for k in SCALARS:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=f"{k} @ {step}")
     for k in GSNR:
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=5e-4, err_msg=f"{k} @ {step}")
+        if k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=5e-4,
+                                       err_msg=f"{k} @ {step}")
     tparams = flat_to_numpy(tstate.params.data, tstate.params.layout)
     jparams = jax.device_get(jstate.params)
     for (path, a), (_, b) in zip(tree_paths(tparams), tree_paths(jparams)):
         np.testing.assert_allclose(a, np.asarray(b), err_msg=f"params {path} @ {step}", **TOL)
     assert tstate.step == int(jstate.step) == step + 1
-    for name in "mvp":
+    assert set(tstate.opt_state) == set(jstate.opt_state)
+    if "pt" in jstate.opt_state:
+        assert tstate.opt_state["pt"] == int(jstate.opt_state["pt"])
+    for name in sorted(set("mvp") & set(jstate.opt_state)):
         got = _state_tree(tstate.opt_state[name])
         want = jax.device_get(jstate.opt_state[name])
         for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want)):
@@ -185,12 +195,18 @@ def test_entry_points_default_to_the_card():
         make_train_step(cfg)
 
 
-@pytest.mark.parametrize("name", ["vr_sgd", "vr_momentum", "vr_adam", "vr_lars", "lamb"])
-def test_unported_optimizers_raise(name):
+@pytest.mark.parametrize("opt,err,match", [
+    (dict(stats_method="vmap"), NotImplementedError, "vmap"),
+    (dict(gsnr_source="data_axis"), NotImplementedError, "data_axis"),
+    (dict(name="adagrad"), KeyError, "unknown optimizer"),
+])
+def test_unported_paths_and_unknown_optimizers_raise(opt, err, match):
     cfg = get_smoke("bert-large")
-    cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, name=name))
-    with pytest.raises(KeyError, match="not yet ported"):
-        make_train_step(cfg, device="cpu")
+    cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, **opt))
+    batch = next(lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len))
+    with pytest.raises(err, match=match):
+        step = make_train_step(cfg, device="cpu")[0]
+        step(init_state(cfg, device="cpu"), batch)
 
 
 def test_default_optimizer_resolves_from_the_params_device():
