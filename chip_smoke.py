@@ -43,6 +43,21 @@ Phases, in order; any failure exits non-zero:
                 baseline step (a single backward over the whole batch).
                 Launch counts asserted per fused step, the plans compared
                 within TRAIN_TOL, warm step times and tokens/s.
+ 10. data parallel — (a) the data-parallel kernels at the main path's
+                shapes: the [g; g^2] payload (K11) on bert-large's full flat
+                layout, and the per-row-shard update kernels (K13-K17) with
+                the trust epilogue on that layout split into 4 row shards in
+                this process (the partials added in place of the all-reduce),
+                each against its plain version and, put together, against
+                the single-card K5-K8; times beside bounds.  (b) bert-large
+                at full width trained by ranks that share the card over gloo
+                (one process per rank): two ranks at global batch 64 (three
+                VR-LAMB steps, one each of VR-Adam, VR-LARS and VR-SGD)
+                against single-card k=2 steps, and four ranks at global
+                batch 128 (three VR-LAMB steps) against single-card k=4;
+                launch counts per rank per step, params bit-identical across
+                the ranks after every step, agreement within DP_TOL, step
+                and collective walls, peak memory per rank.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -340,6 +355,7 @@ def counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flat_spmd as fsp
     from repro_torch.kernels import flat_stats as fs
     from repro_torch.kernels import flat_update as fu
 
@@ -353,7 +369,14 @@ def counters():
             "flat_vr_lamb": fu.flat_vr_lamb,
             "flat_vr_adam": fu.flat_vr_adam,
             "flat_vr_lars": fu.flat_vr_lars,
-            "flat_vr_scale": fu.flat_vr_scale}
+            "flat_vr_scale": fu.flat_vr_scale,
+            "flat_pack_square": fs.flat_pack_square,
+            "leaf_r_partials": fsp.leaf_r_partials,
+            "vr_scale_apply": fsp.vr_scale_apply,
+            "vr_adam_apply": fsp.vr_adam_apply,
+            "vr_lamb_compute": fsp.vr_lamb_compute,
+            "vr_lars_compute": fsp.vr_lars_compute,
+            "trust_apply": fsp.trust_apply}
 
 
 SERVE_KERNELS = ("flash_attention_fwd", "flash_decode_split", "flash_decode_combine")
@@ -959,6 +982,21 @@ def phase_train_kernels(records, layout):
 # twice the bound.
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 3e-3, "mv": 0.05, "p": 0.15, "upd": 0.1,
              "upd_rounded": 0.25}
+# Phase 10b's data-parallel run against the single-card fused k = W run.
+# Both run the same kernels at the same precision, so they differ only
+# where a sum is taken in another order (a leaf split over two shards, the
+# all-reduce of the payload): TRAIN_TOL, set for the bf16 fused-vs-reference
+# comparison, is 100 to 10,000 times these gaps and passes a fault of the
+# sharding's plumbing.  The largest gaps of three full-width runs on an H100
+# 80GB HBM3 (700 W), over both groups: loss 1.05e-5, grad_norm 2.67e-4,
+# gsnr/* 1.70e-4; after step 1 the update 5.35e-4 (VR-LARS; VR-SGD 1.06e-4,
+# so VR-SGD needs no bound of its own here), m and v 4.29e-4, p 1.86e-5.
+# Each bound is about ten times its largest gap.  Planted faults at two
+# ranks on the same card: with the norm partials not all-reduced the update
+# moved by 2.6e-2 (VR-LAMB) and 8.0e-2 (VR-LARS), inside TRAIN_TOL; with
+# the per-leaf sum of r not all-reduced, VR-LAMB's update moved by 6.8e-3
+# and its m, v, p by 0.15-0.24 (PERF.md).
+DP_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 2e-3, "mv": 5e-3, "p": 2e-4, "upd": 5e-3}
 TRAIN_STEPS = 3
 
 
@@ -1021,29 +1059,34 @@ def run_plan(plan, state, step, batches, want_fused, label, fresh=None):
     return state, hist, step1, walls, path_counts
 
 
-def compare_plans(label, hist, step1, when="after step 1", tol_keys=None):
-    """The fused plan against the reference plan within TRAIN_TOL: loss,
-    grad_norm and gsnr/* (where logged) at every step, the update and each
-    state buffer in ``step1`` (taken after step 1 unless ``when`` says
-    otherwise), each under the TRAIN_TOL key ``tol_keys`` maps it to."""
-    for i, (a, b_) in enumerate(zip(hist["fused"], hist["reference"])):
+def compare_plans(label, hist, step1, when="after step 1", tol_keys=None,
+                  pair=("fused", "reference"), tol=None):
+    """Run ``pair[0]`` against run ``pair[1]`` (the fused plan against the
+    reference plan unless said otherwise) within ``tol`` (TRAIN_TOL unless
+    said otherwise): loss, grad_norm and gsnr/* (where logged) at every
+    step, the update and each state buffer in ``step1`` (taken after step 1
+    unless ``when`` says otherwise), each under the key ``tol_keys`` maps it
+    to."""
+    tol = TRAIN_TOL if tol is None else tol
+    x, y = pair
+    for i, (a, b_) in enumerate(zip(hist[x], hist[y])):
         d_loss = abs(a["loss"] - b_["loss"]) / abs(b_["loss"])
         d_gn = abs(a["grad_norm"] - b_["grad_norm"]) / abs(b_["grad_norm"])
         keys = [k for k in ("gsnr/mean", "gsnr/min", "gsnr/frac_floor") if k in b_]
         d_gsnr = max((abs(a[key] - b_[key]) for key in keys), default=0.0)
-        print(f"  {label} step {i}: |loss rel diff| {d_loss:.3e} (tol {TRAIN_TOL['loss']}), "
-              f"|grad_norm rel diff| {d_gn:.3e} (tol {TRAIN_TOL['grad_norm']}), "
-              f"max |gsnr/* diff| {d_gsnr:.3e} (tol {TRAIN_TOL['gsnr']})", flush=True)
-        if d_loss > TRAIN_TOL["loss"] or d_gn > TRAIN_TOL["grad_norm"] \
-                or d_gsnr > TRAIN_TOL["gsnr"]:
-            fail(f"{label} step {i}: the fused and reference plans disagree")
-    for nm in step1["reference"]:
+        print(f"  {label} step {i}: |loss rel diff| {d_loss:.3e} (tol {tol['loss']}), "
+              f"|grad_norm rel diff| {d_gn:.3e} (tol {tol['grad_norm']}), "
+              f"max |gsnr/* diff| {d_gsnr:.3e} (tol {tol['gsnr']})", flush=True)
+        if d_loss > tol["loss"] or d_gn > tol["grad_norm"] \
+                or d_gsnr > tol["gsnr"]:
+            fail(f"{label} step {i}: the {x} and {y} runs disagree")
+    for nm in step1[y]:
         tol_key = (tol_keys or {"m": "mv", "v": "mv"}).get(nm, nm)
-        d = rel_diff(step1["fused"][nm], step1["reference"][nm])
-        print(f"  {label} {when}: ||{nm}_fused - {nm}_ref|| / ||{nm}_ref|| = {d:.4e} "
-              f"(tol {TRAIN_TOL[tol_key]})", flush=True)
-        if not d <= TRAIN_TOL[tol_key]:
-            fail(f"{label}: {when}, {nm} of the fused and reference plans disagree")
+        d = rel_diff(step1[x][nm], step1[y][nm])
+        print(f"  {label} {when}: ||{nm}_{x} - {nm}_{y}|| / ||{nm}_{y}|| = {d:.4e} "
+              f"(tol {tol[tol_key]})", flush=True)
+        if not d <= tol[tol_key]:
+            fail(f"{label}: {when}, {nm} of the {x} and {y} runs disagree")
 
 
 def add_path(records, path, path_counts):
@@ -1254,6 +1297,509 @@ def phase_train_optimizers(records):
     add_path(records, "train_optimizers", path_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel training (device-wise GSNR, row-sharded update)
+# ---------------------------------------------------------------------------
+
+# the data-parallel kernels and the update kernel each VR optimizer's sharded
+# step calls once (K13 and, for LAMB and LARS, the trust epilogue besides)
+DP_UPDATE = {"vr_lamb": "vr_lamb_compute", "vr_adam": "vr_adam_apply",
+             "vr_lars": "vr_lars_compute", "vr_sgd": "vr_scale_apply"}
+SPMD_SHARDS = 4
+
+
+def phase_spmd_kernels(records, layout):
+    """10a: K11 on bert-large's full flat layout; K13-K17 and the trust
+    epilogue on that layout split into SPMD_SHARDS row shards in this
+    process (the last one padded, leaves straddling the edges), the per-leaf
+    partials added in rank order in place of the all-reduce; each against its
+    plain version and, put together, against the single-card K5-K8."""
+    import torch
+
+    from repro_torch.core.layout import RowShard, pad_mask
+    from repro_torch.kernels import flat_spmd as fsp
+    from repro_torch.kernels import flat_stats as fs
+    from repro_torch.kernels import flat_update as fu
+
+    dev = torch.device("cuda")
+    n = layout.n_rows * 128
+    mask = pad_mask(layout, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rand(scale=1.0, positive=False):
+        x = torch.randn((layout.n_rows, 128), generator=gen, device=dev)
+        if positive:
+            x.abs_()
+        return x.mul_(scale).mul_(mask)
+
+    # ---- K11 flat_pack_square ------------------------------------------------
+    print("[spmd kernels] flat_pack_square on the full layout", flush=True)
+    g = rand(1e-3)
+    err11 = check_close("flat_pack_square [g; g^2]", fs.flat_pack_square(g),
+                        fs.pack_square_ref(g), TOL_EXACT)
+    t11 = cuda_ms(lambda: fs.flat_pack_square(g))
+    t11_plain = cuda_ms(lambda: fs.pack_square_ref(g))
+    t11_lib = cuda_ms(lambda: torch.stack((g, g * g)))
+    b11_ms, b11_by = bound(3 * n * 4, n, "float32")
+    print(f"  flat_pack_square (ms): kernel={t11:.4f} plain={t11_plain:.4f} "
+          f"torch.stack((g, g * g)) (two operations)={t11_lib:.4f} bound={b11_ms:.4f} "
+          f"({b11_by})", flush=True)
+    records["flat_pack_square"] = dict(
+        name="flat_pack_square", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
+        replaces="src/repro/kernels/flat_stats.py:116", max_abs_err=err11, ms=t11,
+        plain_ms=t11_plain, bound_ms=b11_ms, bound_by=b11_by, library_ms=t11_lib)
+
+    # ---- K13-K17 over row shards ---------------------------------------------
+    g2 = (g * g).add_(rand(1e-6, positive=True))
+    ga, w = g * 0.5, rand(0.03)
+    m0, v0 = rand(1e-4), rand(1e-7, positive=True)
+    p0 = mask.float().mul_(0.4)
+    hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12)
+    scal, lscal = (3.5e-6, 0.19, 0.001999, 0.19), (3.5e-3, 0.1)
+    lars = dict(mu=0.9, wd=0.01, trust=0.001, eps=1e-12)
+    shards = [RowShard(layout, SPMD_SHARDS, s) for s in range(SPMD_SHARDS)]
+    sh0 = shards[0]
+    block_ids = layout.block_leaf_ids()[:, 0]
+    edges = [s * sh0.n_blocks for s in range(1, SPMD_SHARDS) if s * sh0.n_blocks < layout.n_blocks]
+    straddle = sum(int(block_ids[e - 1] == block_ids[e]) for e in edges)
+    print(f"[spmd kernels] {SPMD_SHARDS} row shards of {sh0.n_blocks} blocks ({sh0.rows} rows, "
+          f"{sh0.rows * 512 / 1e9:.4f} GB per f32 buffer); {sh0.pad_blocks} padding blocks; "
+          f"{straddle} shard edges inside a leaf", flush=True)
+    if sh0.pad_blocks == 0 or straddle == 0:
+        fail("the shards must pad and straddle leaves")
+    meta = [sh.device_meta(dev) for sh in shards]
+    loc = [{k: sh.local(t) for k, t in dict(g=g, g2=g2, ga=ga, w=w).items()} for sh in shards]
+
+    def scaled(want):
+        return dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)
+
+    # K13's partials are one f32 sum per leaf, the largest ~6.7e8 and the
+    # smallest orders of magnitude below it: each is held to its own sum
+    # (a leaf not on the shard must read exactly 0)
+    tol_leaf = dict(atol=0.0, rtol=1e-4)
+
+    errs = {k: 0.0 for k in ("leaf_r_partials", "vr_scale_apply", "vr_adam_apply",
+                             "vr_lamb_compute", "vr_lars_compute", "trust_apply")}
+
+    def note(name, *vals):
+        errs[name] = max(errs[name], *vals)
+
+    parts = []
+    for s, (a, mt) in enumerate(zip(loc, meta)):
+        got = fsp.leaf_r_partials(a["g"], a["g2"], mt["block_leaf_ids"], layout.leaf_slots,
+                                  gsnr_eps=1e-12)
+        want = fsp.leaf_r_partials_ref(a["g"], a["g2"], mt["block_leaf_ids"], layout.leaf_slots,
+                                       gsnr_eps=1e-12)
+        note("leaf_r_partials", check_close(f"leaf_r_partials shard {s}", got, want, tol_leaf))
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        print(f"  leaf_r_partials shard {s}: largest error relative to its leaf's sum "
+              f"{rel:.3e}", flush=True)
+        parts.append(got)
+    racc = parts[0].clone()
+    for x in parts[1:]:
+        racc += x  # stands in for the all-reduce
+
+    def whole(outs):
+        return torch.cat(outs)[: layout.n_rows]
+
+    # K14 against its plain version, and together against K8
+    outs = []
+    for s, (a, mt) in enumerate(zip(loc, meta)):
+        args = (a["g"], a["ga"], a["g2"], racc, mt["block_leaf_ids"], mt["inv_sizes"])
+        got = fsp.vr_scale_apply(*args, gamma=0.1, eps=1e-12)
+        want = fsp.vr_scale_apply_ref(*args, gamma=0.1, eps=1e-12)
+        note("vr_scale_apply", check_close(f"vr_scale_apply shard {s} sg", got[0], want[0],
+                                           scaled(want[0])),
+             check_close(f"vr_scale_apply shard {s} r", got[1], want[1], TOL_F32))
+        outs.append(got)
+    k8 = fu.flat_vr_scale(g, ga, g2, layout, gamma=0.1, eps=1e-12)
+    for i, nm in enumerate(("sg", "r")):
+        note("vr_scale_apply", check_close(f"{SPMD_SHARDS} shards of K14 vs K8: {nm}",
+                                           whole([o[i] for o in outs]), k8[i], scaled(k8[i])))
+    del outs, k8
+
+    # K15 / K16 with both state dtypes, against their plain versions and K6 / K5
+    times = {}
+    for name, fn, ref, whole_fn in (
+            ("vr_adam_apply", fsp.vr_adam_apply, fsp.vr_adam_apply_ref, fu.flat_vr_adam),
+            ("vr_lamb_compute", fsp.vr_lamb_compute, fsp.vr_lamb_compute_ref, fu.flat_vr_lamb)):
+        for sd_name in ("float32", "bfloat16"):
+            sd = getattr(torch, sd_name)
+            kw = dict(state_dtype=sd_name, **hyper)
+            tol_state = (lambda want: TOL_BF16_STATE) if sd_name == "bfloat16" else scaled
+            outs, accs = [], []
+            for s, (sh, a, mt) in enumerate(zip(shards, loc, meta)):
+                ks = [sh.local(t).to(sd, copy=True) for t in (m0, v0, p0)]
+                ps = [t.clone() for t in ks]
+                args = (a["g"], a["ga"], a["g2"])
+                tail = (a["w"], scal, racc, mt["block_leaf_ids"], mt["inv_sizes"])
+                got = fn(*args, *ks, *tail, **kw)
+                want = ref(*args, *ps, *tail, **kw)
+                note(name, check_close(f"{name} {sd_name} shard {s} out", got[0], want[0],
+                                       scaled(want[0])),
+                     *(check_close(f"{name} {sd_name} shard {s} {nm}'", x, y, tol_state(y))
+                       for nm, x, y in zip("mvp", ks, ps)))
+                if fn is fsp.vr_lamb_compute:
+                    note(name, check_close(f"{name} {sd_name} shard {s} norm partials", got[4],
+                                           want[4], scaled(want[4])))
+                    accs.append(got[4])
+                outs.append((got[0], *ks))
+                del want, ps
+            if accs:  # the trust epilogue from the summed partials
+                acc = accs[0].clone()
+                for x in accs[1:]:
+                    acc += x
+                for s, (o, mt) in enumerate(zip(outs, meta)):
+                    want = fsp.trust_apply_ref(o[0].clone(), acc, mt["block_leaf_ids"],
+                                               lr=scal[0], lamb=True)
+                    got = fsp.trust_apply(o[0], acc, mt["block_leaf_ids"], lr=scal[0], lamb=True)
+                    note("trust_apply", check_close(f"trust_apply (LAMB) {sd_name} shard {s}",
+                                                    got, want, scaled(want)))
+            km, kv, kp = (t.to(sd, copy=True) for t in (m0, v0, p0))
+            upd = whole_fn(g, ga, g2, km, kv, kp, w, scal, layout, **kw)[0]
+            single = "K5" if whole_fn is fu.flat_vr_lamb else "K6"
+            note(name, check_close(f"{SPMD_SHARDS} shards vs {single} {sd_name}: upd",
+                                   whole([o[0] for o in outs]), upd, scaled(upd)),
+                 *(check_close(f"{SPMD_SHARDS} shards vs {single} {sd_name}: {nm}'",
+                               whole([o[1 + i] for o in outs]), x, tol_state(x))
+                   for i, (nm, x) in enumerate(zip("mvp", (km, kv, kp)))))
+            del outs, upd, km, kv, kp
+            # times on shard 0 (every shard has the same rows)
+            a, mt = loc[0], meta[0]
+            ks = [shards[0].local(t).to(sd, copy=True) for t in (m0, v0, p0)]
+            tail = (a["w"], scal, racc, mt["block_leaf_ids"], mt["inv_sizes"])
+            t_k = cuda_ms(lambda: fn(a["g"], a["ga"], a["g2"], *ks, *tail, **kw))
+            t_p = cuda_ms(lambda: ref(a["g"], a["ga"], a["g2"], *ks, *tail, **kw), iters=5)
+            ns = sh0.rows * 128
+            b_ms, b_by = bound(5 * ns * 4 + 6 * ns * ks[0].element_size() + 4 * sh0.n_blocks,
+                               40 * ns, "float32")
+            times[name, sd_name] = (t_k, t_p, b_ms, b_by)
+            print(f"  {name} {sd_name} state, one shard (ms): kernel={t_k:.4f} plain={t_p:.4f} "
+                  f"bound={b_ms:.4f} ({b_by}); no single PyTorch call computes it", flush=True)
+            del ks
+            torch.cuda.empty_cache()
+
+    # K17 and the LARS epilogue, against their plain versions and K7
+    outs, accs = [], []
+    for s, (a, mt) in enumerate(zip(loc, meta)):
+        args = (a["g"], a["ga"], a["g2"], a["w"], lscal, racc, mt["block_leaf_ids"],
+                mt["inv_sizes"])
+        got = fsp.vr_lars_compute(*args, wd=lars["wd"], eps=lars["eps"])
+        want = fsp.vr_lars_compute_ref(*args, wd=lars["wd"], eps=lars["eps"])
+        note("vr_lars_compute",
+             check_close(f"vr_lars_compute shard {s} u", got[0], want[0], scaled(want[0])),
+             check_close(f"vr_lars_compute shard {s} norm partials", got[1], want[1],
+                         scaled(want[1])))
+        outs.append(got[0])
+        accs.append(got[1])
+    acc = accs[0].clone()
+    for x in accs[1:]:
+        acc += x
+    upds, ms = [], []
+    for s, (sh, u, mt) in enumerate(zip(shards, outs, meta)):
+        kw = dict(lr=lscal[0], lamb=False, mu=lars["mu"], trust=lars["trust"])
+        want = fsp.trust_apply_ref(u.clone(), acc, mt["block_leaf_ids"], m=sh.local(m0).clone(),
+                                   **kw)
+        got = fsp.trust_apply(u, acc, mt["block_leaf_ids"], m=sh.local(m0).clone(), **kw)
+        note("trust_apply", *(check_close(f"trust_apply (LARS) shard {s} {nm}", x, y, scaled(y))
+                              for nm, x, y in zip(("upd", "m'"), got, want)))
+        upds.append(got[0])
+        ms.append(got[1])
+    km = m0.clone()
+    upd7 = fu.flat_vr_lars(g, ga, g2, km, w, lscal, layout, **lars)[0]
+    note("vr_lars_compute", check_close(f"{SPMD_SHARDS} shards vs K7: upd", whole(upds), upd7,
+                                        scaled(upd7)),
+         check_close(f"{SPMD_SHARDS} shards vs K7: m'", whole(ms), km, scaled(km)))
+    del outs, upds, ms, upd7, km
+
+    # times of K13, K14, K17 and the epilogues on shard 0
+    a, mt = loc[0], meta[0]
+    ids, inv, ns = mt["block_leaf_ids"], mt["inv_sizes"], sh0.rows * 128
+    meta_b = 4 * sh0.n_blocks + 8 * layout.leaf_slots
+    u0 = fsp.vr_lars_compute(a["g"], a["ga"], a["g2"], a["w"], lscal, racc, ids, inv,
+                             wd=lars["wd"], eps=lars["eps"])[0]
+    m_s = sh0.local(m0).clone()
+    timed = {
+        "leaf_r_partials": (
+            lambda: fsp.leaf_r_partials(a["g"], a["g2"], ids, layout.leaf_slots, gsnr_eps=1e-12),
+            lambda: fsp.leaf_r_partials_ref(a["g"], a["g2"], ids, layout.leaf_slots,
+                                            gsnr_eps=1e-12),
+            bound(2 * ns * 4 + meta_b, 6 * ns, "float32")),
+        "vr_scale_apply": (
+            lambda: fsp.vr_scale_apply(a["g"], a["ga"], a["g2"], racc, ids, inv, gamma=0.1,
+                                       eps=1e-12),
+            lambda: fsp.vr_scale_apply_ref(a["g"], a["ga"], a["g2"], racc, ids, inv, gamma=0.1,
+                                           eps=1e-12),
+            bound(5 * ns * 4 + meta_b, 10 * ns, "float32")),
+        "vr_lars_compute": (
+            lambda: fsp.vr_lars_compute(a["g"], a["ga"], a["g2"], a["w"], lscal, racc, ids, inv,
+                                        wd=lars["wd"], eps=lars["eps"]),
+            lambda: fsp.vr_lars_compute_ref(a["g"], a["ga"], a["g2"], a["w"], lscal, racc, ids,
+                                            inv, wd=lars["wd"], eps=lars["eps"]),
+            bound(5 * ns * 4 + meta_b, 15 * ns, "float32")),
+        "trust_apply": (
+            lambda: fsp.trust_apply(u0, acc, ids, lr=scal[0], lamb=True),
+            lambda: fsp.trust_apply_ref(u0, acc, ids, lr=scal[0], lamb=True),
+            bound(2 * ns * 4 + meta_b, 2 * ns, "float32")),
+        "trust_apply_lars": (
+            lambda: fsp.trust_apply(u0, acc, ids, lr=lscal[0], lamb=False, m=m_s, mu=0.9,
+                                    trust=0.001),
+            lambda: fsp.trust_apply_ref(u0, acc, ids, lr=lscal[0], lamb=False, m=m_s, mu=0.9,
+                                        trust=0.001),
+            bound(4 * ns * 4 + meta_b, 4 * ns, "float32")),
+    }
+    for name, (kernel, plain, (b_ms, b_by)) in timed.items():
+        t_k = cuda_ms(kernel)
+        t_p = cuda_ms(plain, iters=5)
+        times[name] = (t_k, t_p, b_ms, b_by)
+        print(f"  {name}, one shard (ms): kernel={t_k:.4f} plain={t_p:.4f} bound={b_ms:.4f} "
+              f"({b_by}); no single PyTorch call computes it", flush=True)
+    lines = {"leaf_r_partials": "85", "vr_scale_apply": "117", "vr_adam_apply": "142",
+             "vr_lamb_compute": "187", "vr_lars_compute": "245"}
+    for name in errs:
+        t_k, t_p, b_ms, b_by = times.get((name, "float32"), times.get(name))
+        rec = dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/flat_spmd.cu",
+                   replaces=(f"src/repro/kernels/flat_spmd.py:{lines[name]}" if name in lines
+                             else "src/repro/backend.py:437 (jnp epilogue, no pallas_call)"),
+                   max_abs_err=errs[name], ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, shard_rows=sh0.rows)
+        if (name, "bfloat16") in times:
+            bt = times[name, "bfloat16"]
+            rec.update(bf16_state_ms=bt[0], bf16_state_plain_ms=bt[1], bf16_state_bound_ms=bt[2])
+        if name == "trust_apply":
+            lt = times["trust_apply_lars"]
+            rec.update(lars_ms=lt[0], lars_plain_ms=lt[1], lars_bound_ms=lt[2])
+        records[name] = rec
+    del g, g2, ga, w, m0, v0, p0, mask, loc, meta, u0, m_s, parts, racc, acc
+    torch.cuda.empty_cache()
+
+
+class TimedMesh:
+    """A DataMesh whose collectives are timed on the host clock, the card
+    synchronized before and after each."""
+
+    def __init__(self, mesh):
+        self.mesh, self.size, self.rank, self.device = mesh, mesh.size, mesh.rank, mesh.device
+        self.wall = {}
+
+    def _timed(self, name, fn, *args):
+        import torch
+
+        nb = args[0].numel() * args[0].element_size()
+        name = f"{name} {nb / 1e9:.3f} GB" if nb > 1e6 else f"{name} (small)"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        w = self.wall.setdefault(name, [0.0, 0])
+        w[0] += (time.perf_counter() - t0) * 1e3
+        w[1] += 1
+        return out
+
+    def all_reduce_(self, t):
+        return self._timed("all_reduce", self.mesh.all_reduce_, t)
+
+    def all_gather(self, out, t):
+        return self._timed("all_gather", self.mesh.all_gather, out, t)
+
+    def broadcast_(self, t, src=0):
+        return self._timed("broadcast", self.mesh.broadcast_, t, src)
+
+
+def dp_counts(n_layers, name):
+    """Launches of one rank's fused data-parallel step: K1 twice and K2 once
+    per layer (one backward), K11 once, K13 and the optimizer's update kernel
+    once, the trust epilogue once for LAMB and LARS; every other count 0."""
+    want = fused_counts(n_layers, 1, DP_UPDATE[name], carry=None)
+    want.update(flat_pack_square=1, leaf_r_partials=1)
+    if name in ("vr_lamb", "vr_lars"):
+        want["trust_apply"] = 1
+    return want
+
+
+def dp_rank(rank, world, init, out_dir, global_batch, runs):
+    """One rank of a data-parallel group on the card (gloo: every rank shares
+    card 0).  For each (optimizer, steps): rank 0 first runs the single-card
+    k = world microbatch steps from the same weights on the same batches
+    (its step-1 update and state kept on the host); then every rank runs the
+    data-parallel steps, the launch counts held per step, the params checked
+    bit-identical across the ranks after every step, and rank 0 holds the
+    run against the single-card one within DP_TOL (compare_plans).
+    Writes its counts, walls, collective walls and peak memory to
+    out_dir."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.layout import FlatParams, is_flat
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import init_data_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = TimedMesh(init_data_mesh("gloo", dev, init_method=init, world_size=world, rank=rank))
+    cfg = bert_train_config().replace(global_batch=global_batch)
+    m = cfg.model
+    label = f"dp W={world} rank {rank}"
+    stream = lm_batches(m.vocab_size, global_batch, cfg.seq_len, seed=2)
+    batches = [next(stream) for _ in range(max(s for _, s in runs))]
+    tokens = global_batch * cfg.seq_len
+    summary = {"counts": {}, "walls": {}, "peak_gib": 0.0, "collectives": {}}
+
+    def barrier():
+        mesh.mesh.all_reduce_(torch.zeros(1, device=dev))
+
+    def flag_all(ok: bool) -> bool:
+        f = torch.tensor([0.0 if ok else 1.0], device=dev)
+        return float(mesh.mesh.all_reduce_(f)) == 0.0
+
+    def params():
+        return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    for name, steps in runs:
+        ref = None
+        if rank == 0:
+            rc = plan_config(cfg, "fused", name=name, k=world)
+            state = init_state(rc, params=params(), device=dev)
+            step = make_train_step(rc, log_gsnr=True, device=dev)[0]
+            hist, first = [], {}
+            for i, batch in enumerate(batches[:steps]):
+                w0 = state.params.data.clone() if i == 0 else None
+                state, metrics = step(state, batch)
+                hist.append({k: float(v) for k, v in metrics.items()})
+                if i == 0:
+                    first = {"upd": (state.params.data - w0).cpu(),
+                             **{nm: flat_state(state, nm).cpu() for nm in "mvp"
+                                if nm in state.opt_state}}
+                    del w0
+            ref = (hist, first)
+            del state, step
+            torch.cuda.empty_cache()
+        barrier()
+        dc = plan_config(cfg, "fused", name=name, gsnr_source="data_axis")
+        torch.cuda.reset_peak_memory_stats()
+        tree = params()
+        own = FlatParams(tree, m.n_groups(), device=dev).data  # this rank's seeded weights
+        state = init_state(dc, params=tree, device=dev, mesh=mesh)  # rank 0's, broadcast
+        if not flag_all(torch.equal(own, state.params.data)):
+            raise RuntimeError(f"{label}: the seeded weights differ across the ranks")
+        del own, tree
+        if not all(is_flat(v) and v.shard is not None and v.shard.n_shards == world
+                   for k, v in state.opt_state.items() if k in ("m", "v", "p")):
+            raise RuntimeError(f"{label}: the flat state is not row-sharded")
+        step = make_train_step(dc, log_gsnr=True, device=dev, mesh=mesh)[0]
+        want = dp_counts(m.n_layers, name)
+        hist, first, walls = [], {}, []
+        for i, batch in enumerate(batches[:steps]):
+            w0 = state.params.data.clone() if (i == 0 and rank == 0) else None
+            reset_counts()
+            (state, metrics), ms = host_ms(lambda: step(state, batch))
+            counts = read_counts()
+            if counts != want:
+                raise RuntimeError(f"{label} {name} step {i}: launches {counts} != {want}")
+            for k, c in counts.items():
+                summary["counts"][k] = summary["counts"].get(k, 0) + c
+            walls.append(ms)
+            copy = state.params.data.clone()
+            mesh.broadcast_(copy)
+            if not flag_all(torch.equal(copy, state.params.data)):
+                raise RuntimeError(f"{label} {name} step {i}: params differ across the ranks")
+            del copy
+            vals = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(list(vals.values()))):
+                raise RuntimeError(f"{label} {name} step {i}: non-finite metrics {vals}")
+            hist.append(vals)
+            if i == 0:  # every rank takes part in the gathers
+                gathered = {nm: state.opt_state[nm].shard.gather(
+                    state.opt_state[nm].data, mesh).float().cpu()
+                    for nm in "mvp" if nm in state.opt_state}
+                if rank == 0:
+                    first = {"upd": (state.params.data - w0).cpu(), **gathered}
+                    del w0
+                del gathered
+            if rank == 0:
+                print(f"  {label} {name} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
+                      f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e} gsnr mean "
+                      f"{vals['gsnr/mean']:.5f}; params bit-identical on {world} ranks; "
+                      f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+        if rank == 0:
+            single = f"k{world}"
+            compare_plans(f"dp W={world} {name} vs single-card k={world}",
+                          {"dp": hist, single: ref[0]}, {"dp": first, single: ref[1]},
+                          pair=("dp", single), tol=DP_TOL)
+        summary["walls"][name] = walls
+        summary["peak_gib"] = max(summary["peak_gib"],
+                                  torch.cuda.max_memory_allocated() / 2**30)
+        del state, step, first, ref
+        torch.cuda.empty_cache()
+        barrier()
+    summary["collectives"] = mesh.wall
+    summary["tokens"] = tokens
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(summary, f)
+    mesh.mesh.close()
+
+
+# (world, global batch, [(optimizer, steps)])
+DP_GROUPS = (
+    (2, 64, (("vr_lamb", TRAIN_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1))),
+    (4, 128, (("vr_lamb", TRAIN_STEPS),)),
+)
+DP_DEADLINE_S = 420.0
+
+
+def phase_train_dp(records):
+    """10b: data-parallel bert-large at full width on the card, every rank a
+    process sharing the card over gloo (NCCL refuses two ranks on one
+    card).  Two ranks at global batch 64 (32 sequences per rank, phase 8's
+    microbatch): three VR-LAMB steps, then one step each of VR-Adam, VR-LARS
+    and VR-SGD, against single-card k=2 microbatch steps.  Four ranks at
+    global batch 128, whose row shards pad the layout (44,510 blocks): three
+    VR-LAMB steps against single-card k=4."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import local_init_method, run_ranks
+
+    cfg = bert_train_config()
+    path_counts = {}
+    for world, batch, runs in DP_GROUPS:
+        print(f"[train dp] {cfg.model.name} at full width, {cfg.model.n_layers} layers, {world} "
+              f"gloo ranks on one card, global batch {batch} ({batch // world} sequences per "
+              f"rank), seq {cfg.seq_len}, fused plan, data_axis GSNR (k = {world}): "
+              f"{', '.join(f'{s} x {n}' for n, s in runs)}", flush=True)
+        out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        t0 = time.perf_counter()
+        try:
+            run_ranks(dp_rank, world, args=(world, local_init_method(), out, batch, runs),
+                      deadline_s=DP_DEADLINE_S)
+        except Exception as e:  # a rank failed, died or hung: the phase fails
+            fail(f"data-parallel group of {world} ranks: {type(e).__name__}: {e}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(out)
+        print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, init, the single-card "
+              f"runs and the checks included)", flush=True)
+        for r, res in enumerate(ranks):
+            coll = "; ".join(f"{k} {v[0]:.1f} ms over {v[1]} calls" for k, v in
+                             res["collectives"].items())
+            walls = "; ".join(f"{n} {', '.join(f'{w:.1f}' for w in ws)}" for n, ws in
+                              res["walls"].items())
+            print(f"  rank {r}: step walls (ms, host clock) {walls}; peak memory "
+                  f"{res['peak_gib']:.1f} GiB; collectives (host clock, card synchronized) "
+                  f"{coll}", flush=True)
+            for k, c in res["counts"].items():
+                path_counts[k] = path_counts.get(k, 0) + c
+        lamb = [w for res in ranks for w in res["walls"]["vr_lamb"][1:]]
+        print(f"  warm VR-LAMB step wall over the ranks: {np.mean(lamb):.1f} ms = "
+              f"{ranks[0]['tokens'] / np.mean(lamb) * 1e3:.0f} tokens/s on one card", flush=True)
+    add_path(records, "train_dp", path_counts)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1300,6 +1846,8 @@ def main() -> None:
     phase_train_kernels(records, train_layout(get_config("bert-large")))
     phase_train(records)
     phase_train_optimizers(records)
+    phase_spmd_kernels(records, train_layout(get_config("bert-large")))
+    phase_train_dp(records)
     torch.cuda.synchronize()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -23,6 +23,18 @@ or their wrappers raise (a card other than Hopper, capability (9, 0), is
 refused there; it never gets the plain version).  A fused plan on a CPU
 tensor runs the kernel wrappers, which on the CPU compute their plain
 version.
+
+Data parallelism
+----------------
+``Backend.shard(mesh)`` returns a :class:`FlatSpmd` plan (the reference's
+``Backend.shard`` / ``FlatSpmd``): the fused VR update then runs PER ROW
+SHARD of the flat buffers on each rank of a ``launch/mesh.py::DataMesh``
+(``sharding/rules.py``), with the optimizer state holding only the rank's
+rows.  The per-leaf sums split into a partials kernel over the shard, one
+all-reduce of the small per-leaf accumulator and an apply or compute kernel
+(kernels/flat_spmd.py); LAMB and LARS add a second all-reduce of the norm
+sums before their trust-ratio epilogue.  The update comes back as the
+rank's rows; the trainer gathers it.
 """
 from __future__ import annotations
 
@@ -80,3 +92,93 @@ class Backend:
     @classmethod
     def all_reference(cls) -> "Backend":
         return cls(attention=REFERENCE, optimizer=REFERENCE, stats=REFERENCE)
+
+    def shard(self, mesh) -> "FlatSpmd":
+        """The per-row-shard plan of the flat VR updates on ``mesh``."""
+        from repro_torch.sharding.rules import Rules
+
+        return FlatSpmd(mesh, Rules(mesh=mesh))
+
+
+class FlatSpmd:
+    """Per-shard flat VR updates on a data mesh.
+
+    Every buffer argument but the state is the whole replicated flat buffer
+    (the all-reduced moments g, g2, the gradient ga, the params w); each
+    pipeline takes this rank's rows of it (``RowShard.local``: a view, or a
+    zero-padded copy on a shard that runs past the layout), runs the
+    kernels over them and combines the per-leaf sums with the mesh's
+    all-reduce.  The state m, v, p (LARS: m) is the rank's rows, updated in
+    place; the returned update and scaled gradient are the rank's rows too.
+    Zero padding rows add exact zeros to every per-leaf sum, so padding
+    changes no real row; a leaf that straddles two shards has its sums
+    added in another order (~1 ulp of the leaf scalar)."""
+
+    def __init__(self, mesh, rules):
+        self.mesh = mesh
+        self.rules = rules
+        self._shards = {}
+
+    def shard(self, layout):
+        """This rank's RowShard of ``layout``, or None on a one-rank mesh;
+        one object per layout, so its maps are built once."""
+        if layout not in self._shards:
+            self._shards[layout] = self.rules.flat_buffer_shard(layout)
+        return self._shards[layout]
+
+    def n_shards(self, layout) -> int:
+        sh = self.shard(layout)
+        return 1 if sh is None else sh.n_shards
+
+    def supports(self, layout) -> bool:
+        """True when the flat buffer of ``layout`` shards over the mesh."""
+        return self.n_shards(layout) > 1
+
+    def _local(self, layout, *bufs):
+        sh = self.shard(layout)
+        meta = sh.device_meta(bufs[0].device)
+        return sh, meta["block_leaf_ids"], meta["inv_sizes"], [sh.local(x) for x in bufs]
+
+    def _racc(self, g, g2, lids, layout, eps):
+        from repro_torch.kernels import flat_spmd as fsp
+
+        return self.mesh.all_reduce_(
+            fsp.leaf_r_partials(g, g2, lids, layout.leaf_slots, gsnr_eps=eps))
+
+    def vr_scale(self, g, ga, g2, layout, *, gamma, eps):
+        """(r * ga, r) over this rank's rows."""
+        from repro_torch.kernels import flat_spmd as fsp
+
+        _, lids, inv, (g, ga, g2) = self._local(layout, g, ga, g2)
+        racc = self._racc(g, g2, lids, layout, eps)
+        return fsp.vr_scale_apply(g, ga, g2, racc, lids, inv, gamma=gamma, eps=eps)
+
+    def vr_adam(self, g, ga, g2, m, v, p, w, scal, layout, **hyper):
+        """(upd, m', v', p') over this rank's rows; m, v, p are its rows."""
+        from repro_torch.kernels import flat_spmd as fsp
+
+        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        racc = self._racc(g, g2, lids, layout, hyper["gsnr_eps"])
+        return fsp.vr_adam_apply(g, ga, g2, m, v, p, w, scal, racc, lids, inv, **hyper)
+
+    def vr_lamb(self, g, ga, g2, m, v, p, w, scal, layout, **hyper):
+        """(upd, m', v', p') over this rank's rows; m, v, p are its rows."""
+        from repro_torch.kernels import flat_spmd as fsp
+
+        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        racc = self._racc(g, g2, lids, layout, hyper["gsnr_eps"])
+        u, m, v, p, acc = fsp.vr_lamb_compute(g, ga, g2, m, v, p, w, scal, racc, lids, inv,
+                                              **hyper)
+        self.mesh.all_reduce_(acc)
+        return fsp.trust_apply(u, acc, lids, lr=float(scal[0]), lamb=True), m, v, p
+
+    def vr_lars(self, g, ga, g2, m, w, scal, layout, *, mu, wd, trust, eps):
+        """(upd, m') over this rank's rows; m (f32) is its rows."""
+        from repro_torch.kernels import flat_spmd as fsp
+
+        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        racc = self._racc(g, g2, lids, layout, eps)
+        u, acc = fsp.vr_lars_compute(g, ga, g2, w, scal, racc, lids, inv, wd=wd, eps=eps)
+        self.mesh.all_reduce_(acc)
+        return fsp.trust_apply(u, acc, lids, lr=float(scal[0]), lamb=False, m=m, mu=mu,
+                               trust=trust)

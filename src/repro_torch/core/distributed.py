@@ -1,0 +1,101 @@
+"""Device-wise GSNR statistics: the paper's Algorithm 1 over data-parallel
+ranks.
+
+Port of ``repro/core/distributed.py::device_grad_stats_fn``.  Each rank of a
+``launch/mesh.py::DataMesh`` holds the whole parameter set, takes ONE
+backward over its rows of the global batch (data/pipeline.py::shard_batch)
+and contributes its gradient g_d to the moments, so k = W, the number of
+ranks.  The paper all-reduces the per-device means and their squares with
+two collectives; here:
+
+  * the flat path (the plan's ``stats`` subsystem fused): one kernel
+    (kernels/flat_stats.py::flat_pack_square, K11) builds the (2, n_rows,
+    128) payload [g; g^2] from one read of the flat gradient, ONE all-reduce
+    sums it, and mean, sq_mean are views of the reduced payload;
+  * the tree path (reference plan): the per-leaf [g; g^2] stack of the
+    reference's stacked tree, one all-reduce over it;
+  * ``fused=False``: the paper's two-collective schedule, g then g^2.
+
+The sums are divided by W as the microbatch finalize divides by k (times
+the f32 1/W), so the statistics are those of k = W microbatch groups of the
+same rows (property-tested against the reference's ``grad_stats``).  The
+loss and its aux metrics are averaged across the ranks the same way.
+
+Not yet ported: ``with_noise_terms`` (the gradient-noise-scale readings).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.backend import Backend
+from repro_torch.core.gsnr import GradStats
+from repro_torch.core.layout import FlatBuffer, FlatParams, tree_map
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.kernels.flat_stats import flat_pack_square, inv_k
+
+
+def _concat(tree) -> torch.Tensor:
+    """The leaves of ``tree`` in ``tree_map`` order, flattened into one."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return torch.cat([x.reshape(-1) for x in leaves])
+
+
+def _split_like(tree, buf: torch.Tensor):
+    """Views of ``buf`` (a ``_concat`` of a tree like ``tree``) in the
+    leaf shapes of ``tree``."""
+    offset = 0
+
+    def take(x):
+        nonlocal offset
+        offset += x.numel()
+        return buf[offset - x.numel(): offset].view(x.shape)
+
+    return tree_map(take, tree)
+
+
+def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
+                         backend: Optional[Backend] = None) -> Callable:
+    """Returns f(params, batch) -> (loss, aux, GradStats) with k = mesh.size.
+
+    ``params`` is the rank's FlatParams (the same on every rank); ``batch``
+    the GLOBAL batch, of which the rank takes its rows; ``loss_fn(tree,
+    batch) -> (loss, aux dict)`` as for core/accumulate.py::grad_stats.
+    Every rank returns the same loss, aux and statistics: FlatBuffers on the
+    fused ``stats`` plan, stacked trees on the reference plan."""
+    bk = backend if backend is not None else Backend()
+    k = mesh.size
+    inv = inv_k(k)
+
+    def fn(params: FlatParams, batch: Dict) -> Tuple[torch.Tensor, Dict, GradStats]:
+        params.zero_grad()
+        loss, aux = loss_fn(params.tree, shard_batch(batch, mesh))
+        loss.backward()
+        g = params.grad
+        layout = params.layout
+        if bk.fused("stats", params.device):
+            if fused:  # one kernel, one collective; mean/sq are views
+                payload = mesh.all_reduce_(flat_pack_square(g)).mul_(inv)
+                mean, sq = payload[0], payload[1]
+            else:  # the paper's two collectives over the flat carries
+                mean = mesh.all_reduce_(g.clone()).mul_(inv)
+                sq = mesh.all_reduce_(g * g).mul_(inv)
+            stats = GradStats(FlatBuffer(mean, layout), FlatBuffer(sq, layout), k)
+        else:
+            grads = params.stacked("grad")
+            flat = _concat(grads)
+            if fused:  # the per-leaf [g; g^2] stack, one collective
+                payload = mesh.all_reduce_(torch.stack((flat, flat * flat))).mul_(inv)
+                mean, sq = payload[0], payload[1]
+            else:
+                sq = mesh.all_reduce_(flat * flat).mul_(inv)
+                mean = mesh.all_reduce_(flat).mul_(inv)
+            stats = GradStats(_split_like(grads, mean), _split_like(grads, sq), k)
+        names = sorted(aux)
+        scalars = torch.stack([loss.detach().float()] + [aux[n].detach().float() for n in names])
+        scalars = mesh.all_reduce_(scalars).mul_(inv)
+        return scalars[0], {n: scalars[i + 1] for i, n in enumerate(names)}, stats
+
+    return fn

@@ -26,11 +26,15 @@ slice of its stacked leaf, and its ``.grad`` is a view of the same slice of
 a flat gradient buffer, so autograd writes every microbatch's gradient
 straight into the flat layout (no pack copy) and the update is applied to
 the whole buffer at once.
+
+``RowShard`` is one rank's contiguous row range of a flat buffer under data
+parallelism (sharding/rules.py): the state of the per-shard optimizer
+update lives in it, and ``gather`` puts the ranks' rows back together.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -248,14 +252,102 @@ class ParamLayout:
         return torch.zeros((self.n_rows, LANE), dtype=dtype, device=device)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """Rank ``index`` of ``n_shards``'s contiguous rows of a layout's flat
+    buffer.
+
+    The layout's blocks split into ``n_shards`` equal contiguous ranges of
+    ``n_blocks`` blocks; when they do not divide, zero blocks with leaf id 0
+    pad the end (the reference's ``FlatSpmd._pad_rows`` / ``_meta``).  A
+    padding row holds g = g2 = w = 0, so it adds exact zeros to every
+    per-leaf sum, and it is dropped when the rows are gathered."""
+
+    layout: ParamLayout
+    n_shards: int
+    index: int
+    _meta: Dict = dataclasses.field(compare=False, repr=False, default_factory=dict)
+
+    def __post_init__(self):
+        if not 0 <= self.index < self.n_shards:
+            raise ValueError(f"shard index {self.index} outside [0, {self.n_shards})")
+
+    @property
+    def n_blocks(self) -> int:
+        """Blocks per shard, padding included."""
+        return -(-self.layout.n_blocks // self.n_shards)
+
+    @property
+    def pad_blocks(self) -> int:
+        """Zero blocks appended after the layout's last block."""
+        return self.n_blocks * self.n_shards - self.layout.n_blocks
+
+    @property
+    def rows(self) -> int:
+        return self.n_blocks * self.layout.block_rows
+
+    @property
+    def row_start(self) -> int:
+        return self.index * self.rows
+
+    @property
+    def real_rows(self) -> int:
+        """How many of the shard's rows lie in the layout (the rest pad)."""
+        return max(0, min(self.rows, self.layout.n_rows - self.row_start))
+
+    def block_leaf_ids(self) -> np.ndarray:
+        """(n_blocks,) int32: the leaf of each of the shard's blocks, 0 for
+        a padding block."""
+        ids = np.zeros(self.n_blocks * self.n_shards, np.int32)
+        ids[: self.layout.n_blocks] = self.layout.block_leaf_ids()[:, 0]
+        return ids[self.index * self.n_blocks: (self.index + 1) * self.n_blocks].copy()
+
+    def device_meta(self, device) -> Dict[str, torch.Tensor]:
+        """The shard's maps on ``device`` (made once per device):
+        ``block_leaf_ids`` (n_blocks,) int32 and the layout's
+        ``inv_sizes``."""
+        device = torch.device(device)
+        meta = self._meta.get(device)
+        if meta is None:
+            meta = self._meta[device] = {
+                "block_leaf_ids": torch.as_tensor(self.block_leaf_ids(), device=device),
+                "inv_sizes": self.layout.device_meta(device)["inv_sizes"],
+            }
+        return meta
+
+    def local(self, buf: torch.Tensor) -> torch.Tensor:
+        """The shard's rows of a whole (n_rows, LANE) buffer: a view, or a
+        copy with zero padding rows when the shard runs past the layout."""
+        part = buf[self.row_start: self.row_start + self.real_rows]
+        if self.real_rows == self.rows:
+            return part
+        out = torch.zeros((self.rows, LANE), dtype=buf.dtype, device=buf.device)
+        out[: self.real_rows] = part
+        return out
+
+    def zeros(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
+        return torch.zeros((self.rows, LANE), dtype=dtype, device=device)
+
+    def gather(self, local: torch.Tensor, mesh) -> torch.Tensor:
+        """Every rank's rows put together: the whole (n_rows, LANE) buffer,
+        padding dropped (a collective: every rank of ``mesh`` calls it)."""
+        out = torch.empty((self.n_shards * self.rows, LANE), dtype=local.dtype,
+                          device=local.device)
+        mesh.all_gather(out, local)
+        return out[: self.layout.n_rows]
+
+
 class FlatBuffer:
-    """A flat buffer and its layout (the reference's pytree node)."""
+    """A flat buffer and its layout (the reference's pytree node).  With a
+    ``shard``, ``data`` holds only that shard's rows."""
 
-    __slots__ = ("data", "layout")
+    __slots__ = ("data", "layout", "shard")
 
-    def __init__(self, data: torch.Tensor, layout: ParamLayout):
+    def __init__(self, data: torch.Tensor, layout: ParamLayout,
+                 shard: Optional[RowShard] = None):
         self.data = data
         self.layout = layout
+        self.shard = shard
 
     def unpack(self, dtype=None):
         return self.layout.unpack(self.data, dtype)
@@ -269,7 +361,8 @@ class FlatBuffer:
         return self.data.dtype
 
     def __repr__(self):
-        return f"FlatBuffer({self.shape}, {self.dtype}, leaves={self.layout.n_leaves})"
+        where = "" if self.shard is None else f", shard={self.shard.index}/{self.shard.n_shards}"
+        return f"FlatBuffer({self.shape}, {self.dtype}, leaves={self.layout.n_leaves}{where})"
 
 
 def is_flat(x: Any) -> bool:
@@ -281,7 +374,7 @@ def tree_map(fn, tree, *rest):
     FlatBuffer is mapped through its data and keeps its layout (the
     reference's pytree node)."""
     if isinstance(tree, FlatBuffer):
-        return FlatBuffer(fn(tree.data, *[r.data for r in rest]), tree.layout)
+        return FlatBuffer(fn(tree.data, *[r.data for r in rest]), tree.layout, tree.shard)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -30,6 +30,12 @@ kernels/ops.py: ``flat_vr_scale`` for VR-SGD/Momentum (the momentum sum and
 ``flat_vr_lamb``, ``flat_vr_lars``.  Reference runs the per-leaf tree math
 below on the reference's stacked tree.
 
+Under a data mesh the fused VR optimizers take the ``spmd`` plan of
+``Backend.shard(mesh)`` (backend.FlatSpmd), as in the reference: ``init``
+then holds only the rank's rows of the flat state (core/layout.py::
+RowShard) and ``update`` returns the rank's rows of the update, which the
+trainer gathers.
+
 Amortized-GSNR "stale" steps (``stats=None``, VR-Adam and VR-LAMB only):
 the GSNR momentum p is left untouched and the stale p̂ rescales the fresh
 gradient.  On flat state the element-wise math below runs directly on the
@@ -55,10 +61,14 @@ def _require(stats: Optional[GradStats]) -> GradStats:
     return stats
 
 
-def _zeros(bk: Backend, params: FlatParams, dtype=torch.float32):
+def _zeros(bk: Backend, params: FlatParams, dtype=torch.float32, spmd=None):
     """Zero state of the plan resolved for the params' device: a flat buffer
-    when it is fused, the stacked tree otherwise."""
+    when it is fused (the rank's rows of it when ``spmd`` shards it), the
+    stacked tree otherwise."""
     if bk.fused("optimizer", params.device):
+        shard = spmd.shard(params.layout) if spmd is not None else None
+        if shard is not None:
+            return FlatBuffer(shard.zeros(dtype, params.device), params.layout, shard)
         return FlatBuffer(params.layout.zeros(dtype, params.device), params.layout)
     return B.zeros_tree(params, dtype)
 
@@ -87,19 +97,20 @@ def bias_corrections(state, b1: float, b2: float, b3: float, fresh: bool = True)
             B.bias_correction(b3, pt))
 
 
-def _scaled_grads(grads, stats, gamma, eps, fused):
-    """(r * grads, r): one kernel call on the fused plan, tree math otherwise."""
+def _scaled_grads(grads, stats, gamma, eps, fused, spmd=None):
+    """(r * grads, r): one kernel call on the fused plan (the rank's rows
+    under a sharding plan), tree math otherwise."""
     stats = _require(stats)
     if fused:
         from repro_torch.kernels import ops as kops
 
-        return kops.vr_scale_tree(stats, grads, gamma, eps)
+        return kops.vr_scale_tree(stats, grads, gamma, eps, spmd)
     r = gsnr_scale(stats, gamma, eps)
     return tree_map(lambda r_, g: r_ * g, r, grads), r
 
 
 def vr_sgd(lr_fn: Callable, gamma: float = 0.1, eps: float = 1e-12,
-           backend: Optional[Backend] = None) -> B.Transform:
+           backend: Optional[Backend] = None, spmd=None) -> B.Transform:
     bk = backend if backend is not None else Backend()
 
     def init(params: FlatParams):
@@ -107,23 +118,24 @@ def vr_sgd(lr_fn: Callable, gamma: float = 0.1, eps: float = 1e-12,
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
-        sg, _r = _scaled_grads(grads, stats, gamma, eps, _fused(bk, "vr_sgd", grads, state))
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, _fused(bk, "vr_sgd", grads, state),
+                               spmd)
         return tree_map(lambda g: -lr * g, sg), {"step": state["step"] + 1}
 
     return B.Transform(init, update)
 
 
 def vr_momentum(lr_fn: Callable, mu: float = 0.9, gamma: float = 0.1, eps: float = 1e-12,
-                backend: Optional[Backend] = None) -> B.Transform:
+                backend: Optional[Backend] = None, spmd=None) -> B.Transform:
     bk = backend if backend is not None else Backend()
 
     def init(params: FlatParams):
-        return {"step": 0, "m": _zeros(bk, params)}
+        return {"step": 0, "m": _zeros(bk, params, spmd=spmd)}
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
         sg, _r = _scaled_grads(grads, stats, gamma, eps,
-                               _fused(bk, "vr_momentum", grads, state))
+                               _fused(bk, "vr_momentum", grads, state), spmd)
         m = tree_map(lambda m_, g: mu * m_ + g, state["m"], sg)
         return tree_map(lambda m_: -lr * m_, m), {"step": state["step"] + 1, "m": m}
 
@@ -150,10 +162,9 @@ def _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps, state_dt
     return direction, {"step": t, "m": store(m), "v": store(v), "p": store(p), "pt": pt}
 
 
-def _adam_state(bk: Backend, params: FlatParams, state_dtype: str):
+def _adam_state(bk: Backend, params: FlatParams, state_dtype: str, spmd=None):
     sd = getattr(torch, state_dtype)
-    return {"step": 0, "pt": 0, "m": _zeros(bk, params, sd), "v": _zeros(bk, params, sd),
-            "p": _zeros(bk, params, sd)}
+    return {"step": 0, "pt": 0, **{k: _zeros(bk, params, sd, spmd) for k in "mvp"}}
 
 
 def vr_adam(
@@ -167,13 +178,14 @@ def vr_adam(
     gsnr_eps: float = 1e-12,
     backend: Optional[Backend] = None,
     state_dtype: str = "float32",
+    spmd=None,
 ) -> B.Transform:
     """VR-Adam; the weight decay ``wd * w`` is added only when params are
     given."""
     bk = backend if backend is not None else Backend()
 
     def init(params: FlatParams):
-        return _adam_state(bk, params, state_dtype)
+        return _adam_state(bk, params, state_dtype, spmd)
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
@@ -182,7 +194,7 @@ def vr_adam(
             from repro_torch.kernels import ops as kops
 
             return kops.vr_adam_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
-                                       gsnr_eps, params, state_dtype)
+                                       gsnr_eps, params, state_dtype, spmd)
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
                                     state_dtype)
         if wd and params is not None:
@@ -200,19 +212,20 @@ def vr_lars(
     gamma: float = 0.1,
     eps: float = 1e-12,
     backend: Optional[Backend] = None,
+    spmd=None,
 ) -> B.Transform:
     bk = backend if backend is not None else Backend()
     base = B.lars(lr_fn, mu=mu, wd=wd, trust=trust)
 
     def init(params: FlatParams):
-        return {"step": 0, "m": _zeros(bk, params)}
+        return {"step": 0, "m": _zeros(bk, params, spmd=spmd)}
 
     def update(grads, state, params, stats=None):
         if _fused(bk, "vr_lars", grads, state):
             from repro_torch.kernels import ops as kops
 
             return kops.vr_lars_update(grads, state, _require(stats), lr_fn(state["step"]), mu,
-                                       wd, trust, gamma, eps, params)
+                                       wd, trust, gamma, eps, params, spmd)
         sg, _r = _scaled_grads(grads, stats, gamma, eps, False)
         return base.update(sg, state, params)
 
@@ -230,6 +243,7 @@ def vr_lamb(
     gsnr_eps: float = 1e-12,
     backend: Optional[Backend] = None,
     state_dtype: str = "float32",
+    spmd=None,
 ) -> B.Transform:
     """VR-LAMB.  ``init`` takes the FlatParams and resolves the plan's
     ``optimizer`` subsystem for the device they live on: flat m/v/p when it
@@ -240,7 +254,7 @@ def vr_lamb(
     bk = backend if backend is not None else Backend()
 
     def init(params: FlatParams):
-        return _adam_state(bk, params, state_dtype)
+        return _adam_state(bk, params, state_dtype, spmd)
 
     def update(grads, state, params, stats=None):
         lr = lr_fn(state["step"])
@@ -249,7 +263,7 @@ def vr_lamb(
 
         if fused and stats is not None:
             return kops.vr_lamb_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
-                                       gsnr_eps, params, state_dtype)
+                                       gsnr_eps, params, state_dtype, spmd)
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
                                     state_dtype)
         if fused:
@@ -260,11 +274,12 @@ def vr_lamb(
 
 
 def make_optimizer(cfg, backend: Optional[Backend] = None,
-                   effective_batch: Optional[int] = None) -> B.Transform:
+                   effective_batch: Optional[int] = None, *, spmd=None) -> B.Transform:
     """OptimizerConfig -> Transform (base or VR per cfg.name); the plan
     resolves for the parameters' device at ``init``.  effective_batch: the
     live global batch (the schedule peak rescales through cfg.lr_scale_rule
-    when cfg.base_batch is set)."""
+    when cfg.base_batch is set).  spmd: a ``Backend.shard(mesh)`` plan; the
+    fused VR updates then run per row shard (the baselines ignore it)."""
     from repro_torch.core.schedule import make_schedule
 
     lr_fn = make_schedule(cfg, effective_batch=effective_batch)
@@ -275,14 +290,14 @@ def make_optimizer(cfg, backend: Optional[Backend] = None,
         "adam": lambda: B.adam(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
         "lars": lambda: B.lars(lr_fn, cfg.momentum, cfg.weight_decay),
         "lamb": lambda: B.lamb(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
-        "vr_sgd": lambda: vr_sgd(lr_fn, g, ge, bk),
-        "vr_momentum": lambda: vr_momentum(lr_fn, cfg.momentum, g, ge, bk),
+        "vr_sgd": lambda: vr_sgd(lr_fn, g, ge, bk, spmd),
+        "vr_momentum": lambda: vr_momentum(lr_fn, cfg.momentum, g, ge, bk, spmd),
         "vr_adam": lambda: vr_adam(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, g,
-                                   ge, bk, cfg.state_dtype),
+                                   ge, bk, cfg.state_dtype, spmd),
         "vr_lars": lambda: vr_lars(lr_fn, cfg.momentum, cfg.weight_decay, gamma=g, eps=ge,
-                                   backend=bk),
+                                   backend=bk, spmd=spmd),
         "vr_lamb": lambda: vr_lamb(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, g,
-                                   ge, bk, cfg.state_dtype),
+                                   ge, bk, cfg.state_dtype, spmd),
     }
     if cfg.name not in table:
         raise KeyError(f"unknown optimizer {cfg.name!r}")

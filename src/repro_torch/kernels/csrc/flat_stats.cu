@@ -1,17 +1,21 @@
 // Flat gradient-moment carry for Hopper (sm_90a): the k-microbatch
 // accumulate and the /k finalize over the whole (n_rows, 128) flat buffer,
-// and the g-only accumulate of stale-GSNR steps.
+// the g-only accumulate of stale-GSNR steps, and the [g; g^2] payload of
+// the data-parallel step.
 //
 // Replaces the TPU kernels repro/kernels/grad_stats.py::_accum_kernel and
 // ::_finalize_kernel as launched by repro/kernels/flat_stats.py::
 // flat_moments_accum and ::flat_moments_finalize, and flat_stats.py::
-// _g_accum_kernel (flat_g_accum).  Same math:
+// _g_accum_kernel (flat_g_accum), and flat_stats.py::_pack_square_kernel
+// (flat_pack_square).  Same math:
 //   accumulate:  g_sum += g,  g2_sum += g * g   (g cast to f32)
 //   finalize:    mean = g_sum * inv_k,  sq_mean = g2_sum * inv_k
 //   g-only:      g_sum += g                     (g cast to f32)
-// All work in place on the carry (the reference returns new buffers with
-// the same values), so a step keeps two f32 buffers for the moments (one on
-// a stale step).
+//   pack square: out[0] = g,  out[1] = g * g    (g f32; out (2, n) f32)
+// The first three work in place on the carry (the reference returns new
+// buffers with the same values), so a step keeps two f32 buffers for the
+// moments (one on a stale step).  The pack writes a new (2, n) payload from
+// one read of g: the buffer one all-reduce sums across the ranks.
 //
 // Design.  Pure streaming passes: each thread handles 16-byte vectors (four
 // f32 or four bf16 of g) in a grid-stride loop; no shared memory, no
@@ -21,7 +25,8 @@
 // 1.46 GB per f32 buffer) the accumulate reads three buffers and writes two
 // (~7.3 GB, ~2.2 ms at 3.35 TB/s); the finalize reads two and writes two
 // (~5.8 GB, ~1.7 ms); the g-only accumulate reads two and writes one
-// (~4.4 GB, ~1.3 ms).  The arithmetic is 3, 2 and 1 flops per element.
+// (~4.4 GB, ~1.3 ms); the pack reads one and writes two (~4.4 GB, ~1.3
+// ms).  The arithmetic is 3, 2, 1 and 1 flops per element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +84,15 @@ __global__ void __launch_bounds__(NT) finalize_kernel(float4* __restrict__ gs, f
   }
 }
 
+__global__ void __launch_bounds__(NT) pack_square_kernel(const float4* __restrict__ g,
+                                                         float4* __restrict__ out, int64_t n4) {
+  for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
+    const float4 x = g[i];
+    out[i] = x;
+    out[n4 + i] = make_float4(x.x * x.x, x.y * x.y, x.z * x.z, x.w * x.w);
+  }
+}
+
 unsigned grid_for(int64_t n4, int n_sm) {
   const int64_t want = (n4 + NT - 1) / NT;
   const int64_t cap = (int64_t)n_sm * 16;  // enough resident blocks to keep every SM streaming
@@ -127,5 +141,14 @@ extern "C" int flat_moments_finalize(void* gs, void* g2s, float inv, long long n
   const int64_t n4 = n / 4;
   finalize_kernel<<<grid_for(n4, n_sm), NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float4*>(gs), static_cast<float4*>(g2s), inv, n4);
+  return cudaGetLastError();
+}
+
+// g: n f32 (n a multiple of 4); out: 2n f32, g then g * g.
+extern "C" int flat_pack_square(const void* g, void* out, long long n, int n_sm, void* stream) {
+  if (n % 4) return cudaErrorInvalidValue;
+  const int64_t n4 = n / 4;
+  pack_square_kernel<<<grid_for(n4, n_sm), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(g), static_cast<float4*>(out), n4);
   return cudaGetLastError();
 }

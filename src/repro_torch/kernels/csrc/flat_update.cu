@@ -46,286 +46,9 @@
 // buffers (10.2 GB, 3.05 ms).  The passes sweep more, the price of having no
 // grid-wide order: g and g2 are read twice by every entry, and lamb/lars
 // write u, read it and write again (scale 7, adam 13, lamb 15, lars 11).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flat_update.cuh"
 
 namespace {
-
-constexpr int LANE = 128;
-constexpr int BLOCK_ROWS = 64;
-constexpr int NT = 256;
-constexpr int PER_THREAD = BLOCK_ROWS * LANE / 4 / NT;  // float4 vectors per thread (8)
-constexpr int64_t BLOCK_VECS = BLOCK_ROWS * LANE / 4;
-
-__device__ __forceinline__ float4 ld(const float* p, int64_t i) {
-  return reinterpret_cast<const float4*>(p)[i];
-}
-
-__device__ __forceinline__ float4 ld(const __nv_bfloat16* p, int64_t i) {
-  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void st(float* p, int64_t i, float4 x) {
-  reinterpret_cast<float4*>(p)[i] = x;
-}
-
-__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  reinterpret_cast<uint2*>(p)[i] = u;
-}
-
-__device__ __forceinline__ float raw_r(float g, float g2, float gsnr_eps) {
-  const float var = fmaxf(g2 - g * g, 0.f);
-  return (g * g) / (var + gsnr_eps);
-}
-
-// 1 / max(mean of r_raw over the leaf, 1e-30), from the leaf's sum.
-__device__ __forceinline__ float inv_mean_r(const float* racc, const float* inv_sizes, int leaf) {
-  return 1.f / fmaxf(racc[leaf] * inv_sizes[leaf], 1e-30f);
-}
-
-__device__ __forceinline__ float clip_r(float g, float g2, float inv_mean, float gamma,
-                                        float gsnr_eps) {
-  return fminf(fmaxf(raw_r(g, g2, gsnr_eps) * inv_mean, gamma), 1.f);
-}
-
-// Sum over the block's 256 threads; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float x, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = 0.f;
-  if (threadIdx.x < NT / 32) x = red[threadIdx.x];
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-struct Hyper {
-  float b1, b2, b3, eps, wd, gamma, gsnr_eps;
-  float lr, bc1, bc2, bc3;
-};
-
-// The VR-Adam chain of one element: GSNR r -> p momentum -> ghat -> m/v ->
-// bias-corrected direction plus weight decay (u).
-struct Adam {
-  float u, m, v, p;
-};
-
-__device__ __forceinline__ Adam adam_math(float g, float ga, float g2, float m, float v, float p,
-                                          float w, float inv_mean, const Hyper& hp) {
-  const float r = clip_r(g, g2, inv_mean, hp.gamma, hp.gsnr_eps);
-  const float pn = hp.b3 * p + (1.f - hp.b3) * r;
-  const float ghat = (pn / hp.bc3) * ga;
-  const float mn = hp.b1 * m + (1.f - hp.b1) * ghat;
-  const float vn = hp.b2 * v + (1.f - hp.b2) * ghat * ghat;
-  const float dir = (mn / hp.bc1) / (sqrtf(vn / hp.bc2) + hp.eps);
-  return {dir + hp.wd * w, mn, vn, pn};
-}
-
-__device__ __forceinline__ float4 f4(const float x[4]) { return make_float4(x[0], x[1], x[2], x[3]); }
-
-#define UNPACK(name, v4) const float name[4] = {v4.x, v4.y, v4.z, v4.w}
-
-__global__ void __launch_bounds__(NT) r_partials_kernel(const float* __restrict__ g,
-                                                        const float* __restrict__ g2,
-                                                        const int* __restrict__ leaf_ids,
-                                                        float* __restrict__ racc, float gsnr_eps) {
-  __shared__ float red[NT / 32];
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-  float acc = 0.f;
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    const float4 a = ld(g, i), b = ld(g2, i);
-    acc += raw_r(a.x, b.x, gsnr_eps) + raw_r(a.y, b.y, gsnr_eps) + raw_r(a.z, b.z, gsnr_eps) +
-           raw_r(a.w, b.w, gsnr_eps);
-  }
-  acc = block_sum(acc, red);
-  if (threadIdx.x == 0) atomicAdd(racc + leaf_ids[blockIdx.x], acc);
-}
-
-// ---- VR scale: sg = r ga, r -------------------------------------------------
-
-__global__ void __launch_bounds__(NT) scale_kernel(
-    const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
-    float* __restrict__ sg, float* __restrict__ r, const int* __restrict__ leaf_ids,
-    const float* __restrict__ inv_sizes, const float* __restrict__ racc, float gamma,
-    float gsnr_eps) {
-  const float inv_mean = inv_mean_r(racc, inv_sizes, leaf_ids[blockIdx.x]);
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-#pragma unroll 4
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    const float4 g4 = ld(g, i), ga4 = ld(ga, i), g24 = ld(g2, i);
-    UNPACK(gv, g4);
-    UNPACK(gav, ga4);
-    UNPACK(g2v, g24);
-    float ro[4], so[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      ro[e] = clip_r(gv[e], g2v[e], inv_mean, gamma, gsnr_eps);
-      so[e] = ro[e] * gav[e];
-    }
-    st(sg, i, f4(so));
-    st(r, i, f4(ro));
-  }
-}
-
-// ---- VR-Adam / VR-LAMB element-wise pass -------------------------------------
-
-// VR-Adam: upd = -lr u, m'/v'/p' in place.  VR-LAMB (TRUST): u stashed in upd,
-// per-leaf sums of u^2 and w^2 into uacc / wacc.
-template <typename S, bool TRUST>
-__global__ void __launch_bounds__(NT) adam_kernel(
-    const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
-    S* __restrict__ m, S* __restrict__ v, S* __restrict__ p, const float* __restrict__ w,
-    float* __restrict__ upd, const int* __restrict__ leaf_ids, const float* __restrict__ inv_sizes,
-    const float* __restrict__ racc, float* __restrict__ uacc, float* __restrict__ wacc, Hyper hp) {
-  __shared__ float red[NT / 32];
-  const int leaf = leaf_ids[blockIdx.x];
-  const float inv_mean = inv_mean_r(racc, inv_sizes, leaf);
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-  float uu = 0.f, ww = 0.f;
-#pragma unroll 2
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    const float4 g4 = ld(g, i), ga4 = ld(ga, i), g24 = ld(g2, i), w4 = ld(w, i);
-    const float4 m4 = ld(m, i), v4 = ld(v, i), p4 = ld(p, i);
-    UNPACK(gv, g4);
-    UNPACK(gav, ga4);
-    UNPACK(g2v, g24);
-    UNPACK(wv, w4);
-    UNPACK(mv, m4);
-    UNPACK(vv, v4);
-    UNPACK(pv, p4);
-    float mo[4], vo[4], po[4], uo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const Adam a = adam_math(gv[e], gav[e], g2v[e], mv[e], vv[e], pv[e], wv[e], inv_mean, hp);
-      mo[e] = a.m; vo[e] = a.v; po[e] = a.p;
-      if (TRUST) {
-        uo[e] = a.u;
-        uu += a.u * a.u;
-        ww += wv[e] * wv[e];
-      } else {
-        uo[e] = -hp.lr * a.u;
-      }
-    }
-    st(upd, i, f4(uo));
-    st(m, i, f4(mo));
-    st(v, i, f4(vo));
-    st(p, i, f4(po));
-  }
-  if (TRUST) {
-    uu = block_sum(uu, red);
-    __syncthreads();  // red is reused
-    ww = block_sum(ww, red);
-    if (threadIdx.x == 0) {
-      atomicAdd(uacc + leaf, uu);
-      atomicAdd(wacc + leaf, ww);
-    }
-  }
-}
-
-// The per-leaf trust ratio from the norm sums: LAMB clips |w| to [0, 10],
-// LARS scales it by trust.
-__device__ __forceinline__ float trust_ratio(const float* uacc, const float* wacc, int leaf,
-                                             bool lamb, float trust) {
-  const float un = sqrtf(uacc[leaf]), pn = sqrtf(wacc[leaf]);
-  const float numer = lamb ? fminf(fmaxf(pn, 0.f), 10.f) : trust * pn;
-  return (pn > 0.f && un > 0.f) ? numer / (un + 1e-12f) : 1.f;
-}
-
-__global__ void __launch_bounds__(NT) lamb_apply_kernel(float* __restrict__ upd,
-                                                        const int* __restrict__ leaf_ids,
-                                                        const float* __restrict__ uacc,
-                                                        const float* __restrict__ wacc, float lr) {
-  const float s = -lr * trust_ratio(uacc, wacc, leaf_ids[blockIdx.x], true, 0.f);
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    float4 u = ld(upd, i);
-    u.x *= s; u.y *= s; u.z *= s; u.w *= s;
-    st(upd, i, u);
-  }
-}
-
-// ---- VR-LARS ---------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT) lars_compute_kernel(
-    const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
-    const float* __restrict__ w, float* __restrict__ upd, const int* __restrict__ leaf_ids,
-    const float* __restrict__ inv_sizes, const float* __restrict__ racc, float* __restrict__ uacc,
-    float* __restrict__ wacc, float gamma, float wd, float gsnr_eps) {
-  __shared__ float red[NT / 32];
-  const int leaf = leaf_ids[blockIdx.x];
-  const float inv_mean = inv_mean_r(racc, inv_sizes, leaf);
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-  float uu = 0.f, ww = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    const float4 g4 = ld(g, i), ga4 = ld(ga, i), g24 = ld(g2, i), w4 = ld(w, i);
-    UNPACK(gv, g4);
-    UNPACK(gav, ga4);
-    UNPACK(g2v, g24);
-    UNPACK(wv, w4);
-    float uo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uo[e] = clip_r(gv[e], g2v[e], inv_mean, gamma, gsnr_eps) * gav[e] + wd * wv[e];
-      uu += uo[e] * uo[e];
-      ww += wv[e] * wv[e];
-    }
-    st(upd, i, f4(uo));
-  }
-  uu = block_sum(uu, red);
-  __syncthreads();  // red is reused
-  ww = block_sum(ww, red);
-  if (threadIdx.x == 0) {
-    atomicAdd(uacc + leaf, uu);
-    atomicAdd(wacc + leaf, ww);
-  }
-}
-
-__global__ void __launch_bounds__(NT) lars_apply_kernel(float* __restrict__ m,
-                                                        float* __restrict__ upd,
-                                                        const int* __restrict__ leaf_ids,
-                                                        const float* __restrict__ uacc,
-                                                        const float* __restrict__ wacc, float lr,
-                                                        float mu, float trust) {
-  const float ratio = trust_ratio(uacc, wacc, leaf_ids[blockIdx.x], false, trust);
-  const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int64_t i = base + t * NT + threadIdx.x;
-    const float4 u4 = ld(upd, i), m4 = ld(m, i);
-    UNPACK(uv, u4);
-    UNPACK(mv, m4);
-    float mo[4], uo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      mo[e] = mu * mv[e] + ratio * uv[e];
-      uo[e] = -lr * mo[e];
-    }
-    st(m, i, f4(mo));
-    st(upd, i, f4(uo));
-  }
-}
 
 // ---- host side -------------------------------------------------------------
 

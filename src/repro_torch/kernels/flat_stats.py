@@ -3,16 +3,19 @@ versions.
 
 Counterpart of ``repro/kernels/flat_stats.py::flat_moments_accum``,
 ``::flat_moments_finalize`` (kernel bodies ``repro/kernels/grad_stats.py::
-_accum_kernel`` / ``_finalize_kernel``) and ``::flat_g_accum`` (its
-``_g_accum_kernel``, the g-only carry of stale-GSNR steps).  The kernels
-are ``csrc/flat_stats.cu``; its source note gives the design and bound.
+_accum_kernel`` / ``_finalize_kernel``), ``::flat_g_accum`` (its
+``_g_accum_kernel``, the g-only carry of stale-GSNR steps) and
+``::flat_pack_square`` (its ``_pack_square_kernel``, the all-reduce payload
+of the data-parallel GSNR statistics).  The kernels are
+``csrc/flat_stats.cu``; its source note gives the design and bound.
 
-The functions work IN PLACE on the carry and return it (the reference
+The first three work IN PLACE on the carry and return it (the reference
 returns new buffers with the same values):
 
   flat_moments_accum(gs, g2s, g)     gs += g, g2s += g * g  (g cast to f32)
   flat_moments_finalize(gs, g2s, k)  gs, g2s *= 1/k  -> (mean, sq_mean)
   flat_g_accum(gs, g)                gs += g                (g cast to f32)
+  flat_pack_square(g)                -> new (2, *g.shape) f32 [g; g * g]
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 computes the plain version.
@@ -32,6 +35,7 @@ _SIGNATURES = {
     "flat_moments_accum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _I, _P],
     "flat_g_accum": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    "flat_pack_square": [_P, _P, ctypes.c_longlong, _I, _P],
 }
 
 
@@ -59,6 +63,12 @@ def moments_finalize_ref(gs, g2s, k):
     gs.mul_(inv)
     g2s.mul_(inv)
     return gs, g2s
+
+
+def pack_square_ref(g):
+    """Plain version of the pack: a new (2, *g.shape) f32 [g; g * g]."""
+    gf = g.float()
+    return torch.stack((gf, gf * gf))
 
 
 def _check(name, carry, others):
@@ -134,6 +144,25 @@ def flat_moments_finalize(gs: torch.Tensor, g2s: torch.Tensor, k):
     return gs, g2s
 
 
+def flat_pack_square(g: torch.Tensor) -> torch.Tensor:
+    """The (2, *g.shape) f32 payload [g; g * g] from one read of the f32
+    flat gradient g: the buffer the data-parallel step all-reduces."""
+    if g.device.type == "cpu":
+        return pack_square_ref(g)
+    if g.device.type != "cuda":
+        raise ValueError(f"flat_pack_square: no implementation for device {g.device}")
+    _check("flat_pack_square", (g,), ())
+    out = torch.empty((2, *g.shape), dtype=torch.float32, device=g.device)
+    lib = _build.library("flat_stats", _SIGNATURES)
+    err = lib.flat_pack_square(g.data_ptr(), out.data_ptr(), g.numel(),
+                               device_info(g.device.index)[1],
+                               torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "flat_pack_square")
+    flat_pack_square.launches += 1
+    return out
+
+
 flat_moments_accum.launches = 0
 flat_moments_finalize.launches = 0
 flat_g_accum.launches = 0
+flat_pack_square.launches = 0

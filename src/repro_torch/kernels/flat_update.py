@@ -67,8 +67,15 @@ def gsnr_ratio(g, g2, layout: ParamLayout, gamma: float, gsnr_eps: float) -> tor
 
 def _adam_ref(g, ga, g2, m, v, p, w, scal, layout, b1, b2, b3, eps, wd, gamma, gsnr_eps):
     """The element-wise VR-Adam chain: (u = direction + wd w, m', v', p')."""
+    return adam_chain(gsnr_ratio(g, g2, layout, gamma, gsnr_eps), ga, m, v, p, w, scal,
+                      b1, b2, b3, eps, wd)
+
+
+def adam_chain(r, ga, m, v, p, w, scal, b1, b2, b3, eps, wd):
+    """The VR-Adam chain from the clipped GSNR ratio r: (u = direction +
+    wd w, m', v', p') in f32; scal = (lr, bc1, bc2, bc3)."""
     _, bc1, bc2, bc3 = (float(x) for x in scal[:4])
-    p_new = b3 * p.float() + (1.0 - b3) * gsnr_ratio(g, g2, layout, gamma, gsnr_eps)
+    p_new = b3 * p.float() + (1.0 - b3) * r
     ghat = (p_new / bc3) * ga.float()
     m_new = b1 * m.float() + (1.0 - b1) * ghat
     v_new = b2 * v.float() + (1.0 - b2) * ghat * ghat

@@ -14,6 +14,13 @@ multiplies the gradient entering the update (``grads``, possibly
 grad-clipped); moments are stored in ``state_dtype`` and the GSNR-momentum
 bias correction uses the stats counter ``pt``.  Gradients, params, state
 and updates are FlatBuffers.
+
+Under a data mesh the VR updates take an ``spmd`` plan (backend.FlatSpmd),
+as in the reference: when the layout's flat buffer shards over the mesh the
+update runs per row shard (kernels/flat_spmd.py with the collectives
+between the launches), the state is the rank's rows and the update and
+scaled gradient come back as the rank's rows (FlatBuffers with a
+``shard``).
 """
 from __future__ import annotations
 
@@ -51,58 +58,90 @@ def flash_decode(qh, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, w
     return out.reshape(b, l, kvh, g, d)
 
 
-def vr_scale_tree(stats: GradStats, grads: FlatBuffer, gamma: float, eps: float):
+def _spmd_for(spmd, layout: ParamLayout):
+    """The plan when the layout's buffer shards over its mesh, else None
+    (the single-card kernel on the replicated buffer)."""
+    return spmd if (spmd is not None and spmd.supports(layout)) else None
+
+
+def vr_scale_tree(stats: GradStats, grads: FlatBuffer, gamma: float, eps: float, spmd=None):
     """(r * grads, r) over the whole parameter set as one ``flat_vr_scale``
-    call, both FlatBuffers (VR-SGD / VR-Momentum)."""
+    call, both FlatBuffers (VR-SGD / VR-Momentum); under a sharding plan,
+    the rank's rows of both (K13, an all-reduce, K14)."""
     layout = grads.layout
+    plan = _spmd_for(spmd, layout)
+    if plan is not None:
+        sg, r = plan.vr_scale(stats.mean.data, grads.data, stats.sq_mean.data, layout,
+                              gamma=gamma, eps=eps)
+        shard = plan.shard(layout)
+        return FlatBuffer(sg, layout, shard), FlatBuffer(r, layout, shard)
     sg, r = fu.flat_vr_scale(stats.mean.data, grads.data, stats.sq_mean.data, layout,
                              gamma=gamma, eps=eps)
     return FlatBuffer(sg, layout), FlatBuffer(r, layout)
 
 
-def _adam_family(fn, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma, gsnr_eps, params,
-                 state_dtype):
+def _state_plan(spmd, name, state):
+    """(layout, shard, plan) of a flat state; raises when the state's form
+    (rows of a shard, or the whole buffer) disagrees with the plan."""
+    layout, shard = state["m"].layout, state["m"].shard
+    plan = _spmd_for(spmd, layout)
+    if (plan is None) != (shard is None):
+        raise ValueError(f"{name}: the state is {'a row shard' if shard else 'replicated'} but "
+                         f"the plan {'replicates' if plan is None else 'shards'} the buffer")
+    return layout, shard, plan
+
+
+def _adam_family(fn, name, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma, gsnr_eps,
+                 params, state_dtype, spmd):
     t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3)
-    layout = state["m"].layout
+    layout, shard, plan = _state_plan(spmd, name, state)
+    fn = getattr(plan, name) if plan is not None else fn
     upd, m, v, p = fn(
         stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data, state["v"].data,
         state["p"].data, params.data, (lr, bc1, bc2, bc3), layout,
         b1=b1, b2=b2, b3=b3, eps=eps, wd=wd, gamma=gamma, gsnr_eps=gsnr_eps,
         state_dtype=state_dtype,
     )
-    new_state = {"step": t, "pt": pt, "m": FlatBuffer(m, layout), "v": FlatBuffer(v, layout),
-                 "p": FlatBuffer(p, layout)}
-    return FlatBuffer(upd, layout), new_state
+    new_state = {"step": t, "pt": pt, "m": FlatBuffer(m, layout, shard),
+                 "v": FlatBuffer(v, layout, shard), "p": FlatBuffer(p, layout, shard)}
+    return FlatBuffer(upd, layout, shard), new_state
 
 
 def vr_adam_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
-                   gsnr_eps, params, state_dtype: str = "float32"):
-    """The full VR-Adam update as one ``flat_vr_adam`` call: returns (upd
-    FlatBuffer, new state).  m, v, p are updated in place.  Without params
-    the weight decay is skipped (zeros stand in for w), as in the
+                   gsnr_eps, params, state_dtype: str = "float32", spmd=None):
+    """The full VR-Adam update as one ``flat_vr_adam`` call (under a
+    sharding plan: K13, an all-reduce, K15 over the rank's rows): returns
+    (upd FlatBuffer, new state).  m, v, p are updated in place.  Without
+    params the weight decay is skipped (zeros stand in for w), as in the
     reference."""
     if params is None:
         params, wd = FlatBuffer(torch.zeros_like(grads.data), grads.layout), 0.0
-    return _adam_family(fu.flat_vr_adam, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
-                        gsnr_eps, params, state_dtype)
+    return _adam_family(fu.flat_vr_adam, "vr_adam", grads, state, stats, lr, b1, b2, b3, eps,
+                        wd, gamma, gsnr_eps, params, state_dtype, spmd)
 
 
 def vr_lamb_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, eps, wd, gamma,
-                   gsnr_eps, params: FlatBuffer, state_dtype: str = "float32"):
-    """The full VR-LAMB update as one ``flat_vr_lamb`` call: returns (upd
-    FlatBuffer, new state).  m, v, p are updated in place."""
-    return _adam_family(fu.flat_vr_lamb, grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
-                        gsnr_eps, params, state_dtype)
+                   gsnr_eps, params: FlatBuffer, state_dtype: str = "float32", spmd=None):
+    """The full VR-LAMB update as one ``flat_vr_lamb`` call (under a
+    sharding plan: K13, an all-reduce, K16, an all-reduce, the trust
+    epilogue over the rank's rows): returns (upd FlatBuffer, new state).
+    m, v, p are updated in place."""
+    return _adam_family(fu.flat_vr_lamb, "vr_lamb", grads, state, stats, lr, b1, b2, b3, eps,
+                        wd, gamma, gsnr_eps, params, state_dtype, spmd)
 
 
 def vr_lars_update(grads: FlatBuffer, state, stats: GradStats, lr, mu, wd, trust, gamma, eps,
-                   params: FlatBuffer):
-    """The full VR-LARS update as one ``flat_vr_lars`` call: returns (upd
-    FlatBuffer, new state).  m (f32) is updated in place."""
-    layout = state["m"].layout
-    upd, m = fu.flat_vr_lars(stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data,
-                             params.data, (lr, gamma), layout, mu=mu, wd=wd, trust=trust, eps=eps)
-    return FlatBuffer(upd, layout), {"step": state["step"] + 1, "m": FlatBuffer(m, layout)}
+                   params: FlatBuffer, spmd=None):
+    """The full VR-LARS update as one ``flat_vr_lars`` call (under a
+    sharding plan: K13, an all-reduce, K17, an all-reduce, the trust
+    epilogue over the rank's rows): returns (upd FlatBuffer, new state).  m
+    (f32) is updated in place."""
+    layout, shard, plan = _state_plan(spmd, "vr_lars", state)
+    fn = plan.vr_lars if plan is not None else fu.flat_vr_lars
+    upd, m = fn(stats.mean.data, grads.data, stats.sq_mean.data, state["m"].data, params.data,
+                (lr, gamma), layout, mu=mu, wd=wd, trust=trust, eps=eps)
+    return (FlatBuffer(upd, layout, shard),
+            {"step": state["step"] + 1, "m": FlatBuffer(m, layout, shard)})
 
 
 def lamb_trust_flat(d: FlatBuffer, params: FlatBuffer, lr, wd) -> FlatBuffer:

@@ -3,9 +3,16 @@
   python -m repro_torch.launch.train --arch bert-large --optimizer vr_adam \
       --batch 256 --seq 128 --steps 3
   python -m repro_torch.launch.train --arch bert-large --smoke --device cpu --steps 4
+  torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
+      --device cpu --gsnr-source data_axis --dist-backend gloo
 
 ``--optimizer`` takes any name of ``core/vrgd.py::make_optimizer`` (default:
-the config's).
+the config's).  ``--gsnr-source data_axis`` trains data-parallel over the
+ranks torchrun starts (its RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT
+environment), k = the number of ranks, over the process-group backend
+``--dist-backend`` names (nccl: one card per rank; gloo: the CPU, or ranks
+that share a card); every rank draws the same global batches and takes its
+rows, and rank 0 prints.
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.
@@ -18,6 +25,7 @@ import json
 
 from repro_torch.configs import ARCH_MODULES, get_config, get_smoke
 from repro_torch.data import lm_batches
+from repro_torch.launch.mesh import DIST_BACKENDS, init_data_mesh
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train import train_loop
 
@@ -35,16 +43,26 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=0)
     ap.add_argument("--gamma", type=float, default=-1.0)
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--gsnr-source", default="microbatch", choices=("microbatch", "data_axis"))
+    ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
+                    help="process-group backend of a data_axis run (required there)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.gsnr_source == "data_axis":
+        if args.dist_backend is None:
+            ap.error("--gsnr-source data_axis needs --dist-backend (nccl or gloo)")
+        mesh = init_data_mesh(args.dist_backend, args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.batch:
         cfg = cfg.replace(global_batch=args.batch)
     if args.seq:
         cfg = cfg.replace(seq_len=args.seq)
-    kw = {"total_steps": args.steps}
+    kw = {"total_steps": args.steps, "gsnr_source": args.gsnr_source}
     if args.optimizer:
         kw["name"] = args.optimizer
     if args.lr:
@@ -57,13 +75,19 @@ def main(argv=None) -> None:
 
     m = cfg.model
     stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len)
-    print(f"training {m.name} on {device}: opt={cfg.optimizer.name} k={cfg.optimizer.k} "
-          f"gamma={cfg.optimizer.gamma} batch={cfg.global_batch} seq={cfg.seq_len}", flush=True)
+    rank0 = mesh is None or mesh.rank == 0
+    if rank0:
+        k = cfg.optimizer.k if mesh is None else f"{mesh.size} ranks ({mesh.backend})"
+        print(f"training {m.name} on {device}: opt={cfg.optimizer.name} k={k} "
+              f"gamma={cfg.optimizer.gamma} batch={cfg.global_batch} seq={cfg.seq_len}",
+              flush=True)
     _state, hist = train_loop(cfg, stream, steps=args.steps, log_every=args.log_every,
-                              log_gsnr=cfg.optimizer.is_vr, device=device)
-    if args.out:
+                              log_gsnr=cfg.optimizer.is_vr, device=device, mesh=mesh)
+    if args.out and rank0:
         with open(args.out, "w") as f:
             json.dump(hist, f, indent=1)
+    if mesh is not None:
+        mesh.close()
 
 
 if __name__ == "__main__":

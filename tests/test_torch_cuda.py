@@ -15,7 +15,10 @@ exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
 (its per-leaf sums are f32 atomics in another order), bf16 state one bf16
 ulp (rtol 2^-7); the VR-Adam, VR-LARS and VR-scale updates likewise (rtol
 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp), and the
-g-only carry exactly (the same f32 additions).
+g-only carry exactly (the same f32 additions).  The data-parallel pieces:
+the [g; g^2] payload exactly (one f32 product per element), the per-shard
+update kernels K13-K17 and the trust epilogue as the single-card updates
+(rtol 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp).
 """
 import dataclasses
 
@@ -25,11 +28,12 @@ import torch
 
 from repro_torch.backend import Backend
 from repro_torch.configs import get_smoke
-from repro_torch.core.layout import FlatBuffer, ParamLayout, pad_mask
+from repro_torch.core.layout import FlatBuffer, ParamLayout, RowShard, pad_mask
 from repro_torch.data import lm_batches
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flat_spmd as fsp
 from repro_torch.kernels import flat_stats as fs
 from repro_torch.kernels import flat_update as fu
 from repro_torch.models import init_params
@@ -287,6 +291,93 @@ def test_flat_optimizer_kernels_match_plain(dev, kernel):
         got = fs.flat_g_accum(gs.clone(), gg)
         torch.testing.assert_close(got, fs.g_accum_ref(gs.clone(), gg), rtol=0, atol=0)
     assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_pack_square_kernel_matches_plain(dev):
+    """K11: the [g; g^2] payload, exactly, one launch."""
+    layout, _, rand = _flat_case(dev, 11)
+    g = rand()
+    before = fs.flat_pack_square.launches
+    got = fs.flat_pack_square(g)
+    assert fs.flat_pack_square.launches == before + 1 and got.shape == (2, layout.n_rows, 128)
+    torch.testing.assert_close(got, fs.pack_square_ref(g), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_spmd_kernels_match_plain(dev, state_dtype):
+    """K13-K17 and the trust epilogue on each of three row shards (11
+    blocks: the last shard is padded, the first leaf straddles both
+    boundaries), the partials summed in rank order as the all-reduce would;
+    one launch counted per call."""
+    layout, mask, rand = _flat_case(dev, 12)
+    g = rand(0.1)
+    g2 = g * g + rand(0.01, positive=True)
+    ga, w, m0 = g * 0.7, rand(0.5), rand(0.01)
+    v0, p0 = rand(1e-3, positive=True), torch.where(mask, 0.5, 0.0)
+    sd = getattr(torch, state_dtype)
+    hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-8, wd=0.01, gamma=0.1, gsnr_eps=1e-12,
+                 state_dtype=state_dtype)
+    scal, lscal = (1e-3, 0.19, 0.002, 0.19), (0.05, 0.1)
+    state_tol = dict(rtol=1e-4, atol=1e-7) if state_dtype == "float32" else \
+        dict(rtol=2.0**-7, atol=1e-6)
+    shards = [RowShard(layout, 3, s) for s in range(3)]
+    assert shards[-1].pad_blocks == 1
+    loc = [{k: sh.local(t) for k, t in dict(g=g, g2=g2, ga=ga, w=w, m=m0, v=v0, p=p0).items()}
+           for sh in shards]
+    ids = [sh.device_meta(dev) for sh in shards]
+    kernels = (fsp.leaf_r_partials, fsp.vr_scale_apply, fsp.vr_adam_apply, fsp.vr_lamb_compute,
+               fsp.vr_lars_compute, fsp.trust_apply)
+    before = [fn.launches for fn in kernels]
+    parts = [fsp.leaf_r_partials(a["g"], a["g2"], i["block_leaf_ids"], layout.leaf_slots,
+                                 gsnr_eps=1e-12) for a, i in zip(loc, ids)]
+    for a, i, got in zip(loc, ids, parts):
+        want = fsp.leaf_r_partials_ref(a["g"], a["g2"], i["block_leaf_ids"], layout.leaf_slots,
+                                       gsnr_eps=1e-12)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    racc = parts[0] + parts[1] + parts[2]
+    lamb_accs, lars_accs, us = [], [], []
+    for a, i in zip(loc, ids):
+        lids, inv = i["block_leaf_ids"], i["inv_sizes"]
+        got = fsp.vr_scale_apply(a["g"], a["ga"], a["g2"], racc, lids, inv, gamma=0.1, eps=1e-12)
+        want = fsp.vr_scale_apply_ref(a["g"], a["ga"], a["g2"], racc, lids, inv, gamma=0.1,
+                                      eps=1e-12)
+        for x, y in zip(got, want):
+            _close_scaled(x, y)
+        for fn, ref in ((fsp.vr_adam_apply, fsp.vr_adam_apply_ref),
+                        (fsp.vr_lamb_compute, fsp.vr_lamb_compute_ref)):
+            ks = [a[k].to(sd, copy=True) for k in "mvp"]
+            ps = [t.clone() for t in ks]
+            got = fn(a["g"], a["ga"], a["g2"], *ks, a["w"], scal, racc, lids, inv, **hyper)
+            want = ref(a["g"], a["ga"], a["g2"], *ps, a["w"], scal, racc, lids, inv, **hyper)
+            _close_scaled(got[0], want[0])
+            for x, y in zip(ks, ps):
+                torch.testing.assert_close(x.float(), y.float(), **state_tol)
+            if fn is fsp.vr_lamb_compute:
+                torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=0)
+                lamb_accs.append(got[4])
+                us.append(got[0])
+        got = fsp.vr_lars_compute(a["g"], a["ga"], a["g2"], a["w"], lscal, racc, lids, inv,
+                                  wd=1e-4, eps=1e-12)
+        want = fsp.vr_lars_compute_ref(a["g"], a["ga"], a["g2"], a["w"], lscal, racc, lids, inv,
+                                       wd=1e-4, eps=1e-12)
+        _close_scaled(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=0)
+        lars_accs.append(got)
+    acc = lamb_accs[0] + lamb_accs[1] + lamb_accs[2]
+    for u, i in zip(us, ids):
+        got = fsp.trust_apply(u.clone(), acc, i["block_leaf_ids"], lr=1e-3, lamb=True)
+        _close_scaled(got, fsp.trust_apply_ref(u.clone(), acc, i["block_leaf_ids"], lr=1e-3,
+                                               lamb=True))
+    acc = lars_accs[0][1] + lars_accs[1][1] + lars_accs[2][1]
+    for (u, _), a, i in zip(lars_accs, loc, ids):
+        kw = dict(lr=0.05, lamb=False, mu=0.9, trust=0.001)
+        got = fsp.trust_apply(u.clone(), acc, i["block_leaf_ids"], m=a["m"].clone(), **kw)
+        want = fsp.trust_apply_ref(u.clone(), acc, i["block_leaf_ids"], m=a["m"].clone(), **kw)
+        for x, y in zip(got, want):
+            _close_scaled(x, y)
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == [3, 3, 3, 3, 3, 6]
 
 
 @pytest.mark.cuda
