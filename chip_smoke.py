@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero:
                 plan: prefill logits and greedy tokens agree.
   6. continuous — ContinuousEngine at full width drains 8 requests.
   7. train kernels — the training slice's kernels against their plain
-                versions at the shapes its main path gives them: the
+                versions at the shapes its main path gives them (K10, the
+                vmap path's stack reduction, at k = 8 and 7 too): the
                 attention forward with its LSE and the attention backward (bert-large's B=32 S=128 H=16 D=64
                 bidirectional, internlm2-1.8b's B=8 S=512 H=16/8 D=128
                 causal packed with pads, and through the autograd
@@ -58,6 +59,23 @@ Phases, in order; any failure exits non-zero:
                 launch counts per rank per step, params bit-identical across
                 the ranks after every step, agreement within DP_TOL, step
                 and collective walls, peak memory per rank.
+ 11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
+                (one vmapped forward and backward over the k groups, the
+                gradient stack reduced by K10): three fresh VR-LAMB steps and
+                a stale one on the fused plan (launches asserted per step:
+                K1 48, K2 24, K10 1, K5 1; functorch's fallback warning an
+                error) against the reference plan (TRAIN_TOL) and phase 8's
+                scan steps (VMAP_TOL); step wall, tokens/s, peak memory and a
+                profile beside phase 8's; two fresh VR-Adam steps (K1 48, K2
+                24, K10 1, K6 1) against the reference plan (TRAIN_TOL).
+                Runs right after phase 8.
+ 12. per leaf — the per-leaf kernels K18-K23 against their plain versions
+                at bert-large's largest stacked leaf (24, 1024, 4096), times
+                beside bounds; then the per-leaf path over bert-large's
+                layout: the k-microbatch carry leaf by leaf (K22, K23)
+                against the flat carry (K3, K4) and the per-leaf VR-scale,
+                VR-Adam, VR-LAMB and VR-LARS steps (K18-K21) against the flat
+                K8, K6, K5, K7 steps from the same inputs.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -358,6 +376,10 @@ def counters():
     from repro_torch.kernels import flat_spmd as fsp
     from repro_torch.kernels import flat_stats as fs
     from repro_torch.kernels import flat_update as fu
+    from repro_torch.kernels import grad_stats as gs
+    from repro_torch.kernels import vr_adam as va
+    from repro_torch.kernels import vr_lamb as vl
+    from repro_torch.kernels import vr_update as vu
 
     return {"flash_attention_fwd": fa.flash_attention,
             "flash_decode_split": fd.flash_decode_split,
@@ -371,6 +393,13 @@ def counters():
             "flat_vr_lars": fu.flat_vr_lars,
             "flat_vr_scale": fu.flat_vr_scale,
             "flat_pack_square": fs.flat_pack_square,
+            "flat_vmap_moments": fs.flat_vmap_moments,
+            "vr_scale": vu.vr_scale,
+            "vr_adam_inner": va.vr_adam_inner,
+            "vr_lamb_inner": vl.vr_lamb_inner,
+            "vr_lars_inner": vl.vr_lars_inner,
+            "moments_accum": gs.moments_accum,
+            "moments_finalize": gs.moments_finalize,
             "leaf_r_partials": fsp.leaf_r_partials,
             "vr_scale_apply": fsp.vr_scale_apply,
             "vr_adam_apply": fsp.vr_adam_apply,
@@ -426,7 +455,7 @@ def device_profile(fn):
 PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "accum_kernel", "finalize_kernel",
                 "r_partials_kernel", "adam_kernel", "apply_kernel", "scale_kernel",
-                "lars_compute_kernel")
+                "lars_compute_kernel", "vmap_moments_kernel", "leaf_")
 
 
 def category(key: str) -> str:
@@ -949,7 +978,36 @@ def phase_train_kernels(records, layout):
         replaces="src/repro/kernels/flat_stats.py:77", max_abs_err=err9, ms=t9,
         plain_ms=t9_plain, bound_ms=b9_ms, bound_by=b9_by, library_ms=t9_lib)
     del gs
-    del g, g2, ga, w, m0, v0, p0, mask
+    del g, g2, ga, w, m0, v0, p0
+    torch.cuda.empty_cache()
+
+    # ---- K10 flat_vmap_moments: the (k, n_rows, 128) stack of the vmap path --
+    print("[train kernels] flat_vmap_moments", flush=True)
+    err10, t10 = 0.0, {}
+    for k in (8, 7):  # the main path's k, and an odd k
+        gstack = torch.randn((k, layout.n_rows, 128), generator=gen, device=dev).mul_(mask)
+        mean, sq = fs.flat_vmap_moments(gstack, k)
+        want_m, want_sq = fs.vmap_moments_ref(gstack, k)
+        err10 = max(err10, check_close(f"flat_vmap_moments k={k} mean", mean, want_m, TOL_EXACT),
+                    check_close(f"flat_vmap_moments k={k} sq_mean", sq, want_sq, TOL_CARRY))
+        if mean[~mask].any() or sq[~mask].any():
+            fail("flat_vmap_moments: the padded tail must stay zero")
+        del mean, sq, want_m, want_sq
+        if k == 8:
+            t10["ms"] = cuda_ms(lambda: fs.flat_vmap_moments(gstack, k))
+            t10["plain"] = cuda_ms(lambda: fs.vmap_moments_ref(gstack, k), iters=5)
+            t10["lib"] = cuda_ms(lambda: (gstack.mean(0), gstack.square().mean(0)), iters=5)
+            t10["bound"] = bound((k + 2) * n * 4, 3 * k * n, "float32")
+        del gstack
+        torch.cuda.empty_cache()
+    b10_ms, b10_by = t10["bound"]
+    print(f"  flat_vmap_moments k=8 (ms): kernel={t10['ms']:.4f} plain={t10['plain']:.4f} "
+          f"mean(0)+square().mean(0)={t10['lib']:.4f} bound={b10_ms:.4f} ({b10_by})", flush=True)
+    records["flat_vmap_moments"] = dict(
+        name="flat_vmap_moments", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
+        replaces="src/repro/kernels/flat_stats.py:144", max_abs_err=err10, ms=t10["ms"],
+        plain_ms=t10["plain"], bound_ms=b10_ms, bound_by=b10_by, library_ms=t10["lib"])
+    del mask
     torch.cuda.empty_cache()
 
 
@@ -1171,6 +1229,8 @@ def phase_train(records):
             add_path(records, "train", path_counts)
         plans[plan] = (state, step)
     compare_plans("vr_lamb", hist, step1)
+    scan = {"hist": hist["fused"], "step1": step1["fused"], "walls": walls,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     del step1
 
     # step time, tokens/s and the device's share of it (one more fused step)
@@ -1182,11 +1242,123 @@ def phase_train(records):
     step_ms = float(np.mean(warm))
     print(f"  fused step wall (host clock, synchronized): {', '.join(f'{w:.1f}' for w in walls)} "
           f"ms; warm mean {step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+          f"{scan['peak_gib']:.1f} GiB", flush=True)
     _, t_prof = host_ms(lambda: step(state, batches[TRAIN_STEPS]))
     report_profile("fused train step (profiled)", lambda: step(state, batches[TRAIN_STEPS]),
                    t_prof, top=14)
     del state, plans
+    torch.cuda.empty_cache()
+    return scan
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the vmap stats path at full width
+# ---------------------------------------------------------------------------
+
+# functorch's warning for an op without a batching rule, which it then runs
+# as a loop over the vmapped groups: an error in phase 11
+VMAP_FALLBACK = "There is a performance drop"
+# The vmap step against phase 8's fused scan step, from the same params and
+# batches on the same kernels.  Attention is row-wise, so folding the k
+# groups into its batch changes nothing; the bf16 GEMMs see 8x the rows and
+# cuBLAS picks other tiles, whose rounding compounds over 24 layers and the
+# backward.  Bounds, set from the first full-width run on an H100 (700 W),
+# which measured loss 6.1e-6, grad_norm 1.1e-4, gsnr/* 1.3e-5 and after step
+# 1 the update 1.41e-2, m and v 8.1e-3, p 1.61e-2 (PERF.md): three to ten
+# times those.  Planted faults in K10 that break them: PERF.md.
+VMAP_TOL = {"loss": 5e-5, "grad_norm": 1e-3, "gsnr": 1e-4, "mv": 3e-2, "p": 5e-2, "upd": 5e-2}
+
+
+def vmap_counts(n_layers, fresh, update="flat_vr_lamb"):
+    """Launches of one fused vmap step: K1 twice and K2 once per layer for
+    all k groups together, then K10 and the update's kernel on a fresh step
+    (a stale step takes the stack's mean, a plain op, and its update is
+    plain)."""
+    want = fused_counts(n_layers, 1, update if fresh else None, carry=None)
+    if fresh:
+        want["flat_vmap_moments"] = 1
+    return want
+
+
+def phase_train_vmap(records, scan):
+    """11: bert-large at phase 8's cut with stats_method="vmap": three fresh
+    VR-LAMB steps and a stale one on the fused plan (launch counts asserted
+    per step, functorch's fallback an error) against the same steps on the
+    reference plan (TRAIN_TOL) and, for the fresh steps, against phase 8's
+    fused scan steps (VMAP_TOL); warm step wall, tokens/s, peak memory and a
+    profile of one more fused step beside phase 8's.  Then two fresh VR-Adam
+    vmap steps (K6) on each plan, compared within TRAIN_TOL."""
+    import warnings
+
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = bert_train_config()
+    m, k = cfg.model, cfg.optimizer.k
+    tokens = cfg.global_batch * cfg.seq_len
+    print(f"[train vmap] {m.name} at full width, global batch {cfg.global_batch}, seq "
+          f"{cfg.seq_len}, k={k}, stats_method=vmap: one vmapped forward and backward over the "
+          f"k groups; three fresh VR-LAMB steps and a stale one per plan", flush=True)
+    params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 2)]  # phase 8's, then one more
+    fresh = (True,) * TRAIN_STEPS + (False,)
+    hist, step1, walls, peak = {}, {}, None, None
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=VMAP_FALLBACK)
+        for plan in ("fused", "reference"):
+            pc = plan_config(cfg, plan, stats_method="vmap")
+            state = init_state(pc, params=params, device=dev)
+            step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state, hist[plan], step1[plan], plan_walls, path_counts = run_plan(
+                plan, state, step, batches[:TRAIN_STEPS + 1],
+                lambda i: vmap_counts(m.n_layers, fresh[i]), "vr_lamb vmap", fresh)
+            if plan == "fused":
+                walls, peak = plan_walls, torch.cuda.max_memory_allocated() / 2**30
+                add_path(records, "train_vmap", path_counts)
+                _, t_prof = host_ms(lambda: step(state, batches[-1]))
+                report_profile("fused vmap train step (profiled)",
+                               lambda: step(state, batches[-1]), t_prof, top=14)
+            del state, step
+            torch.cuda.empty_cache()
+        adam_hist, adam_step1, adam_walls = {}, {}, None
+        for plan in ("fused", "reference"):
+            pc = plan_config(cfg, plan, name="vr_adam", stats_method="vmap")
+            state = init_state(pc, params=params, device=dev)
+            step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+            state, adam_hist[plan], adam_step1[plan], plan_walls, path_counts = run_plan(
+                plan, state, step, batches[:2],
+                lambda i: vmap_counts(m.n_layers, True, "flat_vr_adam"), "vr_adam vmap")
+            if plan == "fused":
+                adam_walls = plan_walls
+                add_path(records, "train_vmap", path_counts)
+            del state, step
+            torch.cuda.empty_cache()
+    del params
+    compare_plans("vr_adam vmap", adam_hist, adam_step1)
+    print(f"  vr_adam fused vmap step wall (host clock, synchronized): "
+          f"{', '.join(f'{w:.1f}' for w in adam_walls)} ms; warm {adam_walls[-1]:.1f} ms = "
+          f"{tokens / adam_walls[-1] * 1e3:.0f} tokens/s", flush=True)
+    del adam_step1
+    compare_plans("vr_lamb vmap", hist, step1)
+    compare_plans("vr_lamb vmap vs scan", {"vmap": hist["fused"][:TRAIN_STEPS],
+                                           "scan": scan["hist"]},
+                  {"vmap": step1["fused"], "scan": scan["step1"]}, pair=("vmap", "scan"),
+                  tol=VMAP_TOL)
+    warm, scan_warm = float(np.mean(walls[1:TRAIN_STEPS])), float(np.mean(scan["walls"][1:]))
+    print(f"  fused vmap step wall (host clock, synchronized): "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (the last stale); warm fresh mean "
+          f"{warm:.1f} ms = {tokens / warm * 1e3:.0f} tokens/s, stale {walls[-1]:.1f} ms; peak "
+          f"memory {peak:.1f} GiB.  Phase 8's scan step in this run: warm mean {scan_warm:.1f} "
+          f"ms = {tokens / scan_warm * 1e3:.0f} tokens/s, peak memory {scan['peak_gib']:.1f} GiB",
+          flush=True)
+    del step1
     torch.cuda.empty_cache()
 
 
@@ -1800,6 +1972,257 @@ def phase_train_dp(records):
     add_path(records, "train_dp", path_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the per-leaf kernels (K18-K23) and their per-leaf step
+# ---------------------------------------------------------------------------
+
+# The per-leaf VR steps (per_leaf_vr_scale, per_leaf_vr_adam_update,
+# per_leaf_vr_lamb_update, per_leaf_vr_lars_update) are in
+# tests/torch_per_leaf_oracle.py, shared with tests/test_torch_per_leaf.py.
+
+# Stated tolerances of phase 12: K18-K21 against their plain versions rtol
+# 1e-4 with atol 1e-4 of the largest magnitude (the prepass's mean of r is
+# the same plain op on both sides; the kernels' norm sums are f32 atomics over
+# block partials, the plain sums pairwise); K22 as K3 (Sigma g exact, Sigma g^2
+# within one FMA rounding), K23 as K4 (exact).  The per-leaf steps against
+# K5-K8's flat step from the same inputs: rtol 1e-4 with atol 1e-4 of the
+# largest magnitude (per-leaf sums in another order).
+TOL_LEAF = 1e-4
+LARGEST_LEAF = (24, 1024, 4096)  # bert-large's stacked MLP input weight
+
+
+def tol_leaf(want):
+    return dict(atol=TOL_LEAF * float(want.float().abs().max()), rtol=TOL_LEAF)
+
+
+def check_leaves(name, paths, leaves, wants, tol):
+    """check_close over matching leaves, printed as one line: the largest
+    error and the leaf it is in."""
+    import torch
+
+    worst, where = 0.0, ""
+    for path, got, want in zip(paths, leaves, wants):
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{name} {path}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+        err = (got - want).abs()
+        if (err > tol["atol"] + tol["rtol"] * want.abs()).any():
+            fail(f"{name} {path}: outside tol(atol={tol['atol']}, rtol={tol['rtol']}), max "
+                 f"abs err {float(err.max()):.3e}")
+        if float(err.max()) >= worst:
+            worst, where = float(err.max()), path
+    print(f"  {name}: {len(leaves)} leaves, max_abs_err={worst:.3e} ({where}) "
+          f"tol(atol={tol['atol']:.3e}, rtol={tol['rtol']}) ok", flush=True)
+    return worst
+
+
+def phase_per_leaf(records, layout):
+    """12: (a) K18-K23 against their plain versions at bert-large's largest
+    stacked leaf, with times beside bounds; (b) the per-leaf path over
+    bert-large's full layout: the k-microbatch moment carry leaf by leaf (K22
+    per leaf per microbatch, K23 per leaf) against the flat carry (K3, K4),
+    then the per-leaf VR-scale, VR-Adam, VR-LAMB and VR-LARS steps against
+    K8, K6, K5 and K7's flat step from the same inputs."""
+    import torch
+
+    from repro_torch.core.gsnr import GradStats
+    from repro_torch.core.layout import FlatBuffer, pad_mask
+    from repro_torch.kernels import flat_stats as fs
+    from repro_torch.kernels import grad_stats as gs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vr_adam as va
+    from repro_torch.kernels import vr_lamb as vl
+    from repro_torch.kernels import vr_update as vu
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_per_leaf_oracle as plo
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rand(shape, scale, positive=False):
+        x = torch.randn(shape, generator=gen, device=dev).mul_(scale)
+        return x.abs_() if positive else x
+
+    # ---- (a) K18-K23 at the largest leaf ------------------------------------
+    shape = LARGEST_LEAF
+    n = int(np.prod(shape))
+    print(f"[per-leaf kernels] leaf {shape}: {n / 1e6:.1f} M f32 elements, "
+          f"{n * 4 / 1e9:.3f} GB a buffer", flush=True)
+    g = rand(shape, 1e-2)
+    x = dict(g=g, ga=g * 0.7, g2=(g * g).add_(rand(shape, 1e-4, True)), m=rand(shape, 1e-3),
+             v=rand(shape, 1e-5, True), p=rand(shape, 1.0, True).clamp_(max=1.0),
+             w=rand(shape, 0.05))
+    del g
+    bc = (0.19, 0.001999, 0.19)
+    adam = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, gamma=0.1, gsnr_eps=1e-12)
+    # name: (wrapper, plain, args, kw, buffers read, written, source line)
+    cases = {
+        "vr_scale": (vu.vr_scale, vu.vr_scale_ref, (x["g"], x["g2"], 0.1, 1e-12),
+                     dict(g_apply=x["ga"]), 3, 2, "src/repro/kernels/vr_update.py:27"),
+        "vr_adam_inner": (va.vr_adam_inner, va.vr_adam_inner_ref,
+                          (x["g"], x["g2"], x["m"], x["v"], x["p"], *bc),
+                          dict(g_apply=x["ga"], **adam), 6, 4, "src/repro/kernels/vr_adam.py:23"),
+        "vr_lamb_inner": (vl.vr_lamb_inner, vl.vr_lamb_inner_ref,
+                          (x["g"], x["ga"], x["g2"], x["m"], x["v"], x["p"], x["w"], *bc),
+                          dict(wd=0.01, **adam), 7, 4, "src/repro/kernels/vr_lamb.py:54"),
+        "vr_lars_inner": (vl.vr_lars_inner, vl.vr_lars_inner_ref,
+                          (x["g"], x["ga"], x["g2"], x["w"]),
+                          dict(wd=1e-4, gamma=0.1, eps=1e-12), 4, 1,
+                          "src/repro/kernels/vr_lamb.py:148"),
+    }
+    t_pre = cuda_ms(lambda: vu.inv_mean_r(x["g"], x["g2"], 1e-12))
+    for name, (kernel, plain, args, kw, n_in, n_out, line) in cases.items():
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        err = max(check_close(f"{name} out {i}", a, b, tol_leaf(b))
+                  for i, (a, b) in enumerate(zip(got, want)))
+        del got, want
+        t_k = cuda_ms(lambda: kernel(*args, **kw))
+        t_p = cuda_ms(lambda: plain(*args, **kw), iters=5)
+        b_ms, b_by = bound((n_in + n_out) * n * 4, 40 * n, "float32")
+        print(f"  {name} (ms): kernel with its prepass={t_k:.4f} (prepass alone {t_pre:.4f}) "
+              f"plain={t_p:.4f} bound={b_ms:.4f} ({b_by}); no single PyTorch call computes it",
+              flush=True)
+        records[name] = dict(name=name, route="cuda",
+                             source="src/repro_torch/kernels/csrc/vr_leaf.cu", replaces=line,
+                             max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, prepass_ms=t_pre, shape=list(shape))
+    del cases
+    carry = (gs.moments_init(x["g"]), gs.moments_init(x["g"]))
+    plain = tuple(t.clone() for t in carry)
+    for i in range(3):
+        gs.moments_accum(*carry, x["g"] * (i + 1))
+        gs.moments_accum_ref(*plain, x["g"] * (i + 1))
+    err22 = max(check_close("moments_accum g_sum", carry[0], plain[0], TOL_EXACT),
+                check_close("moments_accum g2_sum", carry[1], plain[1], TOL_CARRY))
+    err23 = max(check_close(f"moments_finalize {nm}", a, b, TOL_EXACT) for nm, a, b in zip(
+        ("mean", "sq_mean"), gs.moments_finalize(carry[0].clone(), carry[1].clone(), 3, shape),
+        gs.moments_finalize_ref(carry[0].clone(), carry[1].clone(), 3, shape)))  # one carry
+    a, b, gl = carry[0], carry[1], x["g"]
+    t22 = (cuda_ms(lambda: gs.moments_accum(a, b, gl)),
+           cuda_ms(lambda: gs.moments_accum_ref(a, b, gl)),
+           cuda_ms(lambda: (a.view(-1).add_(gl.view(-1)), b.view(-1).addcmul_(gl.view(-1),
+                                                                             gl.view(-1)))))
+    t23 = (cuda_ms(lambda: gs.moments_finalize(a, b, 8, shape)),
+           cuda_ms(lambda: gs.moments_finalize_ref(a, b, 8, shape)),
+           cuda_ms(lambda: (a.mul_(0.125), b.mul_(0.125))))
+    for name, err, (t_k, t_p, t_l), (n_io, flops), line, lib in (
+            ("moments_accum", err22, t22, (5, 3), "src/repro/kernels/grad_stats.py:35",
+             "add_+addcmul_"),
+            ("moments_finalize", err23, t23, (4, 2), "src/repro/kernels/grad_stats.py:41",
+             "2x mul_")):
+        b_ms, b_by = bound(n_io * n * 4, flops * n, "float32")
+        print(f"  {name} (ms): kernel={t_k:.4f} plain={t_p:.4f} {lib}={t_l:.4f} "
+              f"bound={b_ms:.4f} ({b_by})", flush=True)
+        records[name] = dict(name=name, route="cuda",
+                             source="src/repro_torch/kernels/csrc/flat_stats.cu", replaces=line,
+                             max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=t_l, shape=list(shape))
+    del x, carry, plain, a, b, gl
+    torch.cuda.empty_cache()
+
+    # ---- (b) the per-leaf path over bert-large's full layout -----------------
+    k = 8
+    print(f"[per-leaf path] {layout.n_leaves} stacked leaves of bert-large, k={k} microbatch "
+          "gradients: the per-leaf carry and steps against the flat carry and steps", flush=True)
+    mask = pad_mask(layout, dev)
+    base = rand((layout.n_rows, 128), 1e-2).mul_(mask)
+    views = lambda buf: layout.leaf_views(buf)
+    reset_counts()
+    carries = [(gs.moments_init(v), gs.moments_init(v)) for v in views(base)]
+    flat_c = ops.moments_init_flat(layout, dev)
+    t_leaf = t_flat = 0.0
+    for j in range(k):  # microbatch j's gradient: the mean plus noise, bf16
+        gj = (base + rand(base.shape, 1e-2).mul_(mask)).to(torch.bfloat16)
+        _, ms = host_ms(lambda: [gs.moments_accum(a, b, v) for (a, b), v in
+                                 zip(carries, views(gj))])
+        t_leaf += ms
+        _, ms = host_ms(lambda: ops.moments_accum_flat(*flat_c, gj))
+        t_flat += ms
+        del gj
+    stats_leaf, ms = host_ms(lambda: [gs.moments_finalize(a, b, k, v.shape)
+                                      for (a, b), v in zip(carries, views(base))])
+    t_leaf += ms
+    counts = read_counts()  # K22 and K23 only: the flat carry runs after the read
+    stats, ms = host_ms(lambda: ops.moments_finalize_flat(*flat_c, k, layout))
+    t_flat += ms
+    print(f"  carry of {k} microbatches (host clock, synchronized): per-leaf {t_leaf:.1f} ms, "
+          f"flat {t_flat:.1f} ms", flush=True)
+    mean_l = [s_[0] for s_ in stats_leaf]
+    sq_l = [s_[1] for s_ in stats_leaf]
+    check_leaves("per-leaf carry mean vs K3/K4", layout.paths, mean_l, views(stats.mean.data),
+                 TOL_EXACT)
+    check_leaves("per-leaf carry sq_mean vs K3/K4", layout.paths, sq_l,
+                 views(stats.sq_mean.data), TOL_CARRY)
+    del carries, stats_leaf, base
+    torch.cuda.empty_cache()
+
+    grads = FlatBuffer(stats.mean.data * 0.5, layout)  # the clipped gradient entering the update
+    w = FlatBuffer(rand((layout.n_rows, 128), 0.03).mul_(mask), layout)
+    m0, v0 = rand((layout.n_rows, 128), 1e-4).mul_(mask), rand((layout.n_rows, 128), 1e-7,
+                                                               True).mul_(mask)
+    p0 = mask.float().mul_(0.4)
+    lg, lsq, lga, lw = (views(t) for t in (stats.mean.data, stats.sq_mean.data, grads.data,
+                                            w.data))
+    lr = 3.5e-6
+    adam = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12)
+    lars = dict(mu=0.9, wd=0.01, trust=0.001, gamma=0.1, eps=1e-12)
+
+    def compare(what, leaves, buf):
+        check_leaves(f"per-leaf {what} vs flat", layout.paths, leaves, views(buf), tol_leaf(buf))
+
+    def adam_state(clone):
+        return {"step": 0, "pt": 0, **{nm: (FlatBuffer(t.clone(), layout) if clone else views(t))
+                                        for nm, t in zip("mvp", (m0, v0, p0))}}
+
+    steps = {
+        "vr_scale": (lambda: plo.per_leaf_vr_scale(lg, lsq, lga, 0.1, 1e-12),
+                     lambda: ops.vr_scale_tree(stats, grads, 0.1, 1e-12)),
+        "vr_adam": (lambda: plo.per_leaf_vr_adam_update(lga, adam_state(False), lg, lsq,
+                                                        lr, params=lw, **adam),
+                    lambda: ops.vr_adam_update(grads, adam_state(True), stats, lr, params=w,
+                                               **adam)),
+        "vr_lamb": (lambda: plo.per_leaf_vr_lamb_update(lga, adam_state(False), lg, lsq,
+                                                        lr, params=lw, **adam),
+                    lambda: ops.vr_lamb_update(grads, adam_state(True), stats, lr, params=w,
+                                               **adam)),
+        "vr_lars": (lambda: plo.per_leaf_vr_lars_update(lga, {"step": 0, "m": views(m0)}, lg,
+                                                        lsq, lr, params=lw, **lars),
+                    lambda: ops.vr_lars_update(grads, {"step": 0, "m": FlatBuffer(m0.clone(),
+                                                                                 layout)},
+                                               stats, lr, params=w, **lars)),
+    }
+    for name, (leaf_step, flat_step) in steps.items():
+        before = read_counts()
+        got, t_l = host_ms(leaf_step)
+        for nm, c in read_counts().items():
+            counts[nm] += c - before[nm]
+        want, t_f = host_ms(flat_step)
+        if name == "vr_scale":
+            compare("vr_scale sg", [a for a, _ in got], want[0].data)
+            compare("vr_scale r", [r for _, r in got], want[1].data)
+        else:
+            compare(f"{name} upd", got[0], want[0].data)
+            for nm in ("m", "v", "p"):
+                if nm in got[1]:
+                    compare(f"{name} {nm}'", got[1][nm], want[1][nm].data)
+        print(f"  per-leaf {name} step (host clock, synchronized): {t_l:.1f} ms over "
+              f"{layout.n_leaves} leaves, the flat step {t_f:.1f} ms", flush=True)
+        del got, want
+        torch.cuda.empty_cache()
+    leaf_kernels = ("vr_scale", "vr_adam_inner", "vr_lamb_inner", "vr_lars_inner",
+                    "moments_accum", "moments_finalize")
+    want_counts = {nm: layout.n_leaves for nm in leaf_kernels}
+    want_counts["moments_accum"] = k * layout.n_leaves
+    got_counts = {nm: counts[nm] for nm in leaf_kernels}
+    if got_counts != want_counts:
+        fail(f"per-leaf path launches {got_counts} != {want_counts}")
+    print(f"  per-leaf path launches: {got_counts}", flush=True)
+    add_path(records, "per_leaf", got_counts)
+    del stats, grads, w, m0, v0, p0, mask
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1840,14 +2263,19 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     records = {}
+    layout = train_layout(get_config("bert-large"))
     phase_kernels(records)
     phase_engine(records)
     torch.cuda.empty_cache()
-    phase_train_kernels(records, train_layout(get_config("bert-large")))
-    phase_train(records)
+    phase_train_kernels(records, layout)
+    scan = phase_train(records)
+    phase_train_vmap(records, scan)  # against phase 8's scan steps, while they are at hand
+    del scan
+    torch.cuda.empty_cache()
     phase_train_optimizers(records)
-    phase_spmd_kernels(records, train_layout(get_config("bert-large")))
+    phase_spmd_kernels(records, layout)
     phase_train_dp(records)
+    phase_per_leaf(records, layout)
     torch.cuda.synchronize()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,8 +1,8 @@
 """k-group gradient moment accumulation (the paper's ``k``).
 
-Port of ``repro/core/accumulate.py`` (method "scan").  The paper equates k
-with gradient-accumulation groups (Appendix Table 9); GradStats come from k
-microbatches, each one forward and backward.  The reference's ``lax.scan``
+Port of ``repro/core/accumulate.py`` (methods "scan" and "vmap").  The
+paper equates k with gradient-accumulation groups (Appendix Table 9);
+GradStats come from k microbatches, each one forward and backward.  The reference's ``lax.scan``
 becomes a Python loop.
 
 The parameters are a FlatParams (core/layout.py): every microbatch's
@@ -16,7 +16,16 @@ kernel.  On the reference plan the carry is a tree over the reference's
 stacked leaves, added with plain torch.  ``grad_only`` is the baselines'
 single backward over the whole batch.
 
-Not yet ported: ``method="vmap"``, which raises.
+``method="vmap"`` takes the k microbatches through ONE batched forward and
+backward: ``torch.func.vmap`` of ``torch.func.grad_and_value`` over the
+groups, with respect to the detached per-group leaves of ``params.tree``
+(the model's kernels fold the vmapped dim into their batch axis, so each
+runs once per layer for all k groups).  On the fused plan the (k, param)
+gradients are written into one (k, n_rows, LANE) f32 stack, which reduces
+to (mean, sq_mean) in one K10 launch; a stale step takes the stack's mean
+as a plain op, as the reference does.  On the reference plan the moments
+are tree means over the k axis.  It costs the stack: k f32 copies of the
+parameters.
 """
 from __future__ import annotations
 
@@ -27,7 +36,9 @@ import torch
 
 from repro_torch.backend import Backend
 from repro_torch.core.gsnr import GradStats
-from repro_torch.core.layout import FlatBuffer, FlatParams, tree_map
+from repro_torch.core.layout import FlatBuffer, FlatParams, stack_groups, tree_map
+
+METHODS = ("scan", "vmap")
 
 
 def split_batch(batch: Dict, k: int) -> Dict:
@@ -67,17 +78,21 @@ def grad_stats(
 ) -> Tuple[torch.Tensor, Dict, GradStats]:
     """(mean loss, mean aux, GradStats) over k microbatches.
 
-    loss_fn(params_tree, microbatch) -> (loss, aux dict of scalars); it is
-    called on ``params.tree`` and its loss backpropagated into
-    ``params.grad``.  GradStats holds FlatBuffers on the fused ``stats``
+    loss_fn(params_tree, microbatch) -> (loss, aux dict of scalars); under
+    "scan" it is called on ``params.tree`` and its loss backpropagated into
+    ``params.grad``, under "vmap" differentiated by ``torch.func`` (see the
+    module note).  GradStats holds FlatBuffers on the fused ``stats``
     plan and stacked trees on the reference plan; with ``squares=False``
     its sq_mean is None (no Σg² stream)."""
-    if method != "scan":
-        raise NotImplementedError(f"grad_stats(method={method!r}) is not yet ported; use 'scan'")
+    if method not in METHODS:
+        raise ValueError(f"grad_stats: method={method!r} must be one of {METHODS}")
     bk = backend if backend is not None else Backend()
     fused = bk.fused("stats", params.device)
     mb = split_batch(batch, k)
     from repro_torch.kernels import ops as kops
+
+    if method == "vmap":
+        return _vmap_stats(loss_fn, params, mb, k, squares, fused)
 
     if fused and squares:
         g_sum, g2_sum = kops.moments_init_flat(params.layout, params.device)
@@ -113,6 +128,29 @@ def grad_stats(
         scale = lambda tree: tree_map(lambda x: x.mul_(inv), tree)
         stats = GradStats(mean=scale(g_sum), sq_mean=scale(g2_sum) if squares else None, k=k)
     return loss_sum * inv, {n: v * inv for n, v in aux_sum.items()}, stats
+
+
+def _vmap_stats(loss_fn, params: FlatParams, mb: Dict, k: int, squares: bool, fused: bool):
+    """grad_stats(method="vmap") over the split batch ``mb``."""
+    from repro_torch.kernels import ops as kops
+
+    gfn = torch.func.grad_and_value(loss_fn, has_aux=True)
+    grads, (loss, aux) = torch.func.vmap(gfn, in_dims=(None, 0))(params.detached_tree(), mb)
+    if fused:
+        gstack = params.pack_stack(grads, k)
+        del grads
+        if squares:
+            stats = kops.vmap_moments_flat(gstack, k, params.layout)
+        else:
+            stats = GradStats(mean=FlatBuffer(gstack.mean(dim=0), params.layout), sq_mean=None,
+                              k=k)
+    else:
+        stats = GradStats(
+            mean=stack_groups(tree_map(lambda g: g.mean(dim=0), grads)),
+            sq_mean=stack_groups(tree_map(lambda g: g.square().mean(dim=0), grads))
+            if squares else None,
+            k=k)
+    return loss.detach().mean(), {n: v.detach().mean(dim=0) for n, v in aux.items()}, stats
 
 
 def grad_only(loss_fn: Callable, params: FlatParams, batch: Dict):

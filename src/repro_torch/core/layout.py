@@ -431,6 +431,29 @@ class FlatParams:
     def zero_grad(self) -> None:
         self.grad.zero_()
 
+    def detached_tree(self) -> Dict:
+        """``tree`` with every leaf detached: the same storage, no autograd
+        leaf and no ``.grad`` (what ``torch.func`` differentiates)."""
+        return tree_map(lambda x: x.detach(), self.tree)
+
+    def pack_stack(self, grads: Dict, k: int) -> torch.Tensor:
+        """A gradient tree shaped like ``tree`` with a leading k axis ->
+        one new (k, n_rows, LANE) f32 stack in this layout (the
+        counterpart of the reference's ``jax.vmap(layout.pack)``).  Each
+        leaf's (k, *leaf) gradient is written into the element range its
+        parameter occupies in ``data``; the padded tail of every stacked
+        leaf is zero."""
+        layout = self.layout
+        stack = torch.empty((k, layout.n_rows, LANE), dtype=torch.float32, device=self.device)
+        flat = stack.view(k, -1)
+        for off, size, rows in zip(layout.row_offsets, layout.sizes, layout.leaf_rows):
+            flat[:, off * LANE + size: (off + rows) * LANE].zero_()
+        base = self.data.storage_offset()
+        for leaf, g in zip(tree_leaves(self.tree), tree_leaves(grads)):
+            start = leaf.storage_offset() - base
+            flat[:, start: start + leaf.numel()].copy_(g.reshape(k, -1))
+        return stack
+
 
 def pad_mask(layout: ParamLayout, device="cpu") -> torch.Tensor:
     """(n_rows, LANE) bool: True where an element belongs to a leaf."""

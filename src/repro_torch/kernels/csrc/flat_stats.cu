@@ -1,17 +1,24 @@
 // Flat gradient-moment carry for Hopper (sm_90a): the k-microbatch
 // accumulate and the /k finalize over the whole (n_rows, 128) flat buffer,
-// the g-only accumulate of stale-GSNR steps, and the [g; g^2] payload of
-// the data-parallel step.
+// the g-only accumulate of stale-GSNR steps, the [g; g^2] payload of
+// the data-parallel step, and the one-launch moments of a (k, n) gradient
+// stack (the vmap stats method).
 //
 // Replaces the TPU kernels repro/kernels/grad_stats.py::_accum_kernel and
 // ::_finalize_kernel as launched by repro/kernels/flat_stats.py::
 // flat_moments_accum and ::flat_moments_finalize, and flat_stats.py::
-// _g_accum_kernel (flat_g_accum), and flat_stats.py::_pack_square_kernel
-// (flat_pack_square).  Same math:
+// _g_accum_kernel (flat_g_accum), flat_stats.py::_pack_square_kernel
+// (flat_pack_square) and flat_stats.py::_vmap_kernel (flat_vmap_moments).
+// The per-leaf carry of repro/kernels/grad_stats.py::moments_accum and
+// ::moments_finalize launches the same accumulate and finalize on one
+// leaf's (rows, 128) carry.  Same math:
 //   accumulate:  g_sum += g,  g2_sum += g * g   (g cast to f32)
 //   finalize:    mean = g_sum * inv_k,  sq_mean = g2_sum * inv_k
 //   g-only:      g_sum += g                     (g cast to f32)
 //   pack square: out[0] = g,  out[1] = g * g    (g f32; out (2, n) f32)
+//   vmap:        mean = (sum_j g_j) * inv_k,  sq_mean = (sum_j g_j^2) * inv_k
+//                over the k slices of a (k, n) f32 stack, j = 0..k-1 in
+//                order (the reference's k-minor grid)
 // The first three work in place on the carry (the reference returns new
 // buffers with the same values), so a step keeps two f32 buffers for the
 // moments (one on a stale step).  The pack writes a new (2, n) payload from
@@ -19,14 +26,18 @@
 //
 // Design.  Pure streaming passes: each thread handles 16-byte vectors (four
 // f32 or four bf16 of g) in a grid-stride loop; no shared memory, no
-// reductions.  The zero-padded tail of every leaf stays zero.
+// reductions.  The zero-padded tail of every leaf stays zero.  The TPU's
+// vmap kernel keeps each output block in VMEM while a minor grid axis walks
+// the k slices; here a thread walks them itself, with both sums in
+// registers, and writes mean and sq_mean once.
 //
 // Bound on the card: bytes.  At bert-large's flat layout (2.85 M rows,
 // 1.46 GB per f32 buffer) the accumulate reads three buffers and writes two
 // (~7.3 GB, ~2.2 ms at 3.35 TB/s); the finalize reads two and writes two
 // (~5.8 GB, ~1.7 ms); the g-only accumulate reads two and writes one
 // (~4.4 GB, ~1.3 ms); the pack reads one and writes two (~4.4 GB, ~1.3
-// ms).  The arithmetic is 3, 2, 1 and 1 flops per element.
+// ms); the vmap moments at k = 8 read eight and write two (14.6 GB, 4.35
+// ms).  The arithmetic is 3, 2, 1, 1 and 3k flops per element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,6 +104,27 @@ __global__ void __launch_bounds__(NT) pack_square_kernel(const float4* __restric
   }
 }
 
+// g: (k, n4) float4 slices; mean, sq: n4 float4.
+__global__ void __launch_bounds__(NT) vmap_moments_kernel(const float4* __restrict__ g,
+                                                          float4* __restrict__ mean,
+                                                          float4* __restrict__ sq, int k,
+                                                          float inv, int64_t n4) {
+  for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) {
+      const float4 x = g[j * n4 + i];
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      b.x = fmaf(x.x, x.x, b.x);
+      b.y = fmaf(x.y, x.y, b.y);
+      b.z = fmaf(x.z, x.z, b.z);
+      b.w = fmaf(x.w, x.w, b.w);
+    }
+    mean[i] = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    sq[i] = make_float4(b.x * inv, b.y * inv, b.z * inv, b.w * inv);
+  }
+}
+
 unsigned grid_for(int64_t n4, int n_sm) {
   const int64_t want = (n4 + NT - 1) / NT;
   const int64_t cap = (int64_t)n_sm * 16;  // enough resident blocks to keep every SM streaming
@@ -150,5 +182,16 @@ extern "C" int flat_pack_square(const void* g, void* out, long long n, int n_sm,
   const int64_t n4 = n / 4;
   pack_square_kernel<<<grid_for(n4, n_sm), NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(g), static_cast<float4*>(out), n4);
+  return cudaGetLastError();
+}
+
+// g: k slices of n f32 each (n a multiple of 4); mean, sq: n f32.
+extern "C" int flat_vmap_moments(const void* g, void* mean, void* sq, int k, float inv,
+                                 long long n, int n_sm, void* stream) {
+  if (n % 4 || k < 1) return cudaErrorInvalidValue;
+  const int64_t n4 = n / 4;
+  vmap_moments_kernel<<<grid_for(n4, n_sm), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(g), static_cast<float4*>(mean), static_cast<float4*>(sq), k, inv,
+      n4);
   return cudaGetLastError();
 }

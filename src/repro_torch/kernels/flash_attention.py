@@ -219,35 +219,89 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=None, *,
 flash_attention.launches = 0
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Attention with the kernels in both directions.
+def _fold(x, in_dim, size):
+    """A vmapped operand with its batch dim moved to the front and folded
+    into the leading (batch) axis; an unbatched one is expanded first."""
+    x = x.expand(size, *x.shape) if in_dim is None else x.movedim(in_dim, 0)
+    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
 
-    Forward: ``flash_attention(..., with_lse=True)``, saving (q, k, v, out,
-    lse) and the int operands.  Backward: ``delta = sum_d dO * O`` in f32 (one
-    plain reduction outside the kernel, as the reference computes it in jnp
-    outside Pallas), then ``flash_attention_bwd``; the position and segment
-    operands get no gradient.  First order only: differentiating the
-    backward again raises (``once_differentiable``)."""
+
+def _unfold(x, size):
+    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernels in both directions, under autograd and
+    ``torch.func`` alike.
+
+    Forward: ``flash_attention(..., with_lse=True)``; it returns (out, lse)
+    and lse takes no gradient.  Backward: ``delta = sum_d dO * O`` in f32
+    (one plain reduction outside the kernel, as the reference computes it in
+    jnp outside Pallas), then ``FlashAttentionBwdFn``; the position and
+    segment operands get no gradient.  Under ``torch.func.vmap`` the vmapped
+    dim folds into the batch axis, (k, B/k, S, H, D) -> (B, S, H, D), so k
+    groups cost one forward launch, and the backward's own Function folds
+    them into one backward launch: the kernels never see a batched tensor.
+    First order only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window):
-        out, lse = flash_attention(q, k, v, q_pos, k_pos, q_seg, k_seg, causal=causal,
-                                   window=window, with_lse=True)
+    def forward(q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window):
+        return flash_attention(q, k, v, q_pos, k_pos, q_seg, k_seg, causal=causal,
+                               window=window, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos, q_seg, k_seg)
         ctx.causal, ctx.window = causal, window
-        return out
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
-
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse, q_pos, k_pos, q_seg, k_seg = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg,
-                                         causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = FlashAttentionBwdFn.apply(q, k, v, lse, delta, do, q_pos, k_pos, q_seg,
+                                               k_seg, ctx.causal, ctx.window)
         return dq, dk, dv, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window):
+        n = info.batch_size
+        args = [_fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos, q_seg, k_seg), in_dims)]
+        out, lse = FlashAttentionFn.apply(*args, causal, window)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class FlashAttentionBwdFn(torch.autograd.Function):
+    """The backward kernel as a Function of its own, so that its launch
+    gets the same vmap rule as the forward's (a backward run under
+    ``torch.func.vmap`` receives batched tensors).  Not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg, causal, window):
+        from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+        return flash_attention_bwd(q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg,
+                                   causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash-attention backward is first order only")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg, causal, window):
+        n = info.batch_size
+        args = [_fold(x, d, n) for x, d in
+                zip((q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg), in_dims)]
+        grads = FlashAttentionBwdFn.apply(*args, causal, window)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 def flash_attention_train(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=None, *,
@@ -262,4 +316,4 @@ def flash_attention_train(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=Non
     q_pos, q_seg = (as_rows(t, b, sq, q.device) for t in (q_pos, q_seg))
     k_pos, k_seg = (as_rows(t, b, skv, q.device) for t in (k_pos, k_seg))
     return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  q_pos, k_pos, q_seg, k_seg, causal, window)
+                                  q_pos, k_pos, q_seg, k_seg, causal, window)[0]

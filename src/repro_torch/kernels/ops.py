@@ -4,7 +4,8 @@
 The attention adapters reshape the model's grouped query layout
 (B, S, KV, G, D) to the kernels' (B, S, H, D) and back.  The flat-state
 entries run the k-group moment carry (``moments_*_flat``, and the g-only
-``g_accum_flat`` of stale-GSNR steps) and the VR updates (``vr_scale_tree``
+``g_accum_flat`` of stale-GSNR steps), the vmap stats method's stack
+reduction (``vmap_moments_flat``) and the VR updates (``vr_scale_tree``
 for VR-SGD/Momentum, ``vr_adam_update``, ``vr_lamb_update``,
 ``vr_lars_update``) over the ParamLayout flat buffers: one kernel wrapper
 call each.  ``lamb_trust_flat``, the stale-step LAMB epilogue, is plain
@@ -40,10 +41,12 @@ def flash_attention(qh, k, v, q_pos=None, k_pos=None, *, q_seg=None, k_seg=None,
                     causal: bool = True, window: int = 0, train: bool = False):
     """qh (B,S,KV,G,D) against k, v (B,Skv,KV,D) -> (B,S,KV,G,D).  Omitted
     positions mean the implicit arange layout; segments are derived from the
-    positions when not supplied.  ``train`` with autograd on runs the
-    differentiable form (forward and backward kernels)."""
+    positions when not supplied.  ``train`` runs the autograd Function
+    (forward and backward kernels, and the vmap rule that folds a vmapped
+    dim into one launch), also where no gradient is recorded: a remat
+    group's forward under ``torch.func`` runs its attention that way."""
     b, s, kvh, g, d = qh.shape
-    fn = fa.flash_attention_train if train and torch.is_grad_enabled() else fa.flash_attention
+    fn = fa.flash_attention_train if train else fa.flash_attention
     out = fn(qh.reshape(b, s, kvh * g, d), k, v, q_pos, k_pos, q_seg, k_seg,
              causal=causal, window=window)
     return out.reshape(b, s, kvh, g, d)
@@ -172,6 +175,13 @@ def g_accum_flat(g_sum, g):
     """One microbatch's flat gradient into the g-only carry of a stale-GSNR
     step (one launch, in place)."""
     return fs.flat_g_accum(g_sum, g)
+
+
+def vmap_moments_flat(gstack, k: int, layout: ParamLayout) -> GradStats:
+    """The (k, n_rows, LANE) gradient stack of the vmap stats method ->
+    GradStats of FlatBuffers (one launch)."""
+    mean, sq = fs.flat_vmap_moments(gstack, k)
+    return GradStats(mean=FlatBuffer(mean, layout), sq_mean=FlatBuffer(sq, layout), k=k)
 
 
 def moments_finalize_flat(g_sum, g2_sum, k: int, layout: ParamLayout) -> GradStats:

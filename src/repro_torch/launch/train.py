@@ -3,11 +3,15 @@
   python -m repro_torch.launch.train --arch bert-large --optimizer vr_adam \
       --batch 256 --seq 128 --steps 3
   python -m repro_torch.launch.train --arch bert-large --smoke --device cpu --steps 4
+  python -m repro_torch.launch.train --arch bert-large --smoke --device cpu --steps 4 \
+      --stats-method vmap
   torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
       --device cpu --gsnr-source data_axis --dist-backend gloo
 
 ``--optimizer`` takes any name of ``core/vrgd.py::make_optimizer`` (default:
-the config's).  ``--gsnr-source data_axis`` trains data-parallel over the
+the config's).  ``--stats-method vmap`` takes the k microbatches of a VR
+step through one vmapped forward and backward (core/accumulate.py).
+``--gsnr-source data_axis`` trains data-parallel over the
 ranks torchrun starts (its RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT
 environment), k = the number of ranks, over the process-group backend
 ``--dist-backend`` names (nccl: one card per rank; gloo: the CPU, or ranks
@@ -43,6 +47,8 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=0)
     ap.add_argument("--gamma", type=float, default=-1.0)
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--stats-method", default="scan", choices=("scan", "vmap"),
+                    help="k microbatches one after another, or one vmapped backward over them")
     ap.add_argument("--gsnr-source", default="microbatch", choices=("microbatch", "data_axis"))
     ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
                     help="process-group backend of a data_axis run (required there)")
@@ -62,7 +68,8 @@ def main(argv=None) -> None:
         cfg = cfg.replace(global_batch=args.batch)
     if args.seq:
         cfg = cfg.replace(seq_len=args.seq)
-    kw = {"total_steps": args.steps, "gsnr_source": args.gsnr_source}
+    kw = {"total_steps": args.steps, "gsnr_source": args.gsnr_source,
+          "stats_method": args.stats_method}
     if args.optimizer:
         kw["name"] = args.optimizer
     if args.lr:

@@ -24,9 +24,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig, ParallelismConfig
+from repro_torch.core.layout import _skeleton, _unflatten, tree_paths
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (
     apply_head,
@@ -79,6 +79,58 @@ def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, 
     return x, (None if mode == "train" else {"self": c_self})
 
 
+class _RematGroup(torch.autograd.Function):
+    """One layer group whose activations are recomputed in the backward, in
+    a form that composes with ``torch.func`` as well as plain autograd
+    (``torch.utils.checkpoint`` relies on saved-tensor hooks, which
+    ``torch.func.grad`` refuses).
+
+    ``fn(x, *leaves, *consts)``: the group's leaves are flat tensor
+    arguments, and so are the tensors it reads besides (positions,
+    segments), since a tensor made under a transform may not be captured.
+    Forward runs the group and keeps only its inputs; backward recomputes it
+    under ``torch.func.vjp`` and pulls the cotangent back to x and the
+    leaves.  Under ``vmap`` torch generates the batching rule (the
+    recompute is then vmapped too)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, n_consts, x, *args):
+        return fn(x, *args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn, ctx.n_consts = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        n_var = len(saved) - ctx.n_consts
+        consts = saved[n_var:]
+        _, pullback = torch.func.vjp(lambda *v: ctx.fn(*v, *consts), *saved[:n_var])
+        return (None, None, *pullback(dy), *(None,) * ctx.n_consts)
+
+
+def remat(group_fn, x, gp: Dict, *consts):
+    """``group_fn(x, gp, *consts)`` with its activations recomputed in the
+    backward; ``consts`` are tensors (or None) that take no gradient.  One
+    form for every stats method (``_RematGroup``): the group's forward runs
+    twice and its backward once."""
+    skel = _skeleton(gp)
+    leaves = [leaf for _, leaf in tree_paths(gp)]
+    given = [c for c in consts if c is not None]
+
+    def flat_fn(xx, *args):
+        it = iter(args[len(leaves):])
+        return group_fn(xx, _unflatten(skel, args[:len(leaves)]),
+                        *(None if c is None else next(it) for c in consts))
+
+    return _RematGroup.apply(flat_fn, len(given), x, *leaves, *given)
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cpu") -> Dict:
     """Seeded random params with the reference's init distribution (normal,
     std 1/sqrt(fan_in); norm scales 1), in f32, drawn from ``gen``."""
@@ -127,9 +179,9 @@ def forward(
     (B,) offset into a cache row's segment numbering; gather_idx: (B, L)
     per-row token indices to unembed, which overrides last_only.  A cache
     passed with mode="prefill" is appended to.  In mode "train" with
-    autograd on and ``pcfg.remat``, each layer group runs under
-    ``torch.utils.checkpoint`` (recomputed in the backward), as the
-    reference wraps its scanned group in ``jax.checkpoint``; the tail is not
+    autograd on and ``pcfg.remat``, each layer group runs under ``remat``
+    (recomputed in the backward), as the reference wraps its scanned group
+    in ``jax.checkpoint``; the tail is not
     rematerialized there either.  aux is empty: no MoE block is ported."""
     dtype = getattr(torch, pcfg.compute_dtype)
     b, s = tokens.shape
@@ -150,13 +202,15 @@ def forward(
     if mode == "train" and pcfg.remat and torch.is_grad_enabled():
         # the counterpart of jax.checkpoint around each scanned layer group:
         # a group's activations are recomputed in the backward
-        def group_fn(xx, gp):
+        def group_fn(xx, gp, q_pos, q_seg, seg_base):
             for i, kind in enumerate(cfg.block_pattern):
-                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None, **kw)
+                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None,
+                                     **{**kw, "q_pos": q_pos, "q_seg": q_seg,
+                                        "seg_base": seg_base})
             return xx
 
         for gp in params["groups"]:
-            x = checkpoint(group_fn, x, gp, use_reentrant=False)
+            x = remat(group_fn, x, gp, q_pos, segments, seg_base)
         for kind, p in zip(cfg.tail_kinds(), params["tail"]):
             x, _ = _block_apply(cfg, pcfg, kind, p, x, cache=None, **kw)
     else:

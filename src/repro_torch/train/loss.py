@@ -44,8 +44,11 @@ def document_cross_entropy(logits, targets, segments, mask: Optional[torch.Tenso
     m = m * (segments >= 0)
     key = (segments.long() + s * torch.arange(b, device=nll.device)[:, None]).reshape(-1)
     key = torch.clamp(key, min=0)  # pad keys weigh 0 anyway
-    doc_tok = torch.zeros(b * s, device=nll.device).index_add_(0, key, m.reshape(-1))
-    doc_nll = torch.zeros(b * s, device=nll.device).index_add_(0, key, (nll * m).reshape(-1))
+    # out of place: torch.func.vmap refuses an in-place add of a batched
+    # tensor into an unbatched one
+    zeros = torch.zeros(b * s, device=nll.device)
+    doc_tok = zeros.index_add(0, key, m.reshape(-1))
+    doc_nll = zeros.index_add(0, key, (nll * m).reshape(-1))
     live = doc_tok > 0
     per_doc = torch.where(live, doc_nll / torch.clamp(doc_tok, min=1.0), 0.0)
     return torch.sum(per_doc) / torch.clamp(torch.sum(live.float()), min=1.0)

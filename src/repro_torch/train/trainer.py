@@ -7,7 +7,8 @@ Algorithm 1/3/5 end to end:
 
   1. split the batch into k microbatches; forward + backward of each, its
      gradient folded into the (g_sum, g2_sum) carry; then /k
-     (core/accumulate.py);
+     (core/accumulate.py; with ``stats_method="vmap"`` one batched forward
+     and backward over the k groups and one reduction of their stack);
   2. clip the MEAN gradient to the global norm ``grad_clip`` -> ga (the
      GSNR ratio still reads the raw moments);
   3. the VR optimizer: GSNR -> normalize -> clip -> the scaled update
@@ -22,7 +23,9 @@ momentum, adam, lars, lamb) take one backward over the whole batch
 
 On the fused plan steps 1 and 3 run the kernels (K1 forward and remat
 forward, K2 backward, K3 per microbatch and K4, or K9 per microbatch on a
-stale step; K5, K6, K7 or K8 for the update); on the reference plan their
+stale step; under "vmap" K1 twice and K2 once per layer for all k groups,
+then K10, or a plain mean on a stale step; K5, K6, K7 or K8 for the
+update); on the reference plan their
 plain PyTorch versions.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 
@@ -37,8 +40,8 @@ holding the rank's rows) and the ranks' update rows are gathered and added
 to every rank's params, so the params stay identical; update_norm comes
 from the shards' sums of squares and one scalar all-reduce.  The reference
 plan all-reduces the per-leaf stack and runs the tree math on every rank.
-Not yet ported: the microbatch source, stale steps and the baselines under
-a mesh, TP/FSDP sharding of the model's weights, and the noise-scale
+Not yet ported: the microbatch source, stale steps, the vmap stats method
+and the baselines under a mesh, TP/FSDP sharding of the model's weights, and the noise-scale
 readings.
 """
 from __future__ import annotations
@@ -109,6 +112,10 @@ def make_train_step(
         raise NotImplementedError(
             f"{opt_cfg.name} with gsnr_source={opt_cfg.gsnr_source!r} under a mesh is not yet "
             "ported: a mesh runs the VR optimizers with gsnr_source='data_axis'")
+    if mesh is not None and opt_cfg.stats_method == "vmap":
+        raise NotImplementedError(
+            "stats_method='vmap' under a mesh is not ported: the reference's vmap path has no "
+            "per-shard form; use stats_method='scan'")
     device = _device_of(device, mesh)
     bk = cfg.parallel.backend
     if bk.resolve("stats", device) != bk.resolve("optimizer", device):

@@ -18,7 +18,13 @@ ulp (rtol 2^-7); the VR-Adam, VR-LARS and VR-scale updates likewise (rtol
 g-only carry exactly (the same f32 additions).  The data-parallel pieces:
 the [g; g^2] payload exactly (one f32 product per element), the per-shard
 update kernels K13-K17 and the trust epilogue as the single-card updates
-(rtol 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp).
+(rtol 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp).  The
+vmap stats method: K10's mean exactly (the same f32 additions in order),
+its sq_mean within one FMA rounding (rtol 1e-6); the vmap train step against
+the scan step as the fused plan against the reference plan (rtol 1e-3).
+The per-leaf kernels K18-K21 rtol 1e-4 with atol 1e-4 of the largest
+magnitude (the prepass's mean and the kernels' norm sums in another order),
+K22 and K23 as the flat carry.
 """
 import dataclasses
 
@@ -36,6 +42,10 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flat_spmd as fsp
 from repro_torch.kernels import flat_stats as fs
 from repro_torch.kernels import flat_update as fu
+from repro_torch.kernels import grad_stats as gs
+from repro_torch.kernels import vr_adam as va
+from repro_torch.kernels import vr_lamb as vl
+from repro_torch.kernels import vr_update as vu
 from repro_torch.models import init_params
 from repro_torch.serve import Engine
 from repro_torch.train import init_state, make_train_step
@@ -467,3 +477,109 @@ def test_train_step_fused_matches_reference_on_card(dev):
         for key in ("loss", "grad_norm", "update_norm", "gsnr/mean", "gsnr/frac_floor"):
             np.testing.assert_allclose(a[key], b_[key], rtol=1e-3, atol=5e-4, err_msg=key)
     torch.testing.assert_close(runs["fused"][1], runs["reference"][1], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 7])
+def test_vmap_moments_kernel_matches_plain(dev, k):
+    layout = ParamLayout.for_tree({"w": torch.zeros(517), "e": torch.zeros(64, 129),
+                                   "t": torch.zeros(3, 5, 7)})
+    mask = pad_mask(layout, dev)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    gstack = torch.randn((k, layout.n_rows, 128), generator=gen, device=dev) * mask
+    launches = fs.flat_vmap_moments.launches
+    mean, sq = fs.flat_vmap_moments(gstack, k)
+    assert fs.flat_vmap_moments.launches == launches + 1
+    want_m, want_sq = fs.vmap_moments_ref(gstack, k)
+    torch.testing.assert_close(mean, want_m, rtol=0, atol=0)
+    torch.testing.assert_close(sq, want_sq, rtol=1e-6, atol=0)
+    assert not mean[~mask].any() and not sq[~mask].any()
+
+
+def _leaf_inputs(dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(scale, positive=False):
+        x = torch.randn(shape, generator=gen, device=dev) * scale
+        return x.abs() if positive else x
+
+    g = r(1e-2)
+    return dict(g=g, ga=g * 0.7, g2=g * g + r(1e-4, True), m=r(1e-3), v=r(1e-5, True),
+                p=r(1.0, True).clamp(max=1.0), w=r(0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 5), (70000,), (24, 64, 256)])
+def test_per_leaf_kernels_match_plain(dev, shape):
+    x = _leaf_inputs(dev, shape, 3)
+    bc = (0.19, 0.002, 0.19)
+    adam = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, gamma=0.1, gsnr_eps=1e-12)
+    cases = {
+        "vr_scale": (vu.vr_scale, vu.vr_scale_ref, (x["g"], x["g2"], 0.1, 1e-12),
+                     dict(g_apply=x["ga"])),
+        "vr_adam_inner": (va.vr_adam_inner, va.vr_adam_inner_ref,
+                          (x["g"], x["g2"], x["m"], x["v"], x["p"], *bc),
+                          dict(g_apply=x["ga"], **adam)),
+        "vr_lamb_inner": (vl.vr_lamb_inner, vl.vr_lamb_inner_ref,
+                          (x["g"], x["ga"], x["g2"], x["m"], x["v"], x["p"], x["w"], *bc),
+                          dict(wd=0.01, **adam)),
+        "vr_lars_inner": (vl.vr_lars_inner, vl.vr_lars_inner_ref,
+                          (x["g"], x["ga"], x["g2"], x["w"]), dict(wd=1e-4, gamma=0.1, eps=1e-12)),
+    }
+    for name, (kernel, plain, args, kw) in cases.items():
+        launches = kernel.launches
+        got = kernel(*args, **kw)
+        assert kernel.launches == launches + 1, name
+        for a, b in zip(got, plain(*args, **kw)):
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()),
+                                       msg=name)
+    # K22 / K23: k bf16 microbatches into the padded carry, then /k
+    carry = (gs.moments_init(x["g"]), gs.moments_init(x["g"]))
+    plain = tuple(t.clone() for t in carry)
+    for i in range(3):
+        g = (x["g"] * (i + 1)).to(torch.bfloat16)
+        gs.moments_accum(*carry, g)
+        gs.moments_accum_ref(*plain, g)
+    torch.testing.assert_close(carry[0], plain[0], rtol=0, atol=0)
+    torch.testing.assert_close(carry[1], plain[1], rtol=1e-6, atol=0)
+    want = gs.moments_finalize_ref(*(t.clone() for t in carry), 3, shape)  # the same carry
+    for a, b in zip(gs.moments_finalize(*carry, 3, shape), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_vmap_train_step_matches_scan_on_card(dev):
+    """bert-large smoke in f32 on the card: a fresh then a stale VR-LAMB step
+    with stats_method="vmap" launches K1 2n, K2 n and K10 once (nothing of
+    K3/K4/K9) and agrees with the scan step."""
+    import warnings
+
+    cfg = get_smoke("bert-large")
+    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32",
+                                                   backend=Backend.all_fused()))
+    params = init_params(cfg.model, torch.Generator(device=dev).manual_seed(0), device=dev)
+    counters = (fa.flash_attention, fab.flash_attention_bwd, fs.flat_vmap_moments,
+                fs.flat_moments_accum, fs.flat_moments_finalize, fs.flat_g_accum)
+    n = cfg.model.n_layers
+    runs = {}
+    for method in ("vmap", "scan"):
+        pc = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, stats_method=method))
+        state = init_state(pc, params=params, device=dev)
+        step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+        batches = lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len)
+        hist = []
+        for with_stats in (True, False):
+            before = [c.launches for c in counters]
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message="There is a performance drop")
+                state, metrics = step(state, next(batches), with_stats)
+            delta = tuple(c.launches - b for c, b in zip(counters, before))
+            if method == "vmap":
+                assert delta == (2 * n, n, int(with_stats), 0, 0, 0), delta
+            hist.append({key: float(val) for key, val in metrics.items()})
+        runs[method] = (hist, state.params.data.clone())
+    for a, b_ in zip(runs["vmap"][0], runs["scan"][0]):
+        for key in ("loss", "grad_norm", "update_norm"):
+            np.testing.assert_allclose(a[key], b_[key], rtol=1e-3, err_msg=key)
+    torch.testing.assert_close(runs["vmap"][1], runs["scan"][1], rtol=2e-4, atol=2e-5)
