@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero:
                 kernel, launch counts asserted per step) and three on the
                 reference plan (plain versions) from the same params and
                 batches, compared step by step; step time, tokens/s and a
-                torch.profiler breakdown of one more fused step.
+                torch.profiler breakdown of one more fused step, which must
+                run 4,440 GEMMs (the remat recompute stops before each
+                group's last projection).
   9. train optimizers — the same model and cut: two fresh steps of each of
                 VR-Adam, VR-LARS, VR-SGD and VR-Momentum on each plan; a
                 fresh then a stale step (gsnr_refresh 2) of VR-Adam and
@@ -66,8 +68,9 @@ Phases, in order; any failure exits non-zero:
                 K1 48, K2 24, K10 1, K5 1; functorch's fallback warning an
                 error) against the reference plan (TRAIN_TOL) and phase 8's
                 scan steps (VMAP_TOL); step wall, tokens/s, peak memory and a
-                profile beside phase 8's; two fresh VR-Adam steps (K1 48, K2
-                24, K10 1, K6 1) against the reference plan (TRAIN_TOL).
+                profile beside phase 8's (555 GEMMs); two fresh VR-Adam
+                steps (K1 48, K2 24, K10 1, K6 1) against the reference plan
+                (TRAIN_TOL).
                 Runs right after phase 8.
  12. per leaf — the per-leaf kernels K18-K23 against their plain versions
                 at bert-large's largest stacked leaf (24, 1024, 4096), times
@@ -95,13 +98,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 CUDA cores
 
-# Stated tolerances.  Kernel and plain version both do the math in f32 from
-# the same inputs; they differ only in summation order and exp rounding
-# (~1e-6 relative), so f32 results (lse, partials) agree to 1e-4.  A bf16
+# Stated tolerances.  Kernel and plain version both accumulate in f32 from
+# the same inputs; they differ in summation order and exp rounding (~1e-6
+# relative), so f32 results (lse, partials) agree to 1e-4.  The bf16
+# attention kernels also round P to bf16 as the tensor cores' operand of
+# P V, at most 2^-9 relative per term, below the output's own ulp.  A bf16
 # output can then round to a neighbouring value: 1 bf16 ulp is 2^-7 of the
 # magnitude, and outputs here stay below 4, hence 2e-2.
 TOL_F32 = dict(atol=1e-4, rtol=1e-4)
 TOL_BF16_OUT = dict(atol=2e-2, rtol=2e-2)
+
+# The bf16 attention kernels' first versions, on the CUDA cores (PERF.md:
+# chip calls 4 and 6 of PR 12, H100 80GB HBM3 at 700 W), printed beside this
+# run's tensor-core times; they enter no check and no record.
+CUDA_CORE_MS = {"K1 serving": 0.48899, "K1 bert with_lse": 0.117472, "K2 bert": 0.308928,
+                "K2 internlm2": 0.74224}
 
 
 def fail(msg: str) -> None:
@@ -251,7 +262,8 @@ def phase_kernels(records):
     b_ms, b_by = bound(nbytes(q, k, v, qp, qp, qs, qs) + out_bytes, pairs * 4 * d, "bfloat16")
     t_lse = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, with_lse=True))
     print(f"  times (ms): kernel={t_kernel:.4f} with_lse={t_lse:.4f} plain={t_plain:.4f} "
-          f"sdpa={t_lib:.4f} bound={b_ms:.4f} ({b_by})", flush=True)
+          f"sdpa={t_lib:.4f} bound={b_ms:.4f} ({b_by}); CUDA-core version "
+          f"{CUDA_CORE_MS['K1 serving']} (PR 12)", flush=True)
     records["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -452,7 +464,8 @@ def device_profile(fn):
 
 # device-time categories of a profile, by kernel name: the port's kernels,
 # cuBLAS GEMMs, and the rest (element-wise, copies, reductions)
-PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "decode_split_kernel",
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_fwd_wgmma_kernel",
+                "flash_bwd_wgmma_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "accum_kernel", "finalize_kernel",
                 "r_partials_kernel", "adam_kernel", "apply_kernel", "scale_kernel",
                 "lars_compute_kernel", "vmap_moments_kernel", "leaf_")
@@ -467,11 +480,13 @@ def category(key: str) -> str:
 
 
 def report_profile(name, fn, wall_ms, top: int = 6):
+    """Print the profile of one fn() call; returns {category: [ms, launches]}
+    (None if the profiler saw no device time)."""
     busy, launches, rows = device_profile(fn)
     if busy is None:
         print(f"  {name}: wall {wall_ms:.2f} ms; device time not measured (no CUDA events)",
               flush=True)
-        return
+        return None
     print(f"  {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
           f"(idle share {1 - busy / wall_ms:.3f}), {launches} kernel launches", flush=True)
     cats = {}
@@ -483,6 +498,23 @@ def report_profile(name, fn, wall_ms, top: int = 6):
           flush=True)
     for key, ms, n in rows[:top]:
         print(f"    {ms:8.3f} ms  x{n:<5d} {key[:90]}", flush=True)
+    return cats
+
+
+def check_gemms(name, cats, want):
+    """The matrix products of one profiled step: the remat recompute stops
+    before each group's last projection, so a step runs ``want`` GEMMs."""
+    got = None if cats is None else cats.get("GEMMs", [0.0, 0])[1]
+    print(f"  {name}: {got} GEMM launches (want {want})", flush=True)
+    if got != want:
+        fail(f"{name}: {got} GEMM launches, want {want}")
+
+
+def step_gemms(m, passes):
+    """GEMM launches of a fused step: per pass and layer 6 forward products
+    (q, k, v, o, wi, wd), 5 of the remat's recompute (all but wd) and 12
+    backward, then 3 of the LM head (forward, its two gradients)."""
+    return passes * (m.n_layers * (6 + 5 + 12) + 3)
 
 
 def phase_engine(records):
@@ -647,9 +679,11 @@ def phase_engine(records):
 # ---------------------------------------------------------------------------
 
 # Stated tolerances of the training kernels.  The attention backward and its
-# plain version do the same f32 math from the same bf16 inputs and round
-# the gradients to bf16 (dq is summed in f32 first), so an element may land
-# on a neighbouring bf16 value: one ulp, at most 2^-7 of its magnitude.
+# plain version accumulate in f32 from the same bf16 inputs and round the
+# gradients to bf16 (dq is summed in f32 first); the kernel also rounds P
+# and dS to bf16 as tensor-core operands, at most 2^-9 relative per term,
+# below the gradients' own ulp.  So an element may land on a neighbouring
+# bf16 value: one ulp, at most 2^-7 of its magnitude.
 # The gradients are much smaller than the forward outputs (a typical |dq| at
 # bert's shape is ~0.1), so the bound scales with what is compared:
 # rtol 2^-7 and atol 2^-7 * max|plain| (tol_scaled); the forward's out at
@@ -768,7 +802,8 @@ def phase_train_kernels(records, layout):
     del qt, kt, vt
     b1_ms, b1_by = bound(nbytes(q, k, v, qp, kp, qs, ks, q, args[3]), pairs * 4 * d, "bfloat16")
     print(f"  K1 at bert's training shape (ms): kernel with_lse={t1:.4f} plain={t1_plain:.4f} "
-          f"sdpa={t1_lib:.4f} bound={b1_ms:.4f} ({b1_by})", flush=True)
+          f"sdpa={t1_lib:.4f} bound={b1_ms:.4f} ({b1_by}); CUDA-core version "
+          f"{CUDA_CORE_MS['K1 bert with_lse']} (PR 12)", flush=True)
     records["flash_attention_fwd"].update(
         max_abs_err=max(records["flash_attention_fwd"]["max_abs_err"], fwd_err),
         train_shape="B32 S128 H16 D64 bf16 bidirectional with_lse", train_max_abs_err=fwd_err,
@@ -780,7 +815,8 @@ def phase_train_kernels(records, layout):
     t_lib = sdpa_bwd_ms(q, k, v, do, None)
     b_ms, b_by = bound(nbytes(*args, *got), pairs * 10 * d, "bfloat16")
     print(f"  bert times (ms): kernel={t_kernel:.4f} plain={t_plain:.4f} "
-          f"sdpa backward={t_lib:.4f} bound={b_ms:.4f} ({b_by})", flush=True)
+          f"sdpa backward={t_lib:.4f} bound={b_ms:.4f} ({b_by}); CUDA-core version "
+          f"{CUDA_CORE_MS['K2 bert']} (PR 12)", flush=True)
 
     b2, s2, h2, kvh2, d2 = 8, 512, 16, 8, 128  # internlm2-1.8b: GQA, causal, packed + pads
     pos = torch.from_numpy(packed_positions(b2, s2, rng)).to(dev)
@@ -798,7 +834,8 @@ def phase_train_kernels(records, layout):
     t2_lib = sdpa_bwd_ms(q2, k2, v2, do2, mask2)
     b2_ms, b2_by = bound(nbytes(*args2, *got2), int(mask2.sum()) * h2 * 10 * d2, "bfloat16")
     print(f"  internlm2 times (ms): kernel={t2_kernel:.4f} plain={t2_plain:.4f} "
-          f"sdpa backward={t2_lib:.4f} bound={b2_ms:.4f} ({b2_by})", flush=True)
+          f"sdpa backward={t2_lib:.4f} bound={b2_ms:.4f} ({b2_by}); CUDA-core version "
+          f"{CUDA_CORE_MS['K2 internlm2']} (PR 12)", flush=True)
 
     # through the autograd Function, against autograd through the plain forward
     launches = (fa.flash_attention.launches, fab.flash_attention_bwd.launches)
@@ -1244,8 +1281,9 @@ def phase_train(records):
           f"ms; warm mean {step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
           f"{scan['peak_gib']:.1f} GiB", flush=True)
     _, t_prof = host_ms(lambda: step(state, batches[TRAIN_STEPS]))
-    report_profile("fused train step (profiled)", lambda: step(state, batches[TRAIN_STEPS]),
-                   t_prof, top=14)
+    cats = report_profile("fused train step (profiled)",
+                          lambda: step(state, batches[TRAIN_STEPS]), t_prof, top=14)
+    check_gemms("fused train step", cats, step_gemms(m, cfg.optimizer.k))
     del state, plans
     torch.cuda.empty_cache()
     return scan
@@ -1323,8 +1361,9 @@ def phase_train_vmap(records, scan):
                 walls, peak = plan_walls, torch.cuda.max_memory_allocated() / 2**30
                 add_path(records, "train_vmap", path_counts)
                 _, t_prof = host_ms(lambda: step(state, batches[-1]))
-                report_profile("fused vmap train step (profiled)",
-                               lambda: step(state, batches[-1]), t_prof, top=14)
+                cats = report_profile("fused vmap train step (profiled)",
+                                      lambda: step(state, batches[-1]), t_prof, top=14)
+                check_gemms("fused vmap train step", cats, step_gemms(m, 1))
             del state, step
             torch.cuda.empty_cache()
         adam_hist, adam_step1, adam_walls = {}, {}, None

@@ -167,6 +167,8 @@ def check_cuda_operands(name, q, k, v, ints, *, dims=HEAD_DIMS):
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
     if q.shape[-2] % k.shape[-2]:
         raise ValueError(f"{name}: H={q.shape[-2]} is not a multiple of KV={k.shape[-2]}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 q/k/v must start on a 16-byte boundary (TMA)")
 
 
 def _kernel(q, k, v, q_pos, k_pos, q_seg, k_seg, causal, window, with_lse):

@@ -20,11 +20,14 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str, device="cpu") -> Dict:
     return p
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_hidden(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The block's hidden activation, the input of its ``wd`` projection."""
     dtype = x.dtype
     h = x @ p["wi"].to(dtype)
     if act == "swiglu":
-        h = F.silu(x @ p["wg"].to(dtype)) * h
-    else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return h @ p["wd"].to(dtype)
+        return F.silu(x @ p["wg"].to(dtype)) * h
+    return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    return mlp_hidden(p, x, act) @ p["wd"].to(x.dtype)

@@ -36,7 +36,7 @@ from repro_torch.models.common import (
     head_init,
     norm_init,
 )
-from repro_torch.models.mlp import apply_mlp, mlp_init
+from repro_torch.models.mlp import mlp_hidden, mlp_init
 
 # Leaves the reference casts to the compute dtype at every use
 # (``x @ p["wq"].astype(dtype)``, ``p["embed"].astype(dtype)[tokens]``).
@@ -61,8 +61,11 @@ def _block_init(gen, cfg: ModelConfig, kind: str, device) -> Dict:
     }
 
 
-def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
-                 q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base):
+def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
+                q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base):
+    """(x_res, h, cache) of one block, whose output is ``x_res + h @ wd``:
+    x_res is the residual stream before the MLP's add, h the MLP's hidden
+    activation.  Reads no ``wd``."""
     window = cfg.sliding_window if kind in ("swa", "local") else 0
     eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
     h = apply_norm(p["ln1"], x, cfg.norm)
@@ -75,8 +78,13 @@ def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, 
         implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base,
     )
     x = x + out
-    x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
-    return x, (None if mode == "train" else {"self": c_self})
+    h = mlp_hidden(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+    return x, h, (None if mode == "train" else {"self": c_self})
+
+
+def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, **kw):
+    x, h, c = _block_body(cfg, pcfg, kind, p, x, **kw)
+    return x + h @ p["mlp"]["wd"].to(x.dtype), c
 
 
 class _RematGroup(torch.autograd.Function):
@@ -85,19 +93,25 @@ class _RematGroup(torch.autograd.Function):
     (``torch.utils.checkpoint`` relies on saved-tensor hooks, which
     ``torch.func.grad`` refuses).
 
-    ``fn(x, *leaves, *consts)``: the group's leaves are flat tensor
-    arguments, and so are the tensors it reads besides (positions,
-    segments), since a tensor made under a transform may not be captured.
-    Forward runs the group and keeps only its inputs; backward recomputes it
-    under ``torch.func.vjp`` and pulls the cotangent back to x and the
-    leaves.  Under ``vmap`` torch generates the batching rule (the
-    recompute is then vmapped too)."""
+    ``fn(x, *leaves, *consts) -> (x_res, h)`` is the group's body up to its
+    last projection: the group's output is ``x_res + h @ wd`` (the last
+    block's MLP down-projection and residual add).  The leaves (all but
+    ``wd``) are flat tensor arguments, and so are the tensors it reads
+    besides (positions, segments), since a tensor made under a transform
+    may not be captured.  Forward runs the group and keeps only its
+    inputs; backward recomputes the body alone under ``torch.func.vjp``
+    (the last product is not rerun: its backward needs only h), forms the
+    last product's gradients as autograd would (``dh = dy wd^T``,
+    ``dwd = h^T dy`` cast to wd's dtype, ``dx_res = dy``) and pulls
+    ``(dx_res, dh)`` back to x and the leaves.  Under ``vmap`` torch
+    generates the batching rule (the recompute is then vmapped too)."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(fn, n_consts, x, *args):
-        return fn(x, *args)
+    def forward(fn, n_consts, x, wd, *args):
+        x_res, h = fn(x, *args)
+        return x_res + h @ wd.to(h.dtype)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -107,28 +121,39 @@ class _RematGroup(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        saved = ctx.saved_tensors
-        n_var = len(saved) - ctx.n_consts
-        consts = saved[n_var:]
-        _, pullback = torch.func.vjp(lambda *v: ctx.fn(*v, *consts), *saved[:n_var])
-        return (None, None, *pullback(dy), *(None,) * ctx.n_consts)
+        x, wd, *rest = ctx.saved_tensors
+        n_var = len(rest) - ctx.n_consts
+        consts = rest[n_var:]
+        (_, h), pullback = torch.func.vjp(lambda *v: ctx.fn(*v, *consts), x, *rest[:n_var])
+        # the backward of matmul(h, wd.to(dtype)): mm on the flattened rows
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dh = (dy2 @ wd.to(h.dtype).T).reshape(h.shape)
+        dwd = (h.reshape(-1, h.shape[-1]).T @ dy2).to(wd.dtype)
+        dx, *dleaves = pullback((dy, dh))
+        return (None, None, dx, dwd, *dleaves, *(None,) * ctx.n_consts)
 
 
-def remat(group_fn, x, gp: Dict, *consts):
-    """``group_fn(x, gp, *consts)`` with its activations recomputed in the
-    backward; ``consts`` are tensors (or None) that take no gradient.  One
-    form for every stats method (``_RematGroup``): the group's forward runs
-    twice and its backward once."""
+def remat(group_body, x, gp: Dict, wd_path: Tuple[str, ...], *consts):
+    """``x_res + h @ gp[wd_path]`` for ``(x_res, h) = group_body(x, gp,
+    *consts)``, with the body's activations recomputed in the backward;
+    ``consts`` are tensors (or None) that take no gradient, and the body
+    finds None at ``wd_path``.  One form for every stats method
+    (``_RematGroup``): the body's forward runs twice, the last product
+    once, the backward once."""
     skel = _skeleton(gp)
-    leaves = [leaf for _, leaf in tree_paths(gp)]
+    wd_key = "/".join(wd_path)
+    paths = tree_paths(gp)
+    wd = next(leaf for path, leaf in paths if path == wd_key)
+    leaves = [leaf for path, leaf in paths if path != wd_key]
     given = [c for c in consts if c is not None]
 
     def flat_fn(xx, *args):
-        it = iter(args[len(leaves):])
-        return group_fn(xx, _unflatten(skel, args[:len(leaves)]),
-                        *(None if c is None else next(it) for c in consts))
+        vals, it = iter(args[:len(leaves)]), iter(args[len(leaves):])
+        tree = [None if path == wd_key else next(vals) for path, _ in paths]
+        return group_body(xx, _unflatten(skel, tree),
+                          *(None if c is None else next(it) for c in consts))
 
-    return _RematGroup.apply(flat_fn, len(given), x, *leaves, *given)
+    return _RematGroup.apply(flat_fn, len(given), x, wd, *leaves, *given)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cpu") -> Dict:
@@ -202,15 +227,18 @@ def forward(
     if mode == "train" and pcfg.remat and torch.is_grad_enabled():
         # the counterpart of jax.checkpoint around each scanned layer group:
         # a group's activations are recomputed in the backward
-        def group_fn(xx, gp, q_pos, q_seg, seg_base):
-            for i, kind in enumerate(cfg.block_pattern):
-                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None,
-                                     **{**kw, "q_pos": q_pos, "q_seg": q_seg,
-                                        "seg_base": seg_base})
-            return xx
+        last = len(cfg.block_pattern) - 1
+
+        def group_body(xx, gp, q_pos, q_seg, seg_base):
+            gkw = {**kw, "q_pos": q_pos, "q_seg": q_seg, "seg_base": seg_base}
+            for i, kind in enumerate(cfg.block_pattern[:last]):
+                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None, **gkw)
+            xx, h, _ = _block_body(cfg, pcfg, cfg.block_pattern[last], gp[f"pos{last}"], xx,
+                                   cache=None, **gkw)
+            return xx, h
 
         for gp in params["groups"]:
-            x = remat(group_fn, x, gp, q_pos, segments, seg_base)
+            x = remat(group_body, x, gp, (f"pos{last}", "mlp", "wd"), q_pos, segments, seg_base)
         for kind, p in zip(cfg.tail_kinds(), params["tail"]):
             x, _ = _block_apply(cfg, pcfg, kind, p, x, cache=None, **kw)
     else:

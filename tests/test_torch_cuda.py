@@ -6,10 +6,12 @@ package, so it also runs on a machine with the card and no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: bf16 outputs 2e-2 (one bf16 ulp at |x| < 4 — both sides do the
-math in f32 from the same inputs and round the output); bf16 attention
-gradients, which are far smaller, one ulp of their own scale (rtol 2^-7,
-atol 2^-7 of the largest magnitude); f32 results 1e-4
+Tolerances: bf16 outputs 2e-2 (one bf16 ulp at |x| < 4 — both sides
+accumulate in f32 from the same inputs and round the output; the bf16
+attention kernels also round P and dS to bf16 as tensor-core operands,
+2^-9 relative per term, below that ulp); bf16 attention gradients, which
+are far smaller, one ulp of their own scale (rtol 2^-7, atol 2^-7 of the
+largest magnitude); f32 results 1e-4
 (summation order over at most a few hundred terms); the moment carry is
 exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
 (its per-leaf sums are f32 atomics in another order), bf16 state one bf16
@@ -174,6 +176,56 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, d, causal):
             dict(atol=2.0**-7 * float(w.float().abs().max()), rtol=2.0**-7)
         torch.testing.assert_close(a.float(), w.float(), **tol)
     assert bool((got[0][pos < 0] == 0).all())
+
+
+# The bf16 tensor-core kernels (wgmma) at the edges a 64-row tile can get
+# wrong: S not a multiple of 64, D 64 and 128, GQA groups of 1, 2 and 4, a
+# window, a batch row that is all padding, and the vmap path's folded batch.
+# (b, s, h, kvh, d, causal, window, padded row)
+TENSOR_CORE_CASES = {
+    "S200-D64-G1-causal": (2, 200, 4, 4, 64, True, 0, False),
+    "S200-D128-G2": (2, 200, 4, 2, 128, False, 0, False),
+    "S200-D64-G4-window50": (2, 200, 8, 2, 64, True, 50, False),
+    "S128-D128-G2-padded-row": (3, 128, 4, 2, 128, True, 0, True),
+    "B256-S128-D64-vmap-fold": (256, 128, 16, 16, 64, False, 0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TENSOR_CORE_CASES))
+def test_attention_tensor_core_edges(dev, case):
+    """K1 and K2 in bf16 against their plain versions, with the bf16
+    gradients' tolerance (one ulp of their own scale: P and dS are rounded to
+    bf16 as wgmma operands, 2^-9 relative per term); a padded batch row gets
+    out 0, lse -1e30, dq 0 and, its keys reached by no query, dk = dv = 0."""
+    b, s, h, kvh, d, causal, window, padded = TENSOR_CORE_CASES[case]
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                   .to(dev, torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d), (b, s, h, d)))
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    if padded:
+        pos[1] = -1
+    seg = fa.segment_ids_from_positions(pos)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention(q, k, v, pos, pos, seg, seg, with_lse=True, **kw)
+    want, wlse = fa.attention_fwd_ref(q, k, v, q_pos=pos, k_pos=pos, q_seg=seg, k_seg=seg, **kw)
+
+    def scaled(w):
+        return dict(atol=2.0**-7 * float(w.float().abs().max()), rtol=2.0**-7)
+
+    torch.testing.assert_close(out.float(), want.float(), **scaled(want))
+    torch.testing.assert_close(lse, wlse, **F32)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fab.flash_attention_bwd(q, k, v, lse, delta, do, pos, pos, seg, seg, **kw)
+    wgrad = fab.attention_bwd_ref(q, k, v, lse, delta, do, q_pos=pos, k_pos=pos, q_seg=seg,
+                                  k_seg=seg, **kw)
+    for a, w in zip(got, wgrad):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w.float(), **scaled(w))
+    if padded:
+        assert bool((out[1] == 0).all()) and bool((lse[1] == fa.NEG_INF).all())
+        assert all(bool((g[1] == 0).all()) for g in got)
 
 
 @pytest.mark.cuda

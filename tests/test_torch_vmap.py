@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.analysis.registry import demo_layout
 from repro.kernels import flat_stats as jfs
@@ -183,7 +184,7 @@ def _remat_group(monkeypatch):
     cfg = get_smoke("bert-large")
     pcfg = dataclasses.replace(cfg.parallel, compute_dtype="float32",
                                backend=Backend.all_fused())
-    from repro_torch.models.transformer import _block_apply
+    from repro_torch.models.transformer import _block_apply, _block_body
 
     params = init_params(cfg.model, torch.Generator().manual_seed(0))
     gp = params["groups"][0]
@@ -191,17 +192,24 @@ def _remat_group(monkeypatch):
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((k, b, s, dm))
                          .astype(np.float32))
     q_pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    last = len(cfg.model.block_pattern) - 1
+    blk = dict(q_pos=q_pos, cache=None, mode="train", cache_len=0, implicit_layout=True,
+               seg_base=None)
 
-    def group_fn(xx, gp, q_pos, q_seg, seg_base):
-        for i, kind in enumerate(cfg.model.block_pattern):
-            xx, _ = _block_apply(cfg.model, pcfg, kind, gp[f"pos{i}"], xx, q_pos=q_pos,
-                                 cache=None, mode="train", cache_len=0, implicit_layout=True,
-                                 q_seg=q_seg, seg_base=seg_base)
-        return xx
+    def group_body(xx, gp, q_pos, q_seg, seg_base):
+        for i, kind in enumerate(cfg.model.block_pattern[:last]):
+            xx, _ = _block_apply(cfg.model, pcfg, kind, gp[f"pos{i}"], xx,
+                                 **{**blk, "q_pos": q_pos}, q_seg=q_seg)
+        xx, h, _ = _block_body(cfg.model, pcfg, cfg.model.block_pattern[last],
+                               gp[f"pos{last}"], xx, **{**blk, "q_pos": q_pos}, q_seg=q_seg)
+        return xx, h
 
     def f(gp, xx, use_remat):
-        y = remat(group_fn, xx, gp, q_pos, None, None) if use_remat else \
-            group_fn(xx, gp, q_pos, None, None)
+        if use_remat:
+            y = remat(group_body, xx, gp, (f"pos{last}", "mlp", "wd"), q_pos, None, None)
+        else:
+            xr, h = group_body(xx, gp, q_pos, None, None)
+            y = xr + h @ gp[f"pos{last}"]["mlp"]["wd"]
         return (y * y).mean()
 
     fwd, bwd = [], []
@@ -245,6 +253,53 @@ def test_remat_function_under_autograd(monkeypatch):
         torch.testing.assert_close(xg.grad, xw.grad, rtol=1e-6, atol=1e-7)
         for (path, g), (_, w) in zip(tree_paths(got), tree_paths(want)):
             torch.testing.assert_close(g.grad, w.grad, rtol=1e-6, atol=1e-7, msg=path)
+
+
+class _GemmCount(TorchDispatchMode):
+    """Counts the matrix products (aten mm / addmm / bmm) run under it."""
+
+    OPS = ("mm", "addmm", "bmm")
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func.overloadpacket.__name__ in self.OPS
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("under_vmap", [False, True])
+def test_remat_recompute_skips_the_last_projection(under_vmap, monkeypatch):
+    """The remat backward reruns the group's forward up to its last
+    projection and no further: its matrix products exceed those of the
+    backward without remat by the group's forward count minus one (the
+    last block's ``wd`` product is not rerun), under autograd and
+    ``vmap(grad)`` alike."""
+    gp, x, f, _, _ = _remat_group(monkeypatch)
+    xx = x if under_vmap else x[0]
+
+    def count(use_remat):
+        with _GemmCount() as fwd_count:
+            if under_vmap:  # vmap(grad) runs forward and backward in one call
+                torch.func.vmap(torch.func.grad(lambda p, xi: f(p, xi, use_remat)),
+                                in_dims=(None, 0))(gp, xx)
+                return fwd_count.n, None
+            leaves = tree_map(lambda t: t.clone().requires_grad_(True), gp)
+            loss = f(leaves, xx, use_remat)
+        with _GemmCount() as bwd_count:
+            loss.backward()
+        return fwd_count.n, bwd_count.n
+
+    if under_vmap:
+        (n_remat, _), (n_plain, _) = count(True), count(False)
+        with _GemmCount() as fwd_only, torch.no_grad():
+            torch.func.vmap(lambda xi: f(gp, xi, False))(xx)
+        assert n_remat - n_plain == fwd_only.n - 1
+    else:
+        (f_remat, b_remat), (f_plain, b_plain) = count(True), count(False)
+        assert f_remat == f_plain > 1
+        assert b_remat - b_plain == f_plain - 1
 
 
 # ---- grad_stats(method="vmap") against method="scan" --------------------------
