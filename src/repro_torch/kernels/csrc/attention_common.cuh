@@ -43,6 +43,20 @@ struct Bounds {
   int any, pmin, pmax, smin, smax;
 };
 
+// The union of the lanes' bounds.  Every lane of the calling warp returns
+// the same value.
+__device__ __forceinline__ Bounds warp_reduce_bounds(Bounds b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    b.any |= __shfl_xor_sync(0xffffffffu, b.any, off);
+    b.pmin = min(b.pmin, __shfl_xor_sync(0xffffffffu, b.pmin, off));
+    b.pmax = max(b.pmax, __shfl_xor_sync(0xffffffffu, b.pmax, off));
+    b.smin = min(b.smin, __shfl_xor_sync(0xffffffffu, b.smin, off));
+    b.smax = max(b.smax, __shfl_xor_sync(0xffffffffu, b.smax, off));
+  }
+  return b;
+}
+
 // Warp-wide bounds over n <= 64 entries held in shared memory.  Every lane
 // of the calling warp returns the same value.
 __device__ __forceinline__ Bounds warp_bounds(const int* pos, const int* seg, int n) {
@@ -59,15 +73,7 @@ __device__ __forceinline__ Bounds warp_bounds(const int* pos, const int* seg, in
       b.smax = max(b.smax, s);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    b.any |= __shfl_xor_sync(0xffffffffu, b.any, off);
-    b.pmin = min(b.pmin, __shfl_xor_sync(0xffffffffu, b.pmin, off));
-    b.pmax = max(b.pmax, __shfl_xor_sync(0xffffffffu, b.pmax, off));
-    b.smin = min(b.smin, __shfl_xor_sync(0xffffffffu, b.smin, off));
-    b.smax = max(b.smax, __shfl_xor_sync(0xffffffffu, b.smax, off));
-  }
-  return b;
+  return warp_reduce_bounds(b);
 }
 
 // Can any (q, k) pair of the tile be unmasked?  The rule of

@@ -253,15 +253,7 @@ __device__ __forceinline__ TileRows warp_tile_rows(const int* pos, const int* se
     b.smin = min(b.smin, t.s1);
     b.smax = max(b.smax, t.s1);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    b.any |= __shfl_xor_sync(0xffffffffu, b.any, off);
-    b.pmin = min(b.pmin, __shfl_xor_sync(0xffffffffu, b.pmin, off));
-    b.pmax = max(b.pmax, __shfl_xor_sync(0xffffffffu, b.pmax, off));
-    b.smin = min(b.smin, __shfl_xor_sync(0xffffffffu, b.smin, off));
-    b.smax = max(b.smax, __shfl_xor_sync(0xffffffffu, b.smax, off));
-  }
-  t.b = b;
+  t.b = repro_attn::warp_reduce_bounds(b);
   t.all = __all_sync(0xffffffffu, (t.p0 >= 0) && (t.p1 >= 0));
   return t;
 }

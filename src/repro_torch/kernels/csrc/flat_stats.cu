@@ -26,7 +26,8 @@
 //
 // Design.  Pure streaming passes: each thread handles 16-byte vectors (four
 // f32 or four bf16 of g) in a grid-stride loop; no shared memory, no
-// reductions.  The zero-padded tail of every leaf stays zero.  The TPU's
+// reductions.  The finalize takes several vectors a thread in one pass
+// (finalize_kernel).  The zero-padded tail of every leaf stays zero.  The TPU's
 // vmap kernel keeps each output block in VMEM while a minor grid axis walks
 // the k slices; here a thread walks them itself, with both sums in
 // registers, and writes mean and sq_mean once.
@@ -84,14 +85,43 @@ __global__ void __launch_bounds__(NT) g_accum_kernel(float4* __restrict__ gs,
   }
 }
 
-__global__ void __launch_bounds__(NT) finalize_kernel(float4* __restrict__ gs, float4* __restrict__ g2s,
-                                                      float inv, int64_t n4) {
-  for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
-    float4 a = gs[i], b = g2s[i];
-    a.x *= inv; a.y *= inv; a.z *= inv; a.w *= inv;
-    b.x *= inv; b.y *= inv; b.z *= inv; b.w *= inv;
-    gs[i] = a;
-    g2s[i] = b;
+// The finalize: blocks of FIN_NT threads, each thread with UNROLL float4 of
+// both buffers in flight before it stores any, and the grid is one pass
+// (finalize_grid: a block per UNROLL x FIN_NT float4, no stride), so no
+// block waits on a second trip and no half-empty second round of a capped
+// grid follows.  The product x * inv is rounded once, as mul_.  On the
+// H100 a persistent grid of the resident blocks, and evict-first
+// __ldcs/__stcs hints, were each slower than this shape, and 256-thread
+// blocks with unroll 4 slightly slower (PERF.md).
+constexpr int FIN_NT = 1024;
+constexpr int UNROLL = 2;
+
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+__global__ void __launch_bounds__(FIN_NT) finalize_kernel(float4* __restrict__ gs,
+                                                          float4* __restrict__ g2s, float inv,
+                                                          int64_t n4) {
+  const int64_t stride = (int64_t)gridDim.x * FIN_NT * UNROLL;
+  for (int64_t i0 = (int64_t)blockIdx.x * FIN_NT * UNROLL + threadIdx.x; i0 < n4; i0 += stride) {
+    float4 a[UNROLL], b[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * FIN_NT;
+      if (i < n4) {
+        a[u] = gs[i];
+        b[u] = g2s[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * FIN_NT;
+      if (i < n4) {
+        gs[i] = scale4(a[u], inv);
+        g2s[i] = scale4(b[u], inv);
+      }
+    }
   }
 }
 
@@ -131,6 +161,13 @@ unsigned grid_for(int64_t n4, int n_sm) {
   return (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
+// The finalize's grid: one block per UNROLL x FIN_NT float4 (the loop then
+// runs once), capped at the largest x dimension of a grid.
+unsigned finalize_grid(int64_t n4) {
+  const int64_t want = (n4 + FIN_NT * UNROLL - 1) / (FIN_NT * UNROLL);
+  return (unsigned)(want < 1 ? 1 : (want < 2147483647 ? want : 2147483647));
+}
+
 }  // namespace
 
 // gs, g2s: n f32 (n a multiple of 4), updated in place; g: n elements, f32
@@ -167,11 +204,10 @@ extern "C" int flat_g_accum(void* gs, const void* g, long long n, int g_is_bf16,
 }
 
 // gs, g2s: n f32, scaled by inv in place.
-extern "C" int flat_moments_finalize(void* gs, void* g2s, float inv, long long n, int n_sm,
-                                     void* stream) {
+extern "C" int flat_moments_finalize(void* gs, void* g2s, float inv, long long n, void* stream) {
   if (n % 4) return cudaErrorInvalidValue;
   const int64_t n4 = n / 4;
-  finalize_kernel<<<grid_for(n4, n_sm), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  finalize_kernel<<<finalize_grid(n4), FIN_NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float4*>(gs), static_cast<float4*>(g2s), inv, n4);
   return cudaGetLastError();
 }

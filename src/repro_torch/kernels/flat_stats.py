@@ -37,7 +37,7 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flat_moments_accum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _I, _P],
+    "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _P],
     "flat_g_accum": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     "flat_pack_square": [_P, _P, ctypes.c_longlong, _I, _P],
     "flat_vmap_moments": [_P, _P, _P, _I, ctypes.c_float, ctypes.c_longlong, _I, _P],
@@ -168,10 +168,8 @@ def launch_finalize(name, gs, g2s, k):
     """Launch the finalize kernel on CUDA tensors (checked), uncounted."""
     _check(name, (gs, g2s), ())
     lib = _build.library("flat_stats", _SIGNATURES)
-    err = lib.flat_moments_finalize(
-        gs.data_ptr(), g2s.data_ptr(), inv_k(k), gs.numel(), device_info(gs.device.index)[1],
-        torch.cuda.current_stream(gs.device).cuda_stream,
-    )
+    err = lib.flat_moments_finalize(gs.data_ptr(), g2s.data_ptr(), inv_k(k), gs.numel(),
+                                    torch.cuda.current_stream(gs.device).cuda_stream)
     _build.check(err, name)
 
 

@@ -101,13 +101,17 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 4])
-def test_flash_decode_kernels_match_plain(dev, lanes):
-    rng = np.random.default_rng(lanes)
-    b, c, h, kvh, d = 4, 300, 8, 2, 128
+@pytest.mark.parametrize("lanes,c", [(1, 300), (4, 300), (1, 4096)],
+                         ids=["L1", "L4", "L1-long-cache"])
+def test_flash_decode_kernels_match_plain(dev, lanes, c):
+    """The one-launch kernel (the splits of a cluster merged in distributed
+    shared memory) against the plain decode and against the plain split and
+    combine composed with the kernel's own chunking."""
+    rng = np.random.default_rng(lanes + c)
+    b, h, kvh, d = 4, 8, 2, 128
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
                for shape in ((b, lanes, h, d), (b, c, kvh, d), (b, c, kvh, d)))
-    k_seg = np.where(np.arange(c) < 200, rng.integers(0, 2, size=(b, c)), -1).astype(np.int32)
+    k_seg = np.where(np.arange(c) < 2 * c // 3, rng.integers(0, 2, size=(b, c)), -1).astype(np.int32)
     k_pos = np.full((b, c), -1, np.int32)
     for i in range(b):
         for seg in (0, 1):
@@ -118,16 +122,15 @@ def test_flash_decode_kernels_match_plain(dev, lanes):
                       for i in range(b)], np.int32)
     q_pos[0, -1] = q_seg[0, -1] = -1  # an idle lane
     qp, kp, qs, ks = (torch.from_numpy(a).to(dev) for a in (q_pos, k_pos, q_seg, k_seg))
-    m, l, acc = fd.flash_decode_split(q, k, v, qp, kp, qs, ks, causal=True, window=0, chunk=128)
-    wm, wl, wacc = fd.decode_split_ref(q, k, v, qp, kp, qs, ks, causal=True, window=0, chunk=128)
-    torch.testing.assert_close(l, wl, **F32)
-    torch.testing.assert_close(acc, wacc, **F32)
-    torch.testing.assert_close(m[wl > 0], wm[wl > 0], **F32)
-    out = fd.flash_decode_combine(m, l, acc, torch.bfloat16)
-    torch.testing.assert_close(out.float(), fd.decode_combine_ref(m, l, acc, torch.bfloat16).float(),
-                               **BF16)
+    tile, chunk, splits = fd.split_plan(b, kvh, (h // kvh) * lanes, c,
+                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    before = fd.flash_decode.launches
     full = fd.flash_decode(q, k, v, qp, kp, qs, ks)
+    assert fd.flash_decode.launches == before + 1
     torch.testing.assert_close(full.float(), fd.decode_attention_ref(q, k, v, qp, kp, qs, ks).float(),
+                               **BF16)
+    m, l, acc = fd.decode_split_ref(q, k, v, qp, kp, qs, ks, causal=True, window=0, chunk=chunk)
+    torch.testing.assert_close(full.float(), fd.decode_combine_ref(m, l, acc, torch.bfloat16).float(),
                                **BF16)
     assert bool((full[0, -1] == 0).all())
 
@@ -141,11 +144,11 @@ def test_engine_fused_plan_matches_reference_plan(dev):
     cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32"))
     params = init_params(cfg.model, torch.Generator(device=dev).manual_seed(0), device=dev)
     prompts = np.random.default_rng(1).integers(0, cfg.model.vocab_size, size=(3, 12))
-    fa.flash_attention.launches = fd.flash_decode_split.launches = 0
+    fa.flash_attention.launches = fd.flash_decode.launches = 0
     fused = Engine(cfg.replace(parallel=dataclasses.replace(cfg.parallel, backend=Backend.all_fused())),
                    params, cache_len=32, device=dev).generate(prompts, 6)
     assert fa.flash_attention.launches == cfg.model.n_layers
-    assert fd.flash_decode_split.launches == cfg.model.n_layers * 6
+    assert fd.flash_decode.launches == cfg.model.n_layers * 6
     ref = Engine(cfg.replace(parallel=dataclasses.replace(cfg.parallel,
                                                           backend=Backend.all_reference())),
                  params, cache_len=32, device=dev).generate(prompts, 6)
@@ -264,7 +267,15 @@ def test_flat_kernels_match_plain(dev, state_dtype):
     got = fs.flat_moments_finalize(*[t.clone() for t in want], 8)
     want = fs.moments_finalize_ref(*[t.clone() for t in want], 8)
     for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, rtol=0, atol=0)
+        assert torch.equal(a, w)
+    # a length that is a multiple of 4 floats but not of the kernel's
+    # unroll x block (2 x 1024 float4): the masked tail
+    ragged = [torch.from_numpy(rng.standard_normal(4 * (1024 * 3 + 77), dtype=np.float32)).to(dev)
+              for _ in range(2)]
+    got = fs.flat_moments_finalize(*[t.clone() for t in ragged], 7)
+    want = fs.moments_finalize_ref(*[t.clone() for t in ragged], 7)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
     sd = getattr(torch, state_dtype)
     g = rand(0.1)

@@ -20,6 +20,17 @@ from repro_torch.kernels import flash_decode as fd
 TOL = tol_for(jnp.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The shapes here are small: one intra-op thread is as fast alone and
+    keeps this file from oversubscribing the cores the other test workers
+    share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _paged_case(b, c, lanes, kvh, g, d, n_fill, seed=0):
     rs = np.random.default_rng(seed)
     k = rs.standard_normal((b, c, kvh, d), dtype=np.float32)
@@ -92,9 +103,9 @@ def test_bf16_matches_pallas_kernel():
 @pytest.mark.parametrize("chunk", [64, 128])
 @pytest.mark.parametrize("lanes", [1, 4])
 def test_split_and_combine_plain_versions_compose(chunk, lanes):
-    """The split kernel's plain version (per-chunk m, l, acc) merged by the
-    combine kernel's plain version equals the one-pass decode — the split
-    arithmetic the CUDA kernels implement, held against the JAX oracle."""
+    """The plain per-chunk partials (m, l, acc) merged by the plain combine
+    equal the one-pass decode — the split arithmetic that the CUDA kernel
+    performs inside a cluster, held against the JAX oracle."""
     case = _paged_case(b=2, c=150, lanes=lanes, kvh=2, g=2, d=32, n_fill=100, seed=chunk + lanes)
     case[3][0, -1] = case[5][0, -1] = -1  # an idle lane
     tq, tk, tv, tqp, tkp, tqs, tks = _torch(*case)
@@ -109,12 +120,19 @@ def test_split_and_combine_plain_versions_compose(chunk, lanes):
 
 
 @pytest.mark.parametrize("b,kvh,rows,c", [(8, 8, 2, 552), (8, 8, 8, 552), (1, 1, 1, 40),
-                                          (2, 8, 32, 4096)])
+                                          (2, 8, 32, 4096), (64, 8, 2, 552)])
 def test_split_plan_covers_the_sms_twice(b, kvh, rows, c):
-    chunk, ns = fd.split_plan(b, kvh, rows, c, n_sm=132)
-    assert chunk % fd.TILE == 0 and ns == -(-c // chunk) and (ns - 1) * chunk < c
+    """The cluster plan: at most 8 splits (a cluster's blocks), each chunk a
+    whole number of tiles, the chunks covering C exactly, and the SMs
+    covered twice, unless the splits are already 8 or each is one tile.
+    Where B * KV alone fills the card twice, the cluster is one block."""
+    tile, chunk, ns = fd.split_plan(b, kvh, rows, c, n_sm=132)
+    assert tile in fd.TILES and 1 <= ns <= fd.MAX_SPLITS
+    assert chunk % tile == 0 and ns == -(-c // chunk) and (ns - 1) * chunk < c <= ns * chunk
     blocks = b * kvh * -(-rows // fd.ROWS_PER_BLOCK) * ns
-    assert blocks >= 2 * 132 or chunk == fd.TILE
+    assert blocks >= 2 * 132 or chunk == tile or ns == fd.MAX_SPLITS
+    if b * kvh >= 2 * 132:
+        assert ns == 1
 
 
 def test_requires_explicit_operands():
