@@ -34,7 +34,9 @@ Phases, in order; any failure exits non-zero:
                 Function), the flat moment carry (the finalize
                 bit-identical to its plain version, on the full layout and
                 a ragged length, and timed in turns with two mul_), the
-                g-only carry and the
+                g-only carry (K9: bit-identical for f32 and bf16 g, full and
+                ragged, timed in turns with add_; K3 and, in phase 10a,
+                K11 printed beside their earlier times as controls), and the
                 flat VR-LAMB, VR-Adam (f32 and bf16 state), VR-LARS and
                 VR-scale updates on bert-large's full flat layout; times
                 beside bounds, plain versions and library calls.
@@ -80,19 +82,26 @@ Phases, in order; any failure exits non-zero:
                 steps (K1 48, K2 24, K10 1, K6 1) against the reference plan
                 (TRAIN_TOL).
                 Runs right after phase 8.
- 12. per leaf — the per-leaf kernels K18-K23 against their plain versions
-                at bert-large's largest stacked leaf (24, 1024, 4096), times
-                beside bounds; then the per-leaf path over bert-large's
-                layout: the k-microbatch carry leaf by leaf (K22, K23)
-                against the flat carry (K3, K4) and the per-leaf VR-scale,
-                VR-Adam, VR-LAMB and VR-LARS steps (K18-K21) against the flat
-                K8, K6, K5, K7 steps from the same inputs.
+ 12. per leaf — (a) the GSNR prepass kernel (leaf_inv_mean) against its
+                plain version on the largest leaf, a ragged one, a bf16 g and
+                an all-zero leaf, the same bits on a repeat, timed in turns
+                with its plain version; the per-leaf kernels K18-K23 against
+                their plain versions at bert-large's largest stacked leaf
+                (24, 1024, 4096), K18-K21 timed with their prepass kernel
+                and alone, times beside bounds; (b) the per-leaf path over
+                bert-large's layout: the k-microbatch carry leaf by leaf
+                (K22, K23) against the flat carry (K3, K4) and the per-leaf
+                VR-scale, VR-Adam, VR-LAMB and VR-LARS steps (K18-K21, each
+                after the prepass) against the flat K8, K6, K5, K7 steps
+                from the same inputs; then two device kernels per per-leaf
+                VR call on the largest leaf (the call's CUDA graph).
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -125,6 +134,10 @@ CUDA_CORE_MS = {"K1 serving": 0.48899, "K1 bert with_lse": 0.117472, "K2 bert": 
 # table, H100 80GB HBM3 at 700 W), printed beside this run's one-launch
 # time; it enters no check and no record.
 TWO_LAUNCH_DECODE_MS = {"split": 0.022624, "combine": 0.0112}
+# Kernels left on the grid-stride loop, as controls beside K9's one-pass
+# loop: their earlier times (PERF.md's kernel table and findings, H100
+# 80GB HBM3 at 700 W), printed beside this run's times only.
+EARLIER_MS = {"flat_moments_accum": "2.5180-2.5273", "flat_pack_square": "1.8047"}
 
 
 def fail(msg: str) -> None:
@@ -441,6 +454,7 @@ def counters():
             "vr_adam_inner": va.vr_adam_inner,
             "vr_lamb_inner": vl.vr_lamb_inner,
             "vr_lars_inner": vl.vr_lars_inner,
+            "leaf_inv_mean": vu.leaf_inv_mean,
             "moments_accum": gs.moments_accum,
             "moments_finalize": gs.moments_finalize,
             "leaf_r_partials": fsp.leaf_r_partials,
@@ -491,6 +505,40 @@ def device_profile(fn):
         return None, 0, []
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def graph_kernels(fn):
+    """(kernel launches, memsets) of one fn() call, counted as the kernel
+    and memset nodes of that call captured in a CUDA graph (libcuda's
+    cuGraphGetNodes), so without the profiler.  fn() runs once first on
+    the capture stream, so state a wrapper makes on first use there (the
+    prepass's block counter) is not captured."""
+    import ctypes
+
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0), kinds.count(2)  # CU_GRAPH_NODE_TYPE_KERNEL, _MEMSET
 
 
 # device-time categories of a profile, by kernel name: the port's kernels,
@@ -1038,20 +1086,39 @@ def phase_train_kernels(records, layout):
     torch.cuda.empty_cache()
 
     # ---- K9 flat_g_accum ----------------------------------------------------
+    # bit-identical to its plain version (add_ of g cast to f32) for f32 and
+    # bf16 g, on the full layout and on a length of whole float4 that is not
+    # a multiple of the one-pass loop's unroll x block; timed in turns with
+    # add_
     print("[train kernels] flat_g_accum", flush=True)
     gs = rand()
-    err9 = check_close("flat_g_accum g_sum", fs.flat_g_accum(gs.clone(), g),
-                       fs.g_accum_ref(gs.clone(), g), TOL_EXACT)
-    t9 = cuda_ms(lambda: fs.flat_g_accum(gs, g))
-    t9_plain = cuda_ms(lambda: fs.g_accum_ref(gs, g))
-    t9_lib = cuda_ms(lambda: gs.add_(g))
+    ragged = torch.randn(4 * 31_111, generator=gen, device=dev)
+    for what, (acc, x) in (("bert-large layout", (gs, g)),
+                           ("ragged length", (ragged, ragged.flip(0)))):
+        for gd in (torch.float32, torch.bfloat16):
+            xg = x.to(gd)
+            if not torch.equal(fs.flat_g_accum(acc.clone(), xg), fs.g_accum_ref(acc.clone(), xg)):
+                fail(f"flat_g_accum on the {what} with {gd} g is not bit-identical to its plain "
+                     "version")
+            print(f"  flat_g_accum on the {what} ({acc.numel()} floats, {gd} g): torch.equal ok",
+                  flush=True)
+    del ragged, xg
+    err9 = 0.0
+    t9 = cuda_ms_interleaved({"kernel": lambda: fs.flat_g_accum(gs, g),
+                              "lib": lambda: gs.add_(g),
+                              "plain": lambda: fs.g_accum_ref(gs, g)})
     b9_ms, b9_by = bound(3 * n * 4, n, "float32")
-    print(f"  flat_g_accum (ms): kernel={t9:.4f} plain={t9_plain:.4f} add_={t9_lib:.4f} "
-          f"bound={b9_ms:.4f} ({b9_by})", flush=True)
+    print(f"  flat_g_accum (ms, in turns): kernel={t9['kernel']:.6f} add_={t9['lib']:.6f} "
+          f"plain={t9['plain']:.6f} bound={b9_ms:.6f} ({b9_by}); "
+          f"{b9_ms / t9['kernel'] * 100:.1f} % of the bound (add_ "
+          f"{b9_ms / t9['lib'] * 100:.1f} %); kernel / add_ {t9['kernel'] / t9['lib']:.4f}",
+          flush=True)
+    print(f"  controls on the grid-stride loop: flat_moments_accum {t3:.4f} ms (earlier "
+          f"{EARLIER_MS['flat_moments_accum']})", flush=True)
     records["flat_g_accum"] = dict(
         name="flat_g_accum", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
-        replaces="src/repro/kernels/flat_stats.py:77", max_abs_err=err9, ms=t9,
-        plain_ms=t9_plain, bound_ms=b9_ms, bound_by=b9_by, library_ms=t9_lib)
+        replaces="src/repro/kernels/flat_stats.py:77", max_abs_err=err9, ms=t9["kernel"],
+        plain_ms=t9["plain"], bound_ms=b9_ms, bound_by=b9_by, library_ms=t9["lib"])
     del gs
     del g, g2, ga, w, m0, v0, p0
     torch.cuda.empty_cache()
@@ -1592,7 +1659,8 @@ def phase_spmd_kernels(records, layout):
     b11_ms, b11_by = bound(3 * n * 4, n, "float32")
     print(f"  flat_pack_square (ms): kernel={t11:.4f} plain={t11_plain:.4f} "
           f"torch.stack((g, g * g)) (two operations)={t11_lib:.4f} bound={b11_ms:.4f} "
-          f"({b11_by})", flush=True)
+          f"({b11_by}); a control on the grid-stride loop (earlier "
+          f"{EARLIER_MS['flat_pack_square']})", flush=True)
     records["flat_pack_square"] = dict(
         name="flat_pack_square", route="cuda", source="src/repro_torch/kernels/csrc/flat_stats.cu",
         replaces="src/repro/kernels/flat_stats.py:116", max_abs_err=err11, ms=t11,
@@ -2058,14 +2126,38 @@ def phase_train_dp(records):
 # tests/torch_per_leaf_oracle.py, shared with tests/test_torch_per_leaf.py.
 
 # Stated tolerances of phase 12: K18-K21 against their plain versions rtol
-# 1e-4 with atol 1e-4 of the largest magnitude (the prepass's mean of r is
-# the same plain op on both sides; the kernels' norm sums are f32 atomics over
-# block partials, the plain sums pairwise); K22 as K3 (Sigma g exact, Sigma g^2
+# 1e-4 with atol 1e-4 of the largest magnitude (the prepass kernel sums the
+# mean of r in another order than the plain op, within TOL_PREPASS; the
+# kernels' norm sums are f32 atomics over block partials, the plain sums
+# pairwise); K22 as K3 (Sigma g exact, Sigma g^2
 # within one FMA rounding), K23 as K4 (exact).  The per-leaf steps against
 # K5-K8's flat step from the same inputs: rtol 1e-4 with atol 1e-4 of the
 # largest magnitude (per-leaf sums in another order).
 TOL_LEAF = 1e-4
 LARGEST_LEAF = (24, 1024, 4096)  # bert-large's stacked MLP input weight
+# The prepass kernel against inv_mean_r: each sums up to 1e8 positive terms
+# in another order (the kernel per thread in f32, then in f64 across
+# threads and blocks; the plain version torch's f32 tree), rtol 1e-5.
+TOL_PREPASS = dict(atol=0.0, rtol=1e-5)
+
+
+@contextlib.contextmanager
+def fixed_prepass(inv):
+    """The per-leaf wrappers with their prepass replaced by a tensor already
+    on the card, to time the step kernels alone."""
+    from repro_torch.kernels import vr_adam as va
+    from repro_torch.kernels import vr_lamb as vl
+    from repro_torch.kernels import vr_update as vu
+
+    mods = (vu, va, vl)
+    saved = [m.leaf_inv_mean for m in mods]
+    for m in mods:
+        m.leaf_inv_mean = lambda *_: inv
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.leaf_inv_mean = fn
 
 
 def tol_leaf(want):
@@ -2094,12 +2186,13 @@ def check_leaves(name, paths, leaves, wants, tol):
 
 
 def phase_per_leaf(records, layout):
-    """12: (a) K18-K23 against their plain versions at bert-large's largest
-    stacked leaf, with times beside bounds; (b) the per-leaf path over
-    bert-large's full layout: the k-microbatch moment carry leaf by leaf (K22
-    per leaf per microbatch, K23 per leaf) against the flat carry (K3, K4),
-    then the per-leaf VR-scale, VR-Adam, VR-LAMB and VR-LARS steps against
-    K8, K6, K5 and K7's flat step from the same inputs."""
+    """12: (a) the prepass and K18-K23 against their plain versions at
+    bert-large's largest stacked leaf, with times beside bounds; (b) the
+    per-leaf path over bert-large's full layout: the k-microbatch moment
+    carry leaf by leaf (K22 per leaf per microbatch, K23 per leaf) against
+    the flat carry (K3, K4), then the per-leaf VR-scale, VR-Adam, VR-LAMB
+    and VR-LARS steps against K8, K6, K5 and K7's flat step from the same
+    inputs, and the device kernels of one call of each."""
     import torch
 
     from repro_torch.core.gsnr import GradStats
@@ -2148,23 +2241,62 @@ def phase_per_leaf(records, layout):
                           dict(wd=1e-4, gamma=0.1, eps=1e-12), 4, 1,
                           "src/repro/kernels/vr_lamb.py:148"),
     }
-    t_pre = cuda_ms(lambda: vu.inv_mean_r(x["g"], x["g2"], 1e-12))
+    # the GSNR prepass: against inv_mean_r on this leaf, a ragged leaf, a bf16
+    # g and an all-zero leaf (exactly 1 / f32(1e-30)), the same bits twice
+    zeros = torch.zeros(4099, device=dev)
+    ragged = rand((4099,), 1e-2)
+    pre_cases = (("largest leaf", x["g"], x["g2"]),
+                 ("ragged leaf (4099)", ragged, ragged * ragged + rand((4099,), 1e-4, True)),
+                 ("bf16 g", x["g"].to(torch.bfloat16), x["g2"]),
+                 ("all-zero leaf (4099)", zeros, zeros))
+    err_pre = 0.0
+    for what, a, b in pre_cases:
+        got, again = vu.leaf_inv_mean(a, b, 1e-12), vu.leaf_inv_mean(a, b, 1e-12)
+        if not torch.equal(got, again):
+            fail(f"leaf_inv_mean on the {what}: two launches differ ({float(got)!r}, "
+                 f"{float(again)!r})")
+        want = vu.inv_mean_r(a, b, 1e-12)
+        if what.startswith("all-zero"):
+            if float(got) != float(want) or float(got) != float(np.float32(1) / np.float32(1e-30)):
+                fail(f"leaf_inv_mean on the all-zero leaf: {float(got)!r}, want 1e30")
+            print(f"  leaf_inv_mean on the {what}: {float(got)!r} == the plain version's, "
+                  "repeat bit-identical ok", flush=True)
+            continue
+        err_pre = max(err_pre, check_close(f"leaf_inv_mean on the {what} (repeat bit-identical)",
+                                           got, want, TOL_PREPASS))
+    del zeros, ragged, pre_cases, got, again, want
+    t_pre = cuda_ms_interleaved({"kernel": lambda: vu.leaf_inv_mean(x["g"], x["g2"], 1e-12),
+                                 "plain": lambda: vu.inv_mean_r(x["g"], x["g2"], 1e-12)})
+    b_pre, b_pre_by = bound(2 * n * 4, 6 * n, "float32")
+    print(f"  leaf_inv_mean (ms, in turns): kernel={t_pre['kernel']:.6f} "
+          f"plain={t_pre['plain']:.6f} bound={b_pre:.6f} ({b_pre_by}); "
+          f"{b_pre / t_pre['kernel'] * 100:.1f} % of the bound; no single PyTorch call computes "
+          "it", flush=True)
+    records["leaf_inv_mean"] = dict(
+        name="leaf_inv_mean", route="cuda", source="src/repro_torch/kernels/csrc/vr_leaf.cu",
+        replaces="src/repro/kernels/vr_update.py:73", max_abs_err=err_pre, ms=t_pre["kernel"],
+        plain_ms=t_pre["plain"], bound_ms=b_pre, bound_by=b_pre_by, library_ms=None,
+        shape=list(shape))
+    inv = vu.leaf_inv_mean(x["g"], x["g2"], 1e-12)
     for name, (kernel, plain, args, kw, n_in, n_out, line) in cases.items():
         got, want = kernel(*args, **kw), plain(*args, **kw)
         err = max(check_close(f"{name} out {i}", a, b, tol_leaf(b))
                   for i, (a, b) in enumerate(zip(got, want)))
         del got, want
         t_k = cuda_ms(lambda: kernel(*args, **kw))
+        with fixed_prepass(inv):  # the step kernel alone, inv_mean already on the card
+            t_alone = cuda_ms(lambda: kernel(*args, **kw))
         t_p = cuda_ms(lambda: plain(*args, **kw), iters=5)
         b_ms, b_by = bound((n_in + n_out) * n * 4, 40 * n, "float32")
-        print(f"  {name} (ms): kernel with its prepass={t_k:.4f} (prepass alone {t_pre:.4f}) "
-              f"plain={t_p:.4f} bound={b_ms:.4f} ({b_by}); no single PyTorch call computes it",
+        print(f"  {name} (ms): kernel with its prepass kernel={t_k:.4f} (alone {t_alone:.4f}) "
+              f"plain={t_p:.4f} bound={b_ms:.4f} ({b_by}); {b_ms / t_k * 100:.1f} % of the "
+              f"bound ({b_ms / t_alone * 100:.1f} % alone); no single PyTorch call computes it",
               flush=True)
         records[name] = dict(name=name, route="cuda",
                              source="src/repro_torch/kernels/csrc/vr_leaf.cu", replaces=line,
                              max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None, prepass_ms=t_pre, shape=list(shape))
-    del cases
+                             library_ms=None, kernel_alone_ms=t_alone, shape=list(shape))
+    del cases, inv
     carry = (gs.moments_init(x["g"]), gs.moments_init(x["g"]))
     plain = tuple(t.clone() for t in carry)
     for i in range(3):
@@ -2292,14 +2424,46 @@ def phase_per_leaf(records, layout):
         del got, want
         torch.cuda.empty_cache()
     leaf_kernels = ("vr_scale", "vr_adam_inner", "vr_lamb_inner", "vr_lars_inner",
-                    "moments_accum", "moments_finalize")
+                    "leaf_inv_mean", "moments_accum", "moments_finalize")
     want_counts = {nm: layout.n_leaves for nm in leaf_kernels}
     want_counts["moments_accum"] = k * layout.n_leaves
+    want_counts["leaf_inv_mean"] = 4 * layout.n_leaves  # one before each VR step kernel
     got_counts = {nm: counts[nm] for nm in leaf_kernels}
     if got_counts != want_counts:
         fail(f"per-leaf path launches {got_counts} != {want_counts}")
     print(f"  per-leaf path launches: {got_counts}", flush=True)
     add_path(records, "per_leaf", got_counts)
+
+    # each per-leaf VR wrapper call on an aligned f32 leaf (the largest, a
+    # view of whole rows: no padded copy) launches two device kernels, the
+    # prepass and its step kernel (K20 and K21 also zero their two norm sums
+    # with a memset); counted in a CUDA graph of the call, since
+    # torch.profiler saw no device events this late in the script (PERF.md)
+    big = max(range(layout.n_leaves), key=lambda i: lg[i].numel())
+    one = dict(g=lg[big], g2=lsq[big], ga=lga[big], w=lw[big], m=views(m0)[big],
+               v=views(v0)[big], p=views(p0)[big])
+    bc = (0.19, 0.002, 0.19)
+    adam_kw = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, gamma=0.1, gsnr_eps=1e-12)
+    calls = {
+        "vr_scale": lambda: vu.vr_scale(one["g"], one["g2"], 0.1, 1e-12, g_apply=one["ga"]),
+        "vr_adam_inner": lambda: va.vr_adam_inner(one["g"], one["g2"], one["m"], one["v"],
+                                                  one["p"], *bc, g_apply=one["ga"], **adam_kw),
+        "vr_lamb_inner": lambda: vl.vr_lamb_inner(one["g"], one["ga"], one["g2"], one["m"],
+                                                  one["v"], one["p"], one["w"], *bc, wd=0.01,
+                                                  **adam_kw),
+        "vr_lars_inner": lambda: vl.vr_lars_inner(one["g"], one["ga"], one["g2"], one["w"],
+                                                  wd=1e-4, gamma=0.1, eps=1e-12),
+    }
+    for name, call in calls.items():
+        n_kernels, n_memsets = graph_kernels(call)
+        print(f"  {name} on the {tuple(one['g'].shape)} f32 leaf: {n_kernels} device kernels, "
+              f"{n_memsets} memsets per call", flush=True)
+        if n_kernels != 2:
+            fail(f"{name}: {n_kernels} device kernels per call on an aligned f32 leaf, want 2")
+    n_plain, _ = graph_kernels(lambda: vu.inv_mean_r(one["g"], one["g2"], 1e-12))
+    print(f"  the plain prepass (inv_mean_r) on that leaf, counted the same way: {n_plain} "
+          "device kernels", flush=True)
+    del one, calls
     del stats, grads, w, m0, v0, p0, mask
     torch.cuda.empty_cache()
 

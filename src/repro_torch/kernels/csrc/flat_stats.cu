@@ -24,10 +24,17 @@
 // moments (one on a stale step).  The pack writes a new (2, n) payload from
 // one read of g: the buffer one all-reduce sums across the ranks.
 //
-// Design.  Pure streaming passes: each thread handles 16-byte vectors (four
-// f32 or four bf16 of g) in a grid-stride loop; no shared memory, no
-// reductions.  The finalize takes several vectors a thread in one pass
-// (finalize_kernel).  The zero-padded tail of every leaf stays zero.  The TPU's
+// Design.  Pure streaming passes over 16-byte vectors (four f32 or four
+// bf16 of g); no shared memory, no reductions.  Two loops:
+//  - the one-pass loop (one_pass) of the finalize (K4, K23) and the g-only
+//    accumulate (K9): blocks of ONE_PASS_NT threads, each thread with
+//    UNROLL vectors of every operand in flight before it stores any, and a
+//    grid of one block per UNROLL x ONE_PASS_NT vectors, so the loop runs
+//    once;
+//  - the grid-stride loop of the accumulate (K3, K22), the pack (K11) and
+//    the vmap moments (K10): 256-thread blocks, at most 16 an SM, one
+//    vector a thread a trip.
+// The zero-padded tail of every leaf stays zero.  The TPU's
 // vmap kernel keeps each output block in VMEM while a minor grid axis walks
 // the k slices; here a thread walks them itself, with both sums in
 // registers, and writes mean and sq_mean once.
@@ -74,55 +81,66 @@ __global__ void __launch_bounds__(NT) accum_kernel(float4* __restrict__ gs, floa
   }
 }
 
-template <typename G>
-__global__ void __launch_bounds__(NT) g_accum_kernel(float4* __restrict__ gs,
-                                                     const G* __restrict__ g, int64_t n4) {
-  for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
-    const float4 x = load_g(g, i);
-    float4 a = gs[i];
-    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-    gs[i] = a;
+// The one-pass loop: blocks of ONE_PASS_NT threads, each thread with UNROLL
+// items (load(i): every operand's float4 at vector i) in flight before it
+// stores any (store(i, item)), and the grid is one pass (one_pass_grid: a
+// block per UNROLL x ONE_PASS_NT float4, no stride), so no block waits on
+// a second trip and no half-empty second round of a capped grid follows.
+// On the H100 a persistent grid of the resident blocks, and evict-first
+// __ldcs/__stcs hints, were each slower than this shape for the finalize,
+// and 256-thread blocks with unroll 4 slightly slower (PERF.md).
+constexpr int ONE_PASS_NT = 1024;
+constexpr int UNROLL = 2;
+
+struct Pair {
+  float4 a, b;
+};
+
+template <typename Load, typename Store>
+__device__ __forceinline__ void one_pass(int64_t n4, Load load, Store store) {
+  const int64_t stride = (int64_t)gridDim.x * ONE_PASS_NT * UNROLL;
+  for (int64_t i0 = (int64_t)blockIdx.x * ONE_PASS_NT * UNROLL + threadIdx.x; i0 < n4;
+       i0 += stride) {
+    Pair v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * ONE_PASS_NT;
+      if (i < n4) v[u] = load(i);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * ONE_PASS_NT;
+      if (i < n4) store(i, v[u]);
+    }
   }
 }
-
-// The finalize: blocks of FIN_NT threads, each thread with UNROLL float4 of
-// both buffers in flight before it stores any, and the grid is one pass
-// (finalize_grid: a block per UNROLL x FIN_NT float4, no stride), so no
-// block waits on a second trip and no half-empty second round of a capped
-// grid follows.  The product x * inv is rounded once, as mul_.  On the
-// H100 a persistent grid of the resident blocks, and evict-first
-// __ldcs/__stcs hints, were each slower than this shape, and 256-thread
-// blocks with unroll 4 slightly slower (PERF.md).
-constexpr int FIN_NT = 1024;
-constexpr int UNROLL = 2;
 
 __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
-__global__ void __launch_bounds__(FIN_NT) finalize_kernel(float4* __restrict__ gs,
-                                                          float4* __restrict__ g2s, float inv,
-                                                          int64_t n4) {
-  const int64_t stride = (int64_t)gridDim.x * FIN_NT * UNROLL;
-  for (int64_t i0 = (int64_t)blockIdx.x * FIN_NT * UNROLL + threadIdx.x; i0 < n4; i0 += stride) {
-    float4 a[UNROLL], b[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t i = i0 + u * FIN_NT;
-      if (i < n4) {
-        a[u] = gs[i];
-        b[u] = g2s[i];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t i = i0 + u * FIN_NT;
-      if (i < n4) {
-        gs[i] = scale4(a[u], inv);
-        g2s[i] = scale4(b[u], inv);
-      }
-    }
-  }
+// The finalize: x * inv rounded once, as mul_.
+__global__ void __launch_bounds__(ONE_PASS_NT) finalize_kernel(float4* __restrict__ gs,
+                                                               float4* __restrict__ g2s,
+                                                               float inv, int64_t n4) {
+  one_pass(
+      n4, [&](int64_t i) { return Pair{gs[i], g2s[i]}; },
+      [&](int64_t i, const Pair& v) {
+        gs[i] = scale4(v.a, inv);
+        g2s[i] = scale4(v.b, inv);
+      });
+}
+
+// The g-only accumulate: gs += g, one f32 addition an element, as add_.
+template <typename G>
+__global__ void __launch_bounds__(ONE_PASS_NT) g_accum_kernel(float4* __restrict__ gs,
+                                                              const G* __restrict__ g,
+                                                              int64_t n4) {
+  one_pass(
+      n4, [&](int64_t i) { return Pair{gs[i], load_g(g, i)}; },
+      [&](int64_t i, const Pair& v) {
+        gs[i] = make_float4(v.a.x + v.b.x, v.a.y + v.b.y, v.a.z + v.b.z, v.a.w + v.b.w);
+      });
 }
 
 __global__ void __launch_bounds__(NT) pack_square_kernel(const float4* __restrict__ g,
@@ -161,10 +179,10 @@ unsigned grid_for(int64_t n4, int n_sm) {
   return (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
-// The finalize's grid: one block per UNROLL x FIN_NT float4 (the loop then
-// runs once), capped at the largest x dimension of a grid.
-unsigned finalize_grid(int64_t n4) {
-  const int64_t want = (n4 + FIN_NT * UNROLL - 1) / (FIN_NT * UNROLL);
+// The one-pass loop's grid: one block per UNROLL x ONE_PASS_NT float4 (the
+// loop then runs once), capped at the largest x dimension of a grid.
+unsigned one_pass_grid(int64_t n4) {
+  const int64_t want = (n4 + ONE_PASS_NT * UNROLL - 1) / (ONE_PASS_NT * UNROLL);
   return (unsigned)(want < 1 ? 1 : (want < 2147483647 ? want : 2147483647));
 }
 
@@ -189,17 +207,16 @@ extern "C" int flat_moments_accum(void* gs, void* g2s, const void* g, long long 
 
 // gs: n f32 (n a multiple of 4), updated in place; g: n elements, f32
 // (g_is_bf16=0) or bf16.
-extern "C" int flat_g_accum(void* gs, const void* g, long long n, int g_is_bf16, int n_sm,
-                            void* stream) {
+extern "C" int flat_g_accum(void* gs, const void* g, long long n, int g_is_bf16, void* stream) {
   if (n % 4) return cudaErrorInvalidValue;
   const int64_t n4 = n / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_is_bf16)
-    g_accum_kernel<__nv_bfloat16><<<grid_for(n4, n_sm), NT, 0, s>>>(
+    g_accum_kernel<__nv_bfloat16><<<one_pass_grid(n4), ONE_PASS_NT, 0, s>>>(
         static_cast<float4*>(gs), static_cast<const __nv_bfloat16*>(g), n4);
   else
-    g_accum_kernel<float><<<grid_for(n4, n_sm), NT, 0, s>>>(static_cast<float4*>(gs),
-                                                            static_cast<const float*>(g), n4);
+    g_accum_kernel<float><<<one_pass_grid(n4), ONE_PASS_NT, 0, s>>>(
+        static_cast<float4*>(gs), static_cast<const float*>(g), n4);
   return cudaGetLastError();
 }
 
@@ -207,7 +224,7 @@ extern "C" int flat_g_accum(void* gs, const void* g, long long n, int g_is_bf16,
 extern "C" int flat_moments_finalize(void* gs, void* g2s, float inv, long long n, void* stream) {
   if (n % 4) return cudaErrorInvalidValue;
   const int64_t n4 = n / 4;
-  finalize_kernel<<<finalize_grid(n4), FIN_NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  finalize_kernel<<<one_pass_grid(n4), ONE_PASS_NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float4*>(gs), static_cast<float4*>(g2s), inv, n4);
   return cudaGetLastError();
 }

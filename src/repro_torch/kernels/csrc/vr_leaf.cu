@@ -1,14 +1,17 @@
 // Per-leaf VR optimizer kernels for Hopper (sm_90a): the GSNR scale, the
 // VR-Adam inner step and the VR-LAMB / VR-LARS steps with their norm sums,
 // each on ONE parameter leaf (the per-leaf dispatch, beside the flat
-// single-launch updates of flat_update.cu).
+// single-launch updates of flat_update.cu), and the GSNR prepass they all
+// read.
 //
 // Replaces the TPU kernels repro/kernels/vr_update.py::_kernel (vr_scale),
 // vr_adam.py::_kernel (vr_adam_inner), vr_lamb.py::_lamb_kernel
-// (vr_lamb_inner) and vr_lamb.py::_lars_kernel (vr_lars_inner).  Same math,
-// all in f32, with inv_mean = 1 / max(mean of r_raw over the leaf, 1e-30)
-// from a plain prepass (as the reference computes it in jnp outside the
-// kernel) read from device memory, so no host sync:
+// (vr_lamb_inner) and vr_lamb.py::_lars_kernel (vr_lars_inner), and the
+// scalar the reference computes in jnp before each of them
+// (vr_update.py:73-77, one XLA reduction; leaf_inv_mean here).  Same math,
+// all in f32, with inv_mean = 1 / max(mean of r_raw over the leaf's
+// unpadded elements, 1e-30) written to device memory by the prepass kernel
+// and read from there by the next one, so no host sync:
 //   r     = clip(g^2 / (max(g2 - g^2, 0) + eps) * inv_mean, gamma, 1)
 //   scale: sg = r ga, and r
 //   adam:  p' = b3 p + (1 - b3) r;  ghat = (p' / bc3) ga
@@ -19,20 +22,33 @@
 // The element-wise math is flat_update.cuh's (clip_r, adam_math, the same
 // functions K5-K8 run); nothing of it is written twice.
 //
-// Design.  The wrapper casts and zero-pads each operand to the reference's
-// (rows, 128) f32 layout (a plain op, as _pad2d does; a view when the leaf
-// already is f32 and whole rows).  Each thread streams float4 vectors in a
-// grid-stride loop.  The TPU kernels carry the (1, 128) lane partials of
-// the norms across their sequential grid; here each block reduces its
-// threads' sums (warp shuffles) and adds them to two f32 accumulators with
-// one atomicAdd each, zeroed by the entry.  The zero tail adds exact zeros
-// (g = ga = w = m = v = 0 there, so dir = u = 0).
+// Design.  The prepass (inv_mean_kernel) reads g and g2 as they are, f32 or
+// bf16, with no padded copy.  Each thread sums r over float4 vectors in a
+// grid-stride loop (RED_UNROLL vectors of each in flight) in f32.  Blocks
+// of RED_NT threads (the wrapper caps the grid at two an SM) combine their
+// threads in f64 with warp shuffles and write one partial each.  The last
+// block to finish (a __threadfence and an atomic counter, which it resets)
+// adds the partials in a fixed order in f64 and writes inv_mean.  So it is
+// one launch, gives the same bits on every run (the grid, and so every
+// order, is fixed by n and the card), and a CUDA graph can replay it.  The
+// leaf's n % 4 last elements (all of them, where a pointer is not aligned
+// for vector loads) go through a scalar loop.  Each r is rounded as the
+// plain version's separate ops round it (no contraction into an FMA).
+// The steps: the wrapper casts and zero-pads each operand to the
+// reference's (rows, 128) f32 layout (a plain op, as _pad2d does; a view
+// when the leaf already is f32 and whole rows).  Each thread streams float4
+// vectors in a grid-stride loop.  The TPU kernels carry the (1, 128) lane
+// partials of the norms across their sequential grid; here each block
+// reduces its threads' sums (warp shuffles) and adds them to two f32
+// accumulators with one atomicAdd each, zeroed by the entry.  The zero tail
+// adds exact zeros (g = ga = w = m = v = 0 there, so dir = u = 0).
 //
 // Bound on the card: bytes (< 50 flops per element).  At bert-large's
 // largest leaf, the stacked MLP input weight (24, 1024, 4096) of 100.7 M
-// f32 elements (403 MB a buffer): scale 3 in + 2 out (2.01 GB, 0.60 ms at
-// 3.35 TB/s); adam 6 in + 4 out (4.03 GB, 1.20 ms); lamb 7 in + 4 out
-// (4.43 GB, 1.32 ms); lars 4 in + 1 out (2.01 GB, 0.60 ms).
+// f32 elements (403 MB a buffer): the prepass 2 in (805 MB, 0.24 ms at
+// 3.35 TB/s); scale 3 in + 2 out (2.01 GB, 0.60 ms); adam 6 in + 4 out
+// (4.03 GB, 1.20 ms); lamb 7 in + 4 out (4.43 GB, 1.32 ms); lars 4 in + 1
+// out (2.01 GB, 0.60 ms).
 #include "flat_update.cuh"
 
 namespace {
@@ -138,6 +154,104 @@ __global__ void __launch_bounds__(NT) leaf_lars_kernel(
   }
 }
 
+// ---- the GSNR prepass: inv_mean = 1 / max(sum(r_raw) / n, 1e-30) -----------
+
+constexpr int RED_NT = 512;
+constexpr int RED_UNROLL = 4;
+
+// r_raw of one element, each operation rounded on its own as the plain
+// version's separate ops are (__fmul_rn is never contracted into an FMA).
+__device__ __forceinline__ float r_exact(float g, float g2, float eps) {
+  const float gg = __fmul_rn(g, g);
+  return gg / (fmaxf(g2 - gg, 0.f) + eps);
+}
+
+__device__ __forceinline__ float ld1(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ float r4(float4 g, float4 g2, float eps) {
+  return ((r_exact(g.x, g2.x, eps) + r_exact(g.y, g2.y, eps)) + r_exact(g.z, g2.z, eps)) +
+         r_exact(g.w, g2.w, eps);
+}
+
+// Sum over the block's RED_NT threads in f64; the result is valid in thread 0.
+__device__ __forceinline__ double block_sum_f64(double x, double* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = lane < RED_NT / 32 ? red[lane] : 0.0;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// partials: gridDim.x f64; counter: one u32, 0 before the launch and after
+// it; vec: g and g2 are aligned for vector loads (else every element goes
+// through the scalar loop).
+template <typename G, typename G2>
+__global__ void __launch_bounds__(RED_NT) inv_mean_kernel(
+    const G* __restrict__ g, const G2* __restrict__ g2, int64_t n, bool vec, float eps,
+    double* __restrict__ partials, unsigned* __restrict__ counter, float* __restrict__ inv) {
+  __shared__ double red[RED_NT / 32];
+  __shared__ bool last;
+  const int64_t n4 = vec ? n / 4 : 0;
+  const int64_t stride = (int64_t)gridDim.x * RED_NT;
+  int64_t i = (int64_t)blockIdx.x * RED_NT + threadIdx.x;
+  float acc = 0.f;
+  for (; i + (RED_UNROLL - 1) * stride < n4; i += RED_UNROLL * stride) {
+    float4 a[RED_UNROLL], b[RED_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) {
+      a[u] = ld(g, i + u * stride);
+      b[u] = ld(g2, i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) acc += r4(a[u], b[u], eps);
+  }
+  for (; i < n4; i += stride) acc += r4(ld(g, i), ld(g2, i), eps);
+  for (int64_t e = 4 * n4 + (int64_t)blockIdx.x * RED_NT + threadIdx.x; e < n; e += stride)
+    acc += r_exact(ld1(g, e), ld1(g2, e), eps);
+
+  const double total = block_sum_f64((double)acc, red);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = total;
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  double s = 0.0;  // the last block: every partial, in block order
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += RED_NT) s += __ldcg(partials + b);
+  __syncthreads();  // red is reused
+  s = block_sum_f64(s, red);
+  if (threadIdx.x == 0) {
+    *inv = 1.f / fmaxf((float)(s / (double)n), 1e-30f);
+    *counter = 0u;  // ready for the next launch on this stream
+  }
+}
+
+template <typename G, typename G2>
+cudaError_t launch_inv_mean(const void* g, const void* g2, int64_t n, float eps, void* partials,
+                            int max_blocks, void* counter, void* inv, cudaStream_t s) {
+  const int vec_bytes = (sizeof(G) == 4 ? 16 : 8);
+  const int vec_bytes2 = (sizeof(G2) == 4 ? 16 : 8);
+  const bool vec = reinterpret_cast<uintptr_t>(g) % vec_bytes == 0 &&
+                   reinterpret_cast<uintptr_t>(g2) % vec_bytes2 == 0;
+  const int64_t per_block = (int64_t)RED_NT * RED_UNROLL * (vec ? 4 : 1);
+  const int64_t want = (n + per_block - 1) / per_block;
+  const unsigned grid = (unsigned)(want < max_blocks ? (want > 0 ? want : 1) : max_blocks);
+  inv_mean_kernel<G, G2><<<grid, RED_NT, 0, s>>>(
+      static_cast<const G*>(g), static_cast<const G2*>(g2), n, vec, eps,
+      static_cast<double*>(partials), static_cast<unsigned*>(counter), static_cast<float*>(inv));
+  return cudaGetLastError();
+}
+
 unsigned leaf_grid(int64_t n4, int n_sm) {
   const int64_t want = (n4 + NT - 1) / NT;
   const int64_t cap = (int64_t)n_sm * 16;  // enough resident blocks to keep every SM streaming
@@ -145,6 +259,24 @@ unsigned leaf_grid(int64_t n4, int n_sm) {
 }
 
 }  // namespace
+
+// g, g2: n elements each (any n >= 1), f32 or bf16 (g_is_bf16, g2_is_bf16);
+// partials: max_blocks f64 of scratch; counter: one u32 that is 0 and that
+// no launch in flight on another stream shares; inv: one f32, written.
+extern "C" int leaf_inv_mean(const void* g, const void* g2, long long n, int g_is_bf16,
+                             int g2_is_bf16, float eps, void* partials, int max_blocks,
+                             void* counter, void* inv, void* stream) {
+  if (n < 1 || max_blocks < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  if (g_is_bf16 && g2_is_bf16)
+    return launch_inv_mean<B, B>(g, g2, n, eps, partials, max_blocks, counter, inv, s);
+  if (g_is_bf16)
+    return launch_inv_mean<B, float>(g, g2, n, eps, partials, max_blocks, counter, inv, s);
+  if (g2_is_bf16)
+    return launch_inv_mean<float, B>(g, g2, n, eps, partials, max_blocks, counter, inv, s);
+  return launch_inv_mean<float, float>(g, g2, n, eps, partials, max_blocks, counter, inv, s);
+}
 
 // Every operand is n f32 (n a multiple of 4, the padded leaf); scal holds
 // inv_mean.  Outputs are separate buffers.

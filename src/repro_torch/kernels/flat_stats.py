@@ -38,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flat_moments_accum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     "flat_moments_finalize": [_P, _P, ctypes.c_float, ctypes.c_longlong, _P],
-    "flat_g_accum": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    "flat_g_accum": [_P, _P, ctypes.c_longlong, _I, _P],
     "flat_pack_square": [_P, _P, ctypes.c_longlong, _I, _P],
     "flat_vmap_moments": [_P, _P, _P, _I, ctypes.c_float, ctypes.c_longlong, _I, _P],
 }
@@ -143,10 +143,9 @@ def flat_g_accum(gs: torch.Tensor, g: torch.Tensor):
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flat_g_accum: g must be float32 or bfloat16, got {g.dtype}")
     lib = _build.library("flat_stats", _SIGNATURES)
-    err = lib.flat_g_accum(
-        gs.data_ptr(), g.data_ptr(), gs.numel(), int(g.dtype == torch.bfloat16),
-        device_info(gs.device.index)[1], torch.cuda.current_stream(gs.device).cuda_stream,
-    )
+    err = lib.flat_g_accum(gs.data_ptr(), g.data_ptr(), gs.numel(),
+                           int(g.dtype == torch.bfloat16),
+                           torch.cuda.current_stream(gs.device).cuda_stream)
     _build.check(err, "flat_g_accum")
     flat_g_accum.launches += 1
     return gs

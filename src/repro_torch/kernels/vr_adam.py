@@ -6,17 +6,18 @@ Counterpart of ``repro/kernels/vr_adam.py::vr_adam_inner`` (TPU kernel
 bias-corrected Adam direction, on ONE parameter leaf, returning new f32
 (dir, m', v', p').  The flat single-launch form is
 ``flat_update.py::flat_vr_adam``.  The kernel is ``csrc/vr_leaf.cu``;
-inv_mean comes from the plain prepass and the operands are padded as in
-``vr_update.py``.  On a CUDA tensor the wrapper launches the kernel or
-raises; on a CPU tensor it computes the plain version.
+inv_mean comes from the prepass kernel (``vr_update.py::leaf_inv_mean``)
+and the operands are padded as in ``vr_update.py``.  On a CUDA tensor the
+wrapper launches the kernels or raises; on a CPU tensor it computes the
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.vr_update import (SIGNATURES, check_leaf, clip_r, inv_mean_r, pad2d,
-                                           stream_args, unpad)
+from repro_torch.kernels.vr_update import (SIGNATURES, check_leaf, clip_r, inv_mean_r,
+                                           leaf_inv_mean, pad2d, stream_args, unpad)
 
 
 def adam_math_ref(g, ga, g2, m, v, p, inv, *, b1, b2, b3, eps, gamma, gsnr_eps, bc1, bc2, bc3):
@@ -51,7 +52,7 @@ def vr_adam_inner(g, g2, m, v, p, bc1, bc2, bc3, *, b1, b2, b3, eps, gamma, gsnr
         raise ValueError(f"vr_adam_inner: no implementation for device {g.device}")
     ops = [pad2d(t) for t in (g, ga, g2, m, v, p)]
     check_leaf("vr_adam_inner", ops)
-    inv = inv_mean_r(g, g2, gsnr_eps)
+    inv = leaf_inv_mean(g, g2, gsnr_eps)
     outs = [torch.empty_like(ops[0]) for _ in range(4)]
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_vr_adam(*(t.data_ptr() for t in ops), None, inv.data_ptr(),

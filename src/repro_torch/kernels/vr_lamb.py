@@ -13,7 +13,8 @@ The caller applies the trust ratio.  The reference returns each sum from
 (1, 128) lane partials (a TPU layout); here each is a 0-dim f32 tensor.
 The flat single-launch forms are ``flat_update.py::flat_vr_lamb`` and
 ``::flat_vr_lars``.  The kernels are ``csrc/vr_leaf.cu``; inv_mean comes
-from the plain prepass and the operands are padded as in ``vr_update.py``.
+from the prepass kernel (``vr_update.py::leaf_inv_mean``) and the operands
+are padded as in ``vr_update.py``.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version.
 """
@@ -23,8 +24,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.vr_adam import adam_math_ref
-from repro_torch.kernels.vr_update import (SIGNATURES, check_leaf, clip_r, inv_mean_r, pad2d,
-                                           stream_args, unpad)
+from repro_torch.kernels.vr_update import (SIGNATURES, check_leaf, clip_r, inv_mean_r,
+                                           leaf_inv_mean, pad2d, stream_args, unpad)
 
 
 def vr_lamb_inner_ref(g, ga, g2, m, v, p, w, bc1, bc2, bc3, *, b1, b2, b3, eps, wd, gamma,
@@ -50,7 +51,7 @@ def vr_lamb_inner(g, ga, g2, m, v, p, w, bc1, bc2, bc3, *, b1, b2, b3, eps, wd, 
         raise ValueError(f"vr_lamb_inner: no implementation for device {g.device}")
     ops = [pad2d(t) for t in (g, ga, g2, m, v, p, w)]
     check_leaf("vr_lamb_inner", ops)
-    inv = inv_mean_r(g, g2, gsnr_eps)
+    inv = leaf_inv_mean(g, g2, gsnr_eps)
     outs = [torch.empty_like(ops[0]) for _ in range(4)]
     acc = torch.empty(2, dtype=torch.float32, device=g.device)
     lib = _build.library("vr_leaf", SIGNATURES)
@@ -80,7 +81,7 @@ def vr_lars_inner(g, ga, g2, w, *, wd, gamma, eps):
         raise ValueError(f"vr_lars_inner: no implementation for device {g.device}")
     ops = [pad2d(t) for t in (g, ga, g2, w)]
     check_leaf("vr_lars_inner", ops)
-    inv = inv_mean_r(g, g2, eps)
+    inv = leaf_inv_mean(g, g2, eps)
     u = torch.empty_like(ops[0])
     acc = torch.empty(2, dtype=torch.float32, device=g.device)
     lib = _build.library("vr_leaf", SIGNATURES)

@@ -8,12 +8,15 @@ parameter set is ``flat_update.py::flat_vr_scale``; this one is the
 per-leaf dispatch.  The kernel is ``csrc/vr_leaf.cu``; its source note
 gives the design and bound.
 
-As in the reference, the scalar ``inv_mean = 1 / max(mean(r_raw), 1e-30)``
-over the leaf's unpadded elements comes from a plain prepass
-(``inv_mean_r``), and every operand is cast to f32 and zero-padded to the
-reference's (rows, 128) layout (``pad2d``) before the kernel; the outputs
-are unpadded views.  On a CUDA tensor the wrapper launches the kernel or
-raises; on a CPU tensor it computes the plain version.
+The scalar ``inv_mean = 1 / max(mean(r_raw), 1e-30)`` over the leaf's
+unpadded elements, which the reference computes in jnp before its kernel,
+comes from a kernel of its own here (``leaf_inv_mean``: one launch that
+reads g and g2 as they are and leaves the 0-dim result on the card, where
+the step kernels read it).  Every operand of a step kernel is cast to f32
+and zero-padded to the reference's (rows, 128) layout (``pad2d``) before
+it; the outputs are unpadded views.  On a CUDA tensor each wrapper launches
+its kernel or raises; on a CPU tensor it computes the plain version
+(``inv_mean_r`` for the prepass).
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ SIGNATURES = {
     "leaf_vr_scale": [_P] * 6 + [ctypes.c_longlong, _F, _F, _I, _P],
     "leaf_vr_adam": [_P] * 13 + [ctypes.c_longlong] + [_F] * 10 + [_I, _I, _P],
     "leaf_vr_lars": [_P] * 7 + [ctypes.c_longlong, _F, _F, _F, _I, _P],
+    "leaf_inv_mean": [_P, _P, ctypes.c_longlong, _I, _I, _F, _P, _I, _P, _P, _P],
 }
+INV_MEAN_BLOCKS_PER_SM = 2  # the prepass's grid cap: its f64 partials, one a block
 
 
 def padded_rows(n: int) -> int:
@@ -62,10 +67,50 @@ def unpad(x2d: torch.Tensor, shape) -> torch.Tensor:
 
 def inv_mean_r(g, g2, eps) -> torch.Tensor:
     """0-dim f32: 1 / max(mean of r_raw over the leaf, 1e-30), the plain
-    prepass of the reference's per-leaf kernels."""
+    version of ``leaf_inv_mean`` (the reference's jnp prepass)."""
     gf = g.reshape(-1).float()
     var = torch.clamp(g2.reshape(-1).float() - gf * gf, min=0.0)
     return 1.0 / torch.clamp(torch.mean(gf * gf / (var + eps)), min=1e-30)
+
+
+_counters = {}  # (device index, stream) -> the prepass's u32 block counter
+
+
+def leaf_inv_mean(g, g2, eps) -> torch.Tensor:
+    """0-dim f32 inv_mean = 1 / max(mean of r_raw over the leaf, 1e-30) of
+    one leaf, g and g2 f32 or bf16 of the same size: one kernel launch on a
+    CUDA tensor (the result stays on the card), the plain version on a CPU
+    tensor."""
+    if g.device.type == "cpu":
+        return inv_mean_r(g, g2, eps)
+    if g.device.type != "cuda":
+        raise ValueError(f"leaf_inv_mean: no implementation for device {g.device}")
+    if g2.device != g.device or g2.numel() != g.numel() or g.numel() == 0:
+        raise ValueError(f"leaf_inv_mean: g {tuple(g.shape)} on {g.device} and g2 "
+                         f"{tuple(g2.shape)} on {g2.device} must be one non-empty size on one card")
+    for t in (g, g2):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"leaf_inv_mean: g and g2 must be float32 or bfloat16, got {t.dtype}")
+    capability = device_info(g.device.index)[0]
+    if capability != HOPPER:
+        raise RuntimeError(f"leaf_inv_mean: the kernel is built for sm_90a (Hopper), got "
+                           f"{capability}")
+    gf, g2f = g.reshape(-1), g2.reshape(-1)
+    n_sm, stream = stream_args(g)
+    partials = torch.empty(INV_MEAN_BLOCKS_PER_SM * n_sm, dtype=torch.float64, device=g.device)
+    counter = _counters.get((g.device.index, stream))
+    if counter is None:  # zeroed once; every launch leaves it at 0
+        counter = _counters[(g.device.index, stream)] = torch.zeros(1, dtype=torch.int32,
+                                                                    device=g.device)
+    inv = torch.empty((), dtype=torch.float32, device=g.device)
+    lib = _build.library("vr_leaf", SIGNATURES)
+    err = lib.leaf_inv_mean(gf.data_ptr(), g2f.data_ptr(), gf.numel(),
+                            int(g.dtype == torch.bfloat16), int(g2.dtype == torch.bfloat16), eps,
+                            partials.data_ptr(), partials.numel(), counter.data_ptr(),
+                            inv.data_ptr(), stream)
+    _build.check(err, "leaf_inv_mean")
+    leaf_inv_mean.launches += 1
+    return inv
 
 
 def clip_r(g2d, g22d, inv_mean, gamma, eps):
@@ -112,7 +157,7 @@ def vr_scale(g, g2, gamma: float, eps: float, g_apply=None):
         raise ValueError(f"vr_scale: no implementation for device {g.device}")
     ops = [pad2d(t) for t in (g, ga, g2)]
     check_leaf("vr_scale", ops)
-    inv = inv_mean_r(g, g2, eps)
+    inv = leaf_inv_mean(g, g2, eps)
     sg, r = torch.empty_like(ops[0]), torch.empty_like(ops[0])
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_vr_scale(*(t.data_ptr() for t in ops), inv.data_ptr(), sg.data_ptr(),
@@ -122,4 +167,5 @@ def vr_scale(g, g2, gamma: float, eps: float, g_apply=None):
     return unpad(sg, g.shape), unpad(r, g.shape)
 
 
+leaf_inv_mean.launches = 0
 vr_scale.launches = 0

@@ -26,7 +26,9 @@ its sq_mean within one FMA rounding (rtol 1e-6); the vmap train step against
 the scan step as the fused plan against the reference plan (rtol 1e-3).
 The per-leaf kernels K18-K21 rtol 1e-4 with atol 1e-4 of the largest
 magnitude (the prepass's mean and the kernels' norm sums in another order),
-K22 and K23 as the flat carry.
+K22 and K23 as the flat carry; their prepass kernel rtol 1e-5 against its
+plain version (sums in another order, its own across blocks in f64) and
+bit-identical on a repeat.
 """
 import dataclasses
 
@@ -609,6 +611,79 @@ def test_per_leaf_kernels_match_plain(dev, shape):
     want = gs.moments_finalize_ref(*(t.clone() for t in carry), 3, shape)  # the same carry
     for a, b in zip(gs.moments_finalize(*carry, 3, shape), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_g_accum_kernel_bit_identical_on_a_ragged_length(dev, g_dtype):
+    """K9 on a length of whole float4 that is not a multiple of its unroll x
+    block (2 x 1024 float4), twice in a row: torch.equal to add_ of g cast
+    to f32."""
+    rng = np.random.default_rng(18)
+    n = 4 * (2048 * 5 + 1031)
+    gs = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+    want = gs.clone()
+    for _ in range(2):
+        g = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+        g = g.to(getattr(torch, g_dtype))
+        assert fs.flat_g_accum(gs, g) is gs
+        fs.g_accum_ref(want, g)
+        assert torch.equal(gs, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n1", "n4099", "large", "bf16-g", "bf16-both", "zeros",
+                                  "unaligned"])
+def test_leaf_inv_mean_kernel_matches_plain(dev, case):
+    """The GSNR prepass kernel against inv_mean_r at rtol 1e-5 (both sum in
+    another order; the kernel in f64 across blocks), bit-identical on a
+    repeat (a fixed grid and fixed orders), exactly 1 / f32(1e-30) on an
+    all-zero leaf; one launch counted per call."""
+    n = {"n1": 1, "n4099": 4099, "large": 3_000_001, "unaligned": 70_001}.get(case, 70_000)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.randn(n + 1, generator=gen, device=dev) * 1e-2
+    g2 = g * g + torch.rand(n + 1, generator=gen, device=dev) * 1e-4
+    # an offset of one f32: neither pointer is aligned for vector loads
+    g, g2 = (g[1:], g2[1:]) if case == "unaligned" else (g[:n], g2[:n])
+    if case.startswith("bf16"):
+        g = g.to(torch.bfloat16)
+        g2 = g2.to(torch.bfloat16) if case == "bf16-both" else g2
+    if case == "zeros":
+        g, g2 = torch.zeros_like(g), torch.zeros_like(g2)
+    before = vu.leaf_inv_mean.launches
+    got = vu.leaf_inv_mean(g, g2, 1e-12)
+    again = vu.leaf_inv_mean(g, g2, 1e-12)
+    assert vu.leaf_inv_mean.launches == before + 2
+    assert got.shape == () and got.dtype == torch.float32 and got.device == g.device
+    assert torch.equal(got, again)
+    want = vu.inv_mean_r(g, g2, 1e-12)
+    if case == "zeros":
+        assert float(got) == float(want) == float(np.float32(1.0) / np.float32(1e-30))
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_per_leaf_wrappers_take_the_prepass_kernel(dev, monkeypatch):
+    """K18-K21 on the card never call the plain prepass: with inv_mean_r made
+    to raise, each wrapper still runs, and launches the prepass kernel once."""
+    x = _leaf_inputs(dev, (24, 64, 256), 4)
+
+    def plain_prepass(*_):
+        raise AssertionError("a per-leaf wrapper called the plain prepass")
+
+    for mod in (vu, va, vl):
+        monkeypatch.setattr(mod, "inv_mean_r", plain_prepass)
+    bc = (0.19, 0.002, 0.19)
+    adam = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, gamma=0.1, gsnr_eps=1e-12)
+    before = vu.leaf_inv_mean.launches
+    vu.vr_scale(x["g"], x["g2"], 0.1, 1e-12, g_apply=x["ga"])
+    va.vr_adam_inner(x["g"], x["g2"], x["m"], x["v"], x["p"], *bc, g_apply=x["ga"], **adam)
+    vl.vr_lamb_inner(x["g"], x["ga"], x["g2"], x["m"], x["v"], x["p"], x["w"], *bc, wd=0.01,
+                     **adam)
+    vl.vr_lars_inner(x["g"], x["ga"], x["g2"], x["w"], wd=1e-4, gamma=0.1, eps=1e-12)
+    torch.cuda.synchronize()
+    assert vu.leaf_inv_mean.launches == before + 4
 
 
 @pytest.mark.cuda

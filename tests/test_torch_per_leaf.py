@@ -164,6 +164,56 @@ def test_moments_carry_matches_pallas(shape, dtype):
 # ---- the per-leaf steps against the flat step --------------------------------
 
 
+# The GSNR prepass (vr_update.py::leaf_inv_mean; its kernel on the card):
+# (name, n, g dtype, kind).  "cancel" makes g2 exceed g^2 by ~1e-6 of it, so
+# each r is ~1e6; g has 12 significant bits there, so g * g is exact and an
+# FMA-contracted g2 - g * g (XLA's) equals the rounded one (the port's).
+PREPASS_CASES = [("n1", 1, "f32", "noise"), ("n127", 127, "f32", "noise"),
+                 ("n1000", 1000, "f32", "noise"), ("n4099", 4099, "f32", "noise"),
+                 ("bf16-g", 1000, "bf16", "noise"), ("zeros", 1000, "f32", "zeros"),
+                 ("cancel", 4099, "f32", "cancel")]
+
+
+def _prepass_inputs(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(n).astype(np.float32) * np.float32(1e-2)
+    if kind == "zeros":
+        return np.zeros(n, np.float32), np.zeros(n, np.float32)
+    if kind == "cancel":
+        m, e = np.frexp(g)
+        g = np.ldexp(np.round(m * 4096) / 4096, e).astype(np.float32)
+        return g, g * g * np.float32(1 + 1e-6) + np.float32(1e-12) * rng.random(n, np.float32)
+    return g, g * g + np.float32(1e-4) * np.abs(rng.standard_normal(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("name,n,g_dtype,kind", PREPASS_CASES, ids=[c[0] for c in PREPASS_CASES])
+def test_leaf_inv_mean_matches_the_reference_prepass(name, n, g_dtype, kind, monkeypatch):
+    """The prepass against the reference's jnp expression
+    (repro/kernels/vr_update.py:73-77) at rtol 1e-6 (f32 sums of up to 4099
+    positive terms in another order); the all-zero leaf gives exactly
+    1 / f32(1e-30), as both compute it.  On CPU tensors the wrapper computes
+    its plain version and never builds or loads a kernel library."""
+    from repro_torch.kernels import _build
+
+    def no_build(*_):
+        raise AssertionError("the CPU path loaded a kernel library")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    g, g2 = _prepass_inputs(n, kind, seed=n)
+    jg = jnp.asarray(g, jnp.bfloat16 if g_dtype == "bf16" else jnp.float32)
+    gf = jg.reshape(-1).astype(jnp.float32)
+    g2f = jnp.asarray(g2).reshape(-1).astype(jnp.float32)
+    var = jnp.maximum(g2f - gf * gf, 0.0)
+    want = np.float32(1.0 / jnp.maximum(jnp.mean(gf * gf / (var + 1e-12)), 1e-30))
+    got = vu.leaf_inv_mean(_t(jg), torch.from_numpy(g2), 1e-12)
+    assert got.shape == () and got.dtype == torch.float32
+    if kind == "zeros":
+        assert float(got) == want == np.float32(1.0) / np.float32(1e-30)
+    else:
+        np.testing.assert_allclose(float(got), want, rtol=1e-6, atol=0)
+
+
 def _step_inputs(layout, seed):
     """Flat (g, ga, g2, m, v, p, w) with the zero tail the layout keeps."""
     rs = np.random.default_rng(seed)
