@@ -29,9 +29,11 @@ Phases, in order; any failure exits non-zero:
                 versions at the shapes its main path gives them (K10, the
                 vmap path's stack reduction, at k = 8 and 7 too): the
                 attention forward with its LSE and the attention backward (bert-large's B=32 S=128 H=16 D=64
-                bidirectional, internlm2-1.8b's B=8 S=512 H=16/8 D=128
-                causal packed with pads, and through the autograd
-                Function), the flat moment carry (the finalize
+                bidirectional, unpacked and on rows gather_rows packs from
+                phase 13's token cache with whole pad rows (pads: out, dq,
+                dk, dv exactly 0, lse -1e30), internlm2-1.8b's B=8 S=512
+                H=16/8 D=128 causal packed with pads, and through the
+                autograd Function), the flat moment carry (the finalize
                 bit-identical to its plain version, on the full layout and
                 a ragged length, and timed in turns with two mul_), the
                 g-only carry (K9: bit-identical for f32 and bf16 g, full and
@@ -70,7 +72,11 @@ Phases, in order; any failure exits non-zero:
                 batch 128 (three VR-LAMB steps) against single-card k=4;
                 launch counts per rank per step, params bit-identical across
                 the ranks after every step, agreement within DP_TOL, step
-                and collective walls, peak memory per rank.
+                and collective walls, peak memory per rank.  At W = 2 also
+                one VR-LAMB step with noise_scale=True (its readings equal
+                on the ranks and within NOISE_RTOL's bounds of the
+                single-card k = 2 ones), then the row-sharded state saved
+                (gathered) and restored, each rank's rows torch.equal.
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -95,6 +101,23 @@ Phases, in order; any failure exits non-zero:
                 after the prepass) against the flat K8, K6, K5, K7 steps
                 from the same inputs; then two device kernels per per-leaf
                 VR call on the largest leaf (the call's CUDA graph).
+ 13. autoscale — bert-large at published width and depth on packed rows
+                from a token cache (Markov documents over its vocabulary,
+                written under build/ before phase 7 and removed at the
+                end): (a) check_cache, the pack index, next_batch and the
+                device prefetch (batches equal to next_batch's); (b) one
+                fresh k=8 step with noise_scale=True (phase 8's launches),
+                its readings against an f64 sum of its carry and against
+                the reference plan's, and their device ms; (c)
+                autoscale_train_loop from the cache (batch_rows 32, 8
+                steps, k in [2, 8]; a second call at another k when the
+                policy held k), launches asserted per step at its k, the
+                LR on the sqrt rule, an epoch boundary crossed, then a
+                profile of one more step; (d) a checkpoint of the state
+                and the cursor restored into another seed's template
+                (torch.equal), a step from each within TRAIN_TOL beside
+                two runs from the same state; (e) eval_loss over an eval
+                cache on both plans.  Runs after phase 11.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -105,6 +128,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -843,7 +867,7 @@ def check_attention_bwd(name, q, k, v, do, pos, causal):
     return err_fwd, err, args, got
 
 
-def phase_train_kernels(records, layout):
+def phase_train_kernels(records, layout, data):
     import torch
     import torch.nn.functional as F
 
@@ -912,6 +936,44 @@ def phase_train_kernels(records, layout):
           f"sdpa backward={t2_lib:.4f} bound={b2_ms:.4f} ({b2_by}); CUDA-core version "
           f"{CUDA_CORE_MS['K2 internlm2']} (PR 12)", flush=True)
 
+    # packed bidirectional rows at bert's training shape: phase 13's rows as
+    # gather_rows packs them, with whole pad rows (position -1 throughout)
+    pos3 = torch.from_numpy(packed_tail_rows(data, b)["positions"]).to(dev)
+    q3, k3, v3, do3 = (randn(b, s, h, d) for _ in range(4))
+    fwd_err3, err_packed, args3, got3 = check_attention_bwd(
+        "bert B32 S128 H16 D64 bf16 bidirectional packed", q3, k3, v3, do3, pos3, False)
+    dead = args3[6] < 0
+    whole = int(dead.all(dim=1).sum())
+    out3, lse3 = fa.flash_attention(q3, k3, v3, *args3[6:], causal=False, with_lse=True)
+    pads = {"out": out3[dead], "dq": got3[0][dead], "dk": got3[1][dead], "dv": got3[2][dead]}
+    if whole < 1 or any(bool(t.any()) for t in pads.values()) or \
+            not bool((lse3.transpose(1, 2)[dead] == -1e30).all()):
+        fail("packed bert shape: pad rows must give out, dq, dk, dv exactly 0 and lse -1e30 "
+             f"({whole} whole pad rows)")
+    print(f"  packed bert shape: {int(dead.sum())} pad positions ({whole} whole pad rows) give "
+          "out, dq, dk, dv exactly 0 and lse -1e30", flush=True)
+    records["flash_attention_fwd"]["max_abs_err"] = max(
+        records["flash_attention_fwd"]["max_abs_err"], fwd_err3)
+    mask3 = fa.attention_mask(*args3[6:], causal=False)
+    tp_fwd = cuda_ms(lambda: fa.flash_attention(q3, k3, v3, *args3[6:], causal=False,
+                                                with_lse=True))
+    tp_kernel = cuda_ms(lambda: fab.flash_attention_bwd(*args3, causal=False))
+    tp_plain = cuda_ms(lambda: fab.attention_bwd_ref(
+        *args3[:6], causal=False, q_pos=args3[6], k_pos=args3[7], q_seg=args3[8],
+        k_seg=args3[9]))
+    tp_lib = sdpa_bwd_ms(q3, k3, v3, do3, mask3)
+    live_pairs = int(mask3.sum()) * h
+    bpf_ms, bpf_by = bound(nbytes(q3, k3, v3, *args3[6:], q3, lse3), live_pairs * 4 * d,
+                           "bfloat16")
+    bp_ms, bp_by = bound(nbytes(*args3, *got3), live_pairs * 10 * d, "bfloat16")
+    print(f"  packed bert times (ms): K1 with_lse={tp_fwd:.4f} (unpacked {t1:.4f}, bound "
+          f"{bpf_ms:.4f} {bpf_by}); K2={tp_kernel:.4f} (unpacked {t_kernel:.4f}) plain="
+          f"{tp_plain:.4f} sdpa backward={tp_lib:.4f} bound={bp_ms:.4f} ({bp_by})", flush=True)
+    records["flash_attention_fwd"].update(packed_train_ms=tp_fwd, packed_train_bound_ms=bpf_ms)
+    packed_bwd = dict(packed_ms=tp_kernel, packed_plain_ms=tp_plain, packed_bound_ms=bp_ms,
+                      packed_library_ms=tp_lib)
+    del q3, k3, v3, do3, args3, got3, out3, lse3, pads, mask3
+
     # through the autograd Function, against autograd through the plain forward
     launches = (fa.flash_attention.launches, fab.flash_attention_bwd.launches)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -927,10 +989,10 @@ def phase_train_kernels(records, layout):
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:104",
-        max_abs_err=max(err_bert, err_intern, err_fn), ms=t_kernel, plain_ms=t_plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+        max_abs_err=max(err_bert, err_intern, err_packed, err_fn), ms=t_kernel,
+        plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
         internlm2_ms=t2_kernel, internlm2_plain_ms=t2_plain, internlm2_bound_ms=b2_ms,
-        internlm2_library_ms=t2_lib,
+        internlm2_library_ms=t2_lib, **packed_bwd,
     )
     del q, k, v, do, args, got, q2, k2, v2, do2, args2, got2, leaves, plain
 
@@ -1922,6 +1984,82 @@ class TimedMesh:
     def broadcast_(self, t, src=0):
         return self._timed("broadcast", self.mesh.broadcast_, t, src)
 
+    def barrier(self):
+        self.mesh.barrier()
+
+
+def dp_noise_checkpoint(rank, world, mesh, cfg, batch, params, flag_all, barrier, summary,
+                        out_dir):
+    """10b's additions at W = 2: one data-parallel VR-LAMB step with
+    noise_scale=True (rank 0 first runs the single-card k = W step with the
+    readings from the same weights and batch), its readings equal on every
+    rank and within NOISE_RTOL's bounds of the single-card ones; then the
+    row-sharded state saved (gathered; rank 0 writes) and restored into a
+    template from another seed, each rank's rows equal (torch.equal, on the
+    elements that hold a parameter) to the rows it saved.  Returns the
+    walls and the file size."""
+    import torch
+
+    from repro_torch.core.layout import pad_mask
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.checkpoint import restore, save
+
+    dev = mesh.device
+    label = f"dp W={world} rank {rank} noise step"
+    single = None
+    if rank == 0:
+        rc = plan_config(cfg, "fused", k=world)
+        st = init_state(rc, params=params(), device=dev)
+        single = noise_of(make_train_step(rc, noise_scale=True, device=dev)[0](st, batch)[1])
+        del st
+        torch.cuda.empty_cache()
+    barrier()
+    dc = plan_config(cfg, "fused", gsnr_source="data_axis")
+    state = init_state(dc, params=params(), device=dev, mesh=mesh)
+    step = make_train_step(dc, device=dev, mesh=mesh, noise_scale=True)[0]
+    reset_counts()
+    (state, metrics), ms = host_ms(lambda: step(state, batch))
+    counts = read_counts()
+    if counts != dp_counts(cfg.model.n_layers, "vr_lamb"):
+        raise RuntimeError(f"{label}: launches {counts}")
+    for k, c in counts.items():
+        summary["counts"][k] = summary["counts"].get(k, 0) + c
+    got = noise_of(metrics)
+    mine = torch.tensor([got[k] for k in NOISE_KEYS], dtype=torch.float64, device=dev)
+    first = mine.clone()
+    mesh.broadcast_(first)
+    if not flag_all(torch.equal(first, mine)):
+        raise RuntimeError(f"{label}: the readings differ across the ranks")
+    if rank == 0:
+        print(f"  dp W={world} VR-LAMB step with noise_scale=True: {ms:.1f} ms; the readings "
+              f"are equal on the {world} ranks", flush=True)
+        check_noise(f"dp W={world} readings vs single-card k={world}", got, single,
+                    batch["tokens"].shape[0] / world, batch["tokens"].shape[0], NOISE_RTOL)
+    path = os.path.join(out_dir, "sharded.npz")
+    _, save_ms = host_ms(lambda: save(path, state, mesh=mesh))
+    size = os.path.getsize(path)
+    template = init_state(dc.replace(seed=1), device=dev, mesh=mesh)
+    back, restore_ms = host_ms(lambda: restore(path, template))
+    del template
+    ok = torch.equal(back.params.data, state.params.data) and \
+        (back.step, back.opt_state["pt"]) == (state.step, state.opt_state["pt"])
+    for nm in "mvp":
+        a, b = back.opt_state[nm], state.opt_state[nm]
+        live = a.shard.local(pad_mask(a.layout, dev))
+        ok = ok and a.shard == b.shard and torch.equal(a.data[live], b.data[live])
+    if not flag_all(ok):
+        raise RuntimeError(f"dp W={world} rank {rank}: a restored row shard differs from the "
+                           "one saved")
+    barrier()
+    if rank == 0:
+        os.remove(path)
+        print(f"  dp W={world} sharded checkpoint: {size / 1e9:.3f} GB, saved (gathered) in "
+              f"{save_ms / 1e3:.2f} s, restored in {restore_ms / 1e3:.2f} s; every rank's "
+              "m, v, p rows torch.equal to the rows it saved", flush=True)
+    del state, back, step
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "save_ms": save_ms, "restore_ms": restore_ms, "bytes": size}
+
 
 def dp_counts(n_layers, name):
     """Launches of one rank's fused data-parallel step: K1 twice and K2 once
@@ -2052,6 +2190,9 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
         del state, step, first, ref
         torch.cuda.empty_cache()
         barrier()
+    if world == 2:
+        summary["noise_ckpt"] = dp_noise_checkpoint(rank, world, mesh, cfg, batches[0], params,
+                                                    flag_all, barrier, summary, out_dir)
     summary["collectives"] = mesh.wall
     summary["tokens"] = tokens
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -2064,7 +2205,7 @@ DP_GROUPS = (
     (2, 64, (("vr_lamb", TRAIN_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1))),
     (4, 128, (("vr_lamb", TRAIN_STEPS),)),
 )
-DP_DEADLINE_S = 420.0
+DP_DEADLINE_S = 600.0
 
 
 def phase_train_dp(records):
@@ -2075,7 +2216,6 @@ def phase_train_dp(records):
     and VR-SGD, against single-card k=2 microbatch steps.  Four ranks at
     global batch 128, whose row shards pad the layout (44,510 blocks): three
     VR-LAMB steps against single-card k=4."""
-    import shutil
     import tempfile
 
     from repro_torch.launch.mesh import local_init_method, run_ranks
@@ -2468,6 +2608,400 @@ def phase_per_leaf(records, layout):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the resumable, autoscaled training path at full width
+# ---------------------------------------------------------------------------
+
+# Phase 13(a)'s token caches: Markov documents over bert-large's vocabulary
+# (uint16), stored lengths 17-256 (16-255 trained tokens).  The training
+# cache packs into ~1,600 rows of 128 (so (c) crosses an epoch boundary),
+# the eval cache into 116 rows (four batches of 32, the last padded).
+TRAIN_CACHE_TOKENS = 205_000
+EVAL_CACHE_TOKENS = 14_000
+AUTOSCALE_ROWS = 32  # the loader's batch_rows: k x 32 rows a step
+AUTOSCALE_STEPS = 8
+AUTOSCALE_POLICY = dict(k_min=2, k_max=8, warmup_steps=2, cooldown=1, hysteresis=1.25,
+                        ema_beta=0.8)
+# Stated tolerances of the noise readings.  Against an f64 sum of the same
+# carry, g2_small and g2_big (f32 sums of ~3.6e8 terms) within rtol 1e-5;
+# between two plans or two programs, the sums within NOISE_RTOL: TRAIN_TOL
+# lets the plans' grad_norm differ by 2e-3 relative, and a squared norm by
+# twice that.  tr_sigma and g2, differences of the two sums, are held within
+# rtol (g2_small + g2_big) times their largest coefficient, 1 / (1/B_s -
+# 1/B_b) and B_b / (B_b - B_s); b_simple within what those two give
+# (tests/test_torch_noise_scale.py::check_estimate, the same rule).
+SAME_CARRY_RTOL = 1e-5
+NOISE_RTOL = 4e-3
+NOISE_KEYS = ("g2_small", "g2_big", "tr_sigma", "g2", "b_simple")
+
+
+def make_token_caches(vocab: int):
+    """Phase 13(a)'s training and eval caches in a new directory under
+    build/; returns their paths and write walls (the caller removes
+    ``dir``).  Written before phase 7, which packs rows from the training
+    cache."""
+    import tempfile
+
+    from repro_torch.data import markov_documents, write_token_cache
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = {"dir": tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))}
+    for name, total, stream in (("train", TRAIN_CACHE_TOKENS, 1), ("eval", EVAL_CACHE_TOKENS, 2)):
+        out[name] = os.path.join(out["dir"], name)
+        t0 = time.perf_counter()
+        write_token_cache(markov_documents(vocab, total, 16, 255, seed=0, stream_seed=stream),
+                          out[name], dtype=np.uint16, vocab=vocab)
+        out[f"{name}_write_s"] = time.perf_counter() - t0
+    return out
+
+
+def packed_tail_rows(data, rows: int, pad_rows: int = 4):
+    """The last ``rows - pad_rows`` rows of epoch 0 of the training cache's
+    pack index, padded with ``pad_rows`` whole pad rows."""
+    from repro_torch.data import IndexedPackedDataset, gather_rows
+
+    ds = IndexedPackedDataset(data["train"], 128, rows, seed=0)
+    pack = ds.pack_for(0)
+    return gather_rows(pack, ds.cache.tokens, pack.n_rows - (rows - pad_rows), pack.n_rows,
+                       pad_to=rows)
+
+
+def check_noise(label, got, want, b_small, b_big, rtol):
+    """The readings ``got`` against ``want`` (dicts of floats over
+    NOISE_KEYS): the sums within ``rtol``, tr_sigma, g2 and b_simple within
+    the bounds that gives (see NOISE_RTOL).  Returns the gaps."""
+    scale = rtol * (abs(want["g2_small"]) + abs(want["g2_big"]))
+    lim = {"g2_small": rtol * abs(want["g2_small"]), "g2_big": rtol * abs(want["g2_big"]),
+           "tr_sigma": scale / (1.0 / b_small - 1.0 / b_big),
+           "g2": scale * b_big / (b_big - b_small)}
+    lim["b_simple"] = (lim["tr_sigma"] + abs(want["b_simple"]) * lim["g2"]) / \
+        (abs(want["g2"]) - lim["g2"])
+    gaps = {k: abs(got[k] - want[k]) for k in NOISE_KEYS}
+    print(f"  {label}: " + ", ".join(f"{k} {got[k]:.6e} vs {want[k]:.6e} (|diff| {gaps[k]:.2e},"
+                                     f" bound {lim[k]:.2e})" for k in NOISE_KEYS), flush=True)
+    for k in NOISE_KEYS:
+        if not (np.isfinite(got[k]) and gaps[k] <= lim[k]):
+            fail(f"{label}: {k} {got[k]} vs {want[k]} outside {lim[k]}")
+    return gaps
+
+
+def noise_of(metrics) -> dict:
+    return {k: float(metrics[f"noise/{k}"]) for k in NOISE_KEYS}
+
+
+def clone_state(state):
+    """A copy of a TrainState whose buffers share nothing with ``state``
+    (the steps update params and the flat state in place)."""
+    from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat
+
+    p = state.params
+    opt = {k: FlatBuffer(v.data.clone(), v.layout, v.shard) if is_flat(v) else v
+           for k, v in state.opt_state.items()}
+    return state._replace(params=FlatParams.from_flat(p.data.clone(), p.layout, p.n_groups),
+                          opt_state=opt)
+
+
+def state_gaps(a, b) -> dict:
+    """Relative gaps of params and of m/v/p between two states, over the
+    elements that hold a parameter (a checkpoint does not store a flat
+    buffer's padding, where p is nonzero)."""
+    from repro_torch.core.layout import pad_mask
+
+    live = pad_mask(a.params.layout, a.params.device)
+    out = {"params": rel_diff(a.params.data, b.params.data)}
+    out.update({nm: rel_diff(flat_state(a, nm)[live], flat_state(b, nm)[live]) for nm in "mvp"})
+    return out
+
+
+@contextlib.contextmanager
+def counted_steps(n_layers, log):
+    """Every train step made by ``make_train_step`` while active (the
+    autoscale loop builds its own, one per k) runs with the counts set to 0
+    just before it and read just after; they must be a fused VR-LAMB step's
+    at that step's k.  Appends (k, counts, peak GiB, step ms on the host
+    clock, synchronized) to ``log``."""
+    import torch
+
+    from repro_torch.train import trainer
+
+    real = trainer.make_train_step
+
+    def make(cfg_k, *args, **kwargs):
+        fn, opt = real(cfg_k, *args, **kwargs)
+        k = cfg_k.optimizer.k
+
+        def step(state, batch, with_stats=True):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out, ms = host_ms(lambda: fn(state, batch, with_stats))
+            counts = read_counts()
+            want = fused_counts(n_layers, k, "flat_vr_lamb")
+            if counts != want:
+                fail(f"autoscale step at k={k}: launches {counts} != expected {want}")
+            log.append((k, counts, torch.cuda.max_memory_allocated() / 2**30, ms))
+            return out
+
+        return step, opt
+
+    trainer.make_train_step = make
+    try:
+        yield
+    finally:
+        trainer.make_train_step = real
+
+
+def phase_autoscale(records, data):
+    """13: bert-large at published width and depth on packed rows from a
+    token cache: (a) the data path, (b) one fresh k=8 step's noise readings,
+    (c) autoscale_train_loop, (d) a whole-state checkpoint and its restore,
+    (e) eval_loss over an eval cache on both plans."""
+    import torch
+
+    from repro_torch.core import noise_scale as ns
+    from repro_torch.core.accumulate import grad_stats
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data import DataState, IndexedPackedDataset
+    from repro_torch.data.check import check_cache
+    from repro_torch.models import init_params
+    from repro_torch.train import eval_loss, init_state, make_train_step
+    from repro_torch.train.autoscale import AutoscalePolicy, autoscale_train_loop
+    from repro_torch.train.checkpoint import restore, save
+    from repro_torch.train.loss import make_loss_fn
+
+    dev = torch.device("cuda")
+    base = plan_config(bert_train_config(), "fused", base_batch=256, lr_scale_rule="sqrt")
+    m, seq = base.model, base.seq_len
+
+    def at_k(k, plan="fused"):
+        return plan_config(base, plan, k=k).replace(global_batch=k * AUTOSCALE_ROWS)
+
+    path_counts = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            path_counts[name] = path_counts.get(name, 0) + c
+
+    # ---- (a) the data path ----------------------------------------------------
+    print(f"[autoscale] {m.name} at full width: {m.n_layers} layers, d_model {m.d_model}, vocab "
+          f"{m.vocab_size}; VR-LAMB, seq {seq}, {base.parallel.compute_dtype} compute, lr "
+          f"{base.optimizer.lr} at base_batch 256 (sqrt rule), packed rows from a token cache",
+          flush=True)
+    for name in ("train", "eval"):
+        findings = check_cache(data[name], seq_len=seq, epochs=(0, 1), vocab=m.vocab_size)
+        if findings:
+            fail(f"check_cache on the {name} cache: {findings}")
+    ds0 = IndexedPackedDataset(data["train"], seq, AUTOSCALE_ROWS, seed=0)
+    t0 = time.perf_counter()
+    pack = ds0.pack_for(0)
+    index_s = time.perf_counter() - t0
+    n_rows = pack.n_rows
+    print(f"  train cache: {ds0.cache.n_docs} documents, {ds0.cache.n_tokens} tokens (uint16), "
+          f"written in {data['train_write_s']:.2f} s; epoch 0's pack index {n_rows} rows of "
+          f"{seq}, pack efficiency {pack.pack_efficiency:.4f}, built in {index_s:.3f} s; "
+          "check_cache: no findings", flush=True)
+    probe = IndexedPackedDataset(data["train"], seq, 256, seed=0)
+    probe.pack_for(0)
+    gather_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        probe.next_batch(256)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+    it = IndexedPackedDataset(data["train"], seq, 256, seed=0).iter_batches(
+        device=True, prefetch_size=2)
+    next(it)
+    n_fetch = 12
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fetched = [next(it) for _ in range(n_fetch)]
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t0
+    it.close()
+    check = IndexedPackedDataset(data["train"], seq, 256, seed=0)
+    check.next_batch(256)
+    for i, got in enumerate(fetched):
+        want = check.next_batch(256)
+        if not all(torch.equal(got[k].cpu(), torch.from_numpy(want[k])) for k in want):
+            fail(f"device prefetch: batch {i} differs from next_batch's")
+    del fetched
+    print(f"  next_batch(256) host ms (median of 5): {np.median(gather_ms):.3f}; "
+          f"iter_batches(device=True, prefetch_size=2): {n_fetch / fetch_s:.1f} batches/s of "
+          f"256 x {seq} ({n_fetch} batches, each equal to next_batch's on the host)", flush=True)
+
+    # ---- (b) the noise readings of one fresh k=8 step ---------------------------
+    k8 = at_k(8)
+    params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = IndexedPackedDataset(data["train"], seq, 256, seed=0).next_batch()
+    b_small, b_big = 256 / 8, 256
+    state = init_state(k8, params=params, device=dev)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    _, _, carry = grad_stats(make_loss_fn(k8), state.params, tb, 8, backend=k8.parallel.backend)
+    exact = ns.estimate_from_terms(carry.sq_mean.data.double().sum(),
+                                   carry.mean.data.double().square().sum(), b_small, b_big)
+    exact = {k: float(getattr(exact, k)) for k in NOISE_KEYS}
+    t_read = cuda_ms(lambda: ns.estimate(carry, b_small=b_small, b_big=b_big))
+    read_bound, _ = bound(nbytes(carry.mean.data, carry.sq_mean.data), 0, "float32")
+    del carry, tb
+    torch.cuda.empty_cache()
+    step = make_train_step(k8, noise_scale=True, device=dev)[0]
+    reset_counts()
+    (state, metrics), step_ms = host_ms(lambda: step(state, batch))
+    counts = read_counts()
+    want = fused_counts(m.n_layers, 8, "flat_vr_lamb")
+    if counts != want:
+        fail(f"noise_scale step: launches {counts} != expected {want}")
+    add(counts)
+    fused = noise_of(metrics)
+    print(f"  one fresh k=8 step with noise_scale=True on 256 packed rows: {step_ms:.1f} ms, "
+          f"launches {({k: c for k, c in counts.items() if c})} (those of phase 8's step); lr "
+          f"{metrics['lr']:.6e}", flush=True)
+    check_noise("readings vs an f64 sum of the same carry", fused, exact, b_small, b_big,
+                SAME_CARRY_RTOL)
+    print(f"  the readings (ns.estimate on the carry): {t_read:.4f} ms device; bound "
+          f"{read_bound:.4f} ms (mean and sq_mean read once)", flush=True)
+    rcfg = at_k(8, "reference")
+    rstate = init_state(rcfg, params=params, device=dev)
+    _, rmetrics = make_train_step(rcfg, noise_scale=True, device=dev)[0](rstate, batch)
+    check_noise("fused vs reference plan", fused, noise_of(rmetrics), b_small, b_big, NOISE_RTOL)
+    del rstate, rmetrics, state, step, metrics
+    torch.cuda.empty_cache()
+
+    # ---- (c) autoscale_train_loop on the fused plan ---------------------------
+    policy = AutoscalePolicy(**AUTOSCALE_POLICY)
+    start = DataState.make(0, n_rows - 3 * 2 * AUTOSCALE_ROWS, 0)  # crosses epoch 0's end
+    ds = IndexedPackedDataset(data["train"], seq, AUTOSCALE_ROWS, state=start)
+    state = init_state(at_k(policy.k_min), params=params, device=dev)
+    del params
+    log = []
+    print(f"[autoscale] autoscale_train_loop: {AUTOSCALE_STEPS} steps from k0 {policy.k_min}, "
+          f"batch_rows {AUTOSCALE_ROWS}, {AUTOSCALE_POLICY}; the cursor starts at row "
+          f"{int(start.row)} of epoch 0's {n_rows}", flush=True)
+    with counted_steps(m.n_layers, log):
+        state, hist = autoscale_train_loop(at_k(policy.k_min), ds, AUTOSCALE_STEPS,
+                                           policy=policy, state=state)
+        if len({r["k"] for r in hist}) == 1:  # the policy held k: change it by hand
+            k_next = policy.k_max if hist[0]["k"] != policy.k_max else policy.k_min
+            print(f"  the policy held k at {hist[0]['k']}: two more steps from the returned "
+                  f"state with cfg.optimizer.k = {k_next}", flush=True)
+            state, more = autoscale_train_loop(at_k(k_next), ds, 2, policy=policy, state=state)
+            hist += [dict(r, step=r["step"] + len(hist)) for r in more]
+    for _, c, _, _ in log:
+        add(c)
+    if len(log) != len(hist):
+        fail(f"autoscale: {len(log)} counted steps for {len(hist)} history rows")
+    unscaled = make_schedule(dataclasses.replace(base.optimizer, base_batch=0))
+    for i, (row, (k, _, gib, ms)) in enumerate(zip(hist, log)):
+        eff = row["effective_batch"]
+        lr = unscaled(i) * np.sqrt(eff / 256)  # the schedule at step i, on the sqrt rule
+        print(f"  step {i}: k {row['k']} effective batch {eff} epoch {row['epoch']} loss "
+              f"{row['loss']:.5f} lr {row['lr']:.6e} (sqrt rule {lr:.6e}) b_simple "
+              f"{row['b_simple']:.4f} ema {row['b_simple_ema']:.4f} pack "
+              f"{row.get('pack_efficiency', float('nan')):.4f}; step {ms:.1f} ms = "
+              f"{eff * seq / ms * 1e3:.0f} tokens/s; peak {gib:.2f} GiB", flush=True)
+        if abs(row["lr"] - lr) > 1e-5 * lr:
+            fail(f"autoscale step {i}: lr {row['lr']} is not the sqrt rule's {lr}")
+        if i and not np.isfinite(row["b_simple"]):
+            fail(f"autoscale step {i}: b_simple {row['b_simple']} is not finite")
+    ks = [r["k"] for r in hist]
+    if hist[0]["epoch"] == hist[-1]["epoch"] or len(set(ks)) < 2 or state.k != ks[-1]:
+        fail(f"autoscale: epochs {[r['epoch'] for r in hist]}, k {ks}, state.k {state.k}: the "
+             "run must cross an epoch boundary and change k")
+    peaks = {}
+    for k, _, gib, _ in log:
+        peaks.setdefault(k, []).append(gib)
+    print(f"  k trajectory {ks}; b_simple_ema {[round(r['b_simple_ema'], 3) for r in hist]}; "
+          "peak memory per step by k (GiB): "
+          + "; ".join(f"k={k}: {', '.join(f'{g:.2f}' for g in v)}" for k, v in peaks.items()),
+          flush=True)
+
+    k_now = state.k
+    probe_batch = IndexedPackedDataset(data["train"], seq, AUTOSCALE_ROWS,
+                                       state=ds.state).next_batch(k_now * AUTOSCALE_ROWS)
+    pstep = make_train_step(at_k(k_now), noise_scale=True, device=dev)[0]
+    pstate = clone_state(state)
+    _, p_ms = host_ms(lambda: pstep(pstate, probe_batch))
+    report_profile(f"autoscaled packed step at k={k_now} (profiled)",
+                   lambda: pstep(pstate, probe_batch), p_ms, top=8)
+    del pstate, pstep
+    torch.cuda.empty_cache()
+
+    # ---- (d) whole-state checkpoint --------------------------------------------
+    path = os.path.join(data["dir"], "state.npz")
+    cursor = ds.state
+    _, save_ms = host_ms(lambda: save(path, {"state": state, "data": cursor}))
+    size = os.path.getsize(path)
+    template = {"state": init_state(at_k(k_now).replace(seed=1), device=dev)._replace(k=0),
+                "data": DataState.make()}
+    back, restore_ms = host_ms(lambda: restore(path, template))
+    del template
+    os.remove(path)
+    rs, rcur = back["state"], back["data"]
+    same = torch.equal(rs.params.data, state.params.data) and all(
+        torch.equal(a, b) for nm in "mvp"
+        for a, b in zip(_leaves(rs.opt_state[nm].unpack()), _leaves(state.opt_state[nm].unpack())))
+    same = same and (rs.step, rs.k, rs.opt_state["pt"]) == (state.step, state.k,
+                                                            state.opt_state["pt"])
+    same = same and tuple(map(int, rcur)) == tuple(map(int, cursor))
+    nb_rows = k_now * AUTOSCALE_ROWS
+    nxt = IndexedPackedDataset(data["train"], seq, AUTOSCALE_ROWS, state=cursor).next_batch(nb_rows)
+    rnxt = IndexedPackedDataset(data["train"], seq, AUTOSCALE_ROWS, state=rcur).next_batch(nb_rows)
+    same = same and all(np.array_equal(nxt[k], rnxt[k]) for k in nxt)
+    if not same:
+        fail("checkpoint: the restored state or cursor differs from the one saved")
+    print(f"[autoscale] checkpoint of the state (step {state.step}, k {k_now}) and the cursor "
+          f"{tuple(map(int, cursor))}: {size / 1e9:.3f} GB written in {save_ms / 1e3:.2f} s, "
+          f"restored in {restore_ms / 1e3:.2f} s into a template from seed 1; params, every m, "
+          "v, p leaf, step, k, pt and the cursor torch.equal / equal; the next batch "
+          "byte-identical", flush=True)
+    stepk = make_train_step(at_k(k_now), device=dev)[0]
+    runs = {}
+    for name, st in (("in memory", clone_state(state)), ("restored", rs),
+                     ("in memory again", clone_state(state))):
+        new, met = stepk(st, nxt)
+        runs[name] = (new, {k: float(v) for k, v in met.items()})
+        del new, st
+    del state, rs, back
+    torch.cuda.empty_cache()
+    (a, ma), (r, mr), (b2, mb) = runs["in memory"], runs["restored"], runs["in memory again"]
+    del runs
+    for label, (x, mx) in (("restored", (r, mr)), ("in memory again", (b2, mb))):
+        d_loss = abs(mx["loss"] - ma["loss"]) / abs(ma["loss"])
+        d_gn = abs(mx["grad_norm"] - ma["grad_norm"]) / abs(ma["grad_norm"])
+        gaps = state_gaps(x, a)
+        print(f"  one step from the {label} state vs from the in-memory one: loss {d_loss:.3e}, "
+              f"grad_norm {d_gn:.3e}, " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()),
+              flush=True)
+        if d_loss > TRAIN_TOL["loss"] or d_gn > TRAIN_TOL["grad_norm"] or \
+                gaps["params"] > TRAIN_TOL["upd"] or max(gaps["m"], gaps["v"]) > TRAIN_TOL["mv"] \
+                or gaps["p"] > TRAIN_TOL["p"]:
+            fail(f"checkpoint: the step from the {label} state leaves TRAIN_TOL")
+    del r, b2
+    torch.cuda.empty_cache()
+
+    # ---- (e) eval_loss over the eval cache on both plans ---------------------
+    eval_ds = IndexedPackedDataset(data["eval"], seq, AUTOSCALE_ROWS, seed=0)
+    n_eval = len(list(eval_ds.epoch_batches()))
+    ev = {}
+    for plan in ("fused", "reference"):
+        ecfg = at_k(k_now, plan)
+        reset_counts()
+        ev[plan], ms = host_ms(lambda: eval_loss(ecfg, None, a.params, eval_ds))
+        counts = read_counts()
+        if plan == "fused":
+            add(counts)
+        print(f"  eval_loss on the {plan} plan: {ev[plan]:.6f} over {n_eval} batches of "
+              f"{AUTOSCALE_ROWS} rows ({eval_ds.pack_for(0).n_rows} rows, the last batch "
+              f"padded), {ms:.1f} ms; launches {({k: c for k, c in counts.items() if c})}",
+              flush=True)
+    d_eval = abs(ev["fused"] - ev["reference"]) / abs(ev["reference"])
+    if n_eval != 4 or not np.isfinite(ev["fused"]) or d_eval > TRAIN_TOL["loss"]:
+        fail(f"eval_loss: {n_eval} batches, fused {ev['fused']} vs reference {ev['reference']}")
+    add_path(records, "autoscale", path_counts)
+    print(f"  eval loss rel diff fused vs reference {d_eval:.3e} (tol {TRAIN_TOL['loss']})",
+          flush=True)
+    del a
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2508,20 +3042,27 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     records = {}
-    layout = train_layout(get_config("bert-large"))
-    phase_kernels(records)
-    phase_engine(records)
-    torch.cuda.empty_cache()
-    phase_train_kernels(records, layout)
-    scan = phase_train(records)
-    phase_train_vmap(records, scan)  # against phase 8's scan steps, while they are at hand
-    del scan
-    torch.cuda.empty_cache()
-    phase_train_optimizers(records)
-    phase_spmd_kernels(records, layout)
-    phase_train_dp(records)
-    phase_per_leaf(records, layout)
-    torch.cuda.synchronize()
+    bert = get_config("bert-large")
+    layout = train_layout(bert)
+    data = make_token_caches(bert.model.vocab_size)  # phase 13(a)'s; phase 7 packs rows too
+    try:
+        phase_kernels(records)
+        phase_engine(records)
+        torch.cuda.empty_cache()
+        phase_train_kernels(records, layout, data)
+        scan = phase_train(records)
+        phase_train_vmap(records, scan)  # against phase 8's scan steps, while they are at hand
+        del scan
+        torch.cuda.empty_cache()
+        phase_autoscale(records, data)  # before phases 9 and 10b, after which the profiler
+        torch.cuda.empty_cache()        # has seen no device events
+        phase_train_optimizers(records)
+        phase_spmd_kernels(records, layout)
+        phase_train_dp(records)
+        phase_per_leaf(records, layout)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(data["dir"], ignore_errors=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -21,7 +21,10 @@ the f32 1/W), so the statistics are those of k = W microbatch groups of the
 same rows (property-tested against the reference's ``grad_stats``).  The
 loss and its aux metrics are averaged across the ranks the same way.
 
-Not yet ported: ``with_noise_terms`` (the gradient-noise-scale readings).
+``with_noise_terms`` also returns the two squared norms the noise-scale
+estimator consumes (core/noise_scale.py), [|G_big|^2, |G_small|^2], summed
+from the already-reduced moments, which every rank holds alike: no further
+collective and no kernel.
 """
 from __future__ import annotations
 
@@ -57,8 +60,11 @@ def _split_like(tree, buf: torch.Tensor):
 
 
 def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
-                         backend: Optional[Backend] = None) -> Callable:
-    """Returns f(params, batch) -> (loss, aux, GradStats) with k = mesh.size.
+                         backend: Optional[Backend] = None,
+                         with_noise_terms: bool = False) -> Callable:
+    """Returns f(params, batch) -> (loss, aux, GradStats) with k = mesh.size,
+    or (loss, aux, GradStats, terms) with ``with_noise_terms``, where terms
+    is the (2,) f32 tensor [|G_big|^2, |G_small|^2].
 
     ``params`` is the rank's FlatParams (the same on every rank); ``batch``
     the GLOBAL batch, of which the rank takes its rows; ``loss_fn(tree,
@@ -96,6 +102,13 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
         names = sorted(aux)
         scalars = torch.stack([loss.detach().float()] + [aux[n].detach().float() for n in names])
         scalars = mesh.all_reduce_(scalars).mul_(inv)
-        return scalars[0], {n: scalars[i + 1] for i, n in enumerate(names)}, stats
+        out = (scalars[0], {n: scalars[i + 1] for i, n in enumerate(names)}, stats)
+        if with_noise_terms:
+            # mean and sq are the reduced moments (whole buffers on the flat
+            # path, zero tail padding) on every rank
+            with torch.no_grad():
+                m = mean.reshape(-1)
+                out += (torch.stack([torch.dot(m, m), torch.sum(sq)]),)
+        return out
 
     return fn

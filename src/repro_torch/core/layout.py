@@ -369,6 +369,21 @@ def is_flat(x: Any) -> bool:
     return isinstance(x, FlatBuffer)
 
 
+def unpack_tree(tree):
+    """``tree`` with every FlatBuffer replaced by its unpacked stacked tree
+    (views); dicts, lists and tuples are rebuilt, other leaves kept."""
+    if is_flat(tree):
+        if tree.shard is not None:
+            raise ValueError("unpack_tree: a row-sharded FlatBuffer holds only its rank's rows; "
+                             "gather it first (RowShard.gather)")
+        return tree.unpack()
+    if isinstance(tree, dict):
+        return {k: unpack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [unpack_tree(v) for v in tree]
+    return tree
+
+
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the leaves of dict/list trees of equal structure; a
     FlatBuffer is mapped through its data and keeps its layout (the
@@ -403,10 +418,26 @@ class FlatParams:
 
     def __init__(self, params: Dict, n_groups: int, device=None):
         stacked = stack_groups(params)
-        self.layout = ParamLayout.for_tree(stacked)
-        self.n_groups = n_groups
+        layout = ParamLayout.for_tree(stacked)
         with torch.no_grad():
-            self.data = self.layout.pack(stacked, torch.float32, device=device)
+            data = layout.pack(stacked, torch.float32, device=device)
+        self._bind(data, layout, n_groups)
+
+    @classmethod
+    def from_flat(cls, data: torch.Tensor, layout: "ParamLayout", n_groups: int) -> "FlatParams":
+        """FlatParams over ``data``, an (n_rows, LANE) f32 buffer in
+        ``layout`` (kept, not copied)."""
+        self = cls.__new__(cls)
+        self._bind(data, layout, n_groups)
+        return self
+
+    def _bind(self, data: torch.Tensor, layout: "ParamLayout", n_groups: int) -> None:
+        if data.dtype != torch.float32 or tuple(data.shape) != (layout.n_rows, LANE):
+            raise ValueError(f"FlatParams: data {tuple(data.shape)} {data.dtype}, want "
+                             f"({layout.n_rows}, {LANE}) float32")
+        self.layout = layout
+        self.n_groups = n_groups
+        self.data = data
         self.grad = torch.zeros_like(self.data)
         data_tree = split_groups(self.layout.unpack(self.data), n_groups)
         grad_leaves = [g for _, g in tree_paths(split_groups(self.layout.unpack(self.grad),

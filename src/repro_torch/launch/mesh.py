@@ -58,6 +58,10 @@ class DataMesh:
         dist.broadcast(t, src)
         return t
 
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call."""
+        dist.barrier()
+
     def close(self) -> None:
         """Wait for every rank, then leave the process group (a rank that
         exits with the group alive can abort in its transport's threads)."""

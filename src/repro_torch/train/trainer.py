@@ -41,8 +41,12 @@ to every rank's params, so the params stay identical; update_norm comes
 from the shards' sums of squares and one scalar all-reduce.  The reference
 plan all-reduces the per-leaf stack and runs the tree math on every rank.
 Not yet ported: the microbatch source, stale steps, the vmap stats method
-and the baselines under a mesh, TP/FSDP sharding of the model's weights, and the noise-scale
-readings.
+and the baselines under a mesh, and TP/FSDP sharding of the model's weights.
+
+``noise_scale=True`` adds the gradient-noise-scale readings of a fresh VR
+step (core/noise_scale.py: plain reductions over the moments the step has
+built, so the step launches no more kernels) and the live LR; ``eval_loss``
+weighs each eval batch by its live tokens.
 """
 from __future__ import annotations
 
@@ -52,10 +56,12 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import Config
+from repro_torch.core import noise_scale as ns
 from repro_torch.core.accumulate import grad_only, grad_stats
 from repro_torch.core.distributed import device_grad_stats_fn
 from repro_torch.core.gsnr import gsnr_scale, gsnr_summary
 from repro_torch.core.layout import FlatBuffer, FlatParams, tree_leaves, tree_map
+from repro_torch.core.schedule import make_schedule
 from repro_torch.core.vrgd import make_optimizer
 from repro_torch.models import init_params
 from repro_torch.serve.engine import resolve_device
@@ -93,6 +99,7 @@ def make_train_step(
     log_gsnr: bool = False,
     device=None,
     mesh=None,
+    noise_scale: bool = False,
 ) -> Tuple[Callable, object]:
     """Returns (train_step(state, batch, with_stats=True) -> (state, metrics),
     optimizer).
@@ -102,7 +109,14 @@ def make_train_step(
     ``with_stats=False`` makes a VR step stale.  Metrics are 0-dim tensors:
     loss, grad_norm, update_norm, the loss's own (ce, pack_efficiency) and,
     with ``log_gsnr`` on a fresh VR step, gsnr/mean, gsnr/min and
-    gsnr/frac_floor; under a mesh they are the same on every rank."""
+    gsnr/frac_floor; under a mesh they are the same on every rank.
+
+    ``noise_scale=True`` adds ``lr`` (a float: the schedule at
+    ``state.step`` for the effective batch ``cfg.global_batch``) to every
+    step and, on a fresh VR step, noise/g2_small, noise/g2_big,
+    noise/tr_sigma, noise/g2 and noise/b_simple, with B_small = B/k and
+    B_big = B: from the moment carry on the microbatch source, from the
+    reduced payload's two sums under a mesh."""
     opt_cfg = cfg.optimizer
     if mesh is None and opt_cfg.gsnr_source != "microbatch":
         raise NotImplementedError(
@@ -128,7 +142,9 @@ def make_train_step(
     loss_fn = loss_fn or make_loss_fn(cfg)
     is_vr = opt_cfg.is_vr
     if mesh is not None:
-        device_stats = device_grad_stats_fn(loss_fn, mesh, backend=bk)
+        device_stats = device_grad_stats_fn(loss_fn, mesh, backend=bk,
+                                            with_noise_terms=noise_scale)
+    lr_fn = make_schedule(opt_cfg, effective_batch=cfg.global_batch) if noise_scale else None
     # the VR optimizers take and return FlatBuffers on the fused plan; the
     # baselines are tree math on either plan (core/baselines.py)
     flat_form = is_vr and bk.fused("optimizer", device)
@@ -137,11 +153,16 @@ def make_train_step(
                    ) -> Tuple[TrainState, Dict]:
         flat: FlatParams = state.params
         batch = _to_device(batch, flat.device)
+        noise = None
         if mesh is not None:
             if not with_stats:
                 raise NotImplementedError("a stale-GSNR step under a mesh is not yet ported")
-            loss, aux, stats = device_stats(flat, batch)
+            loss, aux, stats, *terms = device_stats(flat, batch)
             grads = stats.mean
+            if noise_scale:
+                noise = ns.estimate_from_terms(g2_small=terms[0][1], g2_big=terms[0][0],
+                                               b_small=cfg.global_batch / stats.k,
+                                               b_big=cfg.global_batch)
         elif is_vr:
             loss, aux, stats = grad_stats(loss_fn, flat, batch, opt_cfg.k,
                                           method=opt_cfg.stats_method, squares=with_stats,
@@ -149,6 +170,10 @@ def make_train_step(
             grads = stats.mean
             if not with_stats:
                 stats = None
+            elif noise_scale:
+                with torch.no_grad():
+                    noise = ns.estimate(stats, b_small=cfg.global_batch / stats.k,
+                                        b_big=cfg.global_batch)
         else:
             loss, aux, grads = grad_only(loss_fn, flat, batch)
             stats = None
@@ -170,6 +195,12 @@ def make_train_step(
         if log_gsnr and stats is not None:
             with torch.no_grad():
                 metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma), opt_cfg.gamma))
+        if noise_scale:
+            metrics["lr"] = lr_fn(state.step)
+            if noise is not None:
+                metrics.update({f"noise/{name}": getattr(noise, name) for name in
+                                ("g2_small", "g2_big", "tr_sigma", "g2", "b_simple")})
+        # _replace keeps the fields the step does not own (autoscale's k)
         return state._replace(opt_state=opt_state, step=opt_state["step"]), metrics
 
     return train_step, opt
@@ -194,6 +225,45 @@ def init_state(cfg: Config, params: Optional[Dict] = None, device=None,
     opt = make_optimizer(cfg.optimizer, backend=bk, effective_batch=cfg.global_batch,
                          spmd=_shard_plan(bk, mesh))
     return TrainState(flat, opt.init(flat), 0)
+
+
+def _live_tokens(batch) -> float:
+    """Real (non-pad) token count of a batch: explicit mask > packed
+    positions (pad rows carry position -1) > every element of the
+    targets/tokens leaf > leading dim for non-token batches."""
+    if isinstance(batch, dict):
+        if "mask" in batch:
+            return float((torch.as_tensor(batch["mask"]) > 0).sum())
+        if "positions" in batch:
+            return float((torch.as_tensor(batch["positions"]) >= 0).sum())
+        for key in ("targets", "tokens"):
+            if key in batch:
+                return float(torch.as_tensor(batch[key]).numel())
+    leaves = tree_leaves(batch)
+    return float(leaves[0].shape[0]) if leaves else 1.0
+
+
+def eval_loss(cfg: Config, loss_fn: Optional[Callable], params, batches: Iterable) -> float:
+    """Mean loss over an eval stream, each batch's token-mean loss weighted
+    by its REAL (non-pad) token count, so a padded final batch counts in
+    proportion to the tokens it holds.
+
+    ``params`` is a FlatParams (e.g. ``state.params``) or the port's params
+    tree; ``loss_fn`` None builds ``make_loss_fn(cfg)``.  ``batches`` may be
+    a data/memmap.py::IndexedPackedDataset: one finite pass over its epoch 0
+    is evaluated (``epoch_batches``).  Batches go to the params' device."""
+    if hasattr(batches, "epoch_batches"):
+        batches = batches.epoch_batches()
+    loss_fn = loss_fn or make_loss_fn(cfg)
+    tree = params.tree if isinstance(params, FlatParams) else params
+    device = tree_leaves(tree)[0].device
+    total = weight = 0.0
+    with torch.no_grad():
+        for b in batches:
+            w = _live_tokens(b)
+            total += float(loss_fn(tree, _to_device(b, device))[0]) * w
+            weight += w
+    return total / max(weight, 1.0)
 
 
 def train_loop(
