@@ -77,6 +77,17 @@ Phases, in order; any failure exits non-zero:
                 on the ranks and within NOISE_RTOL's bounds of the
                 single-card k = 2 ones), then the row-sharded state saved
                 (gathered) and restored, each rank's rows torch.equal.
+                (c) the other mesh paths, the same frame: two ranks at
+                global batch 64 with the microbatch source at k = 4 (each
+                microbatch's gradient reduce-scattered into the ranks'
+                rows, K3/K4 on the rows): three VR-LAMB steps, VR-Adam
+                fresh/stale/fresh (stale: K9 on the rows), one vmap
+                VR-LAMB step (K10 on the rows) and one LAMB step, each
+                against rank 0's single-card k = 4 run of the same method
+                whose loss takes each group in the ranks' halves
+                (rank_split_loss: the gradient rounded as the mesh rounds
+                it) within DP_TOL; launches per rank per step (no K11),
+                params bit-identical, each collective's wall and bytes.
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -1253,12 +1264,26 @@ TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 3e-3, "mv": 0.05, "p": 0.1
 # 80GB HBM3 (700 W), over both groups: loss 1.05e-5, grad_norm 2.67e-4,
 # gsnr/* 1.70e-4; after step 1 the update 5.35e-4 (VR-LARS; VR-SGD 1.06e-4,
 # so VR-SGD needs no bound of its own here), m and v 4.29e-4, p 1.86e-5.
-# Each bound is about ten times its largest gap.  Planted faults at two
+# Each bound is about ten times its largest gap.  Later runs of the same
+# W = 2 group (PR 19's code and the next, in turns in one call, the same
+# card) put VR-Adam's v 3.56e-3 and VR-LARS's update 3.47e-3 apart, the
+# same to four digits in both trees: within the bounds, with less room.
+# Planted faults at two
 # ranks on the same card: with the norm partials not all-reduced the update
 # moved by 2.6e-2 (VR-LAMB) and 8.0e-2 (VR-LARS), inside TRAIN_TOL; with
 # the per-leaf sum of r not all-reduced, VR-LAMB's update moved by 6.8e-3
 # and its m, v, p by 0.15-0.24 (PERF.md).
 DP_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "gsnr": 2e-3, "mv": 5e-3, "p": 2e-4, "upd": 5e-3}
+# Phase 10c's runs are held against single-card k = 4 runs within DP_TOL
+# too.  Under the mesh each microbatch's backward is split over the ranks:
+# a rank's weight gradient is rounded to bf16 over its half of the rows and
+# the halves are summed in f32.  One backward over all the rows rounds once
+# and sits a bf16 rounding away (the first full-width run measured, after
+# step 1, the update 1.19e-2, m 9.8e-3, v 1.17e-2, p 1.39e-2 apart; PERF.md),
+# so the single-card runs take their loss through rank_split_loss, which
+# takes each group in the ranks' halves and rounds as the mesh does.  Then
+# (H100 80GB HBM3, 700 W) loss 2.3e-6, grad_norm 2.8e-4, gsnr/* 8.5e-5,
+# the update 3.9e-5, m, v, p 8.5e-7 at most.
 TRAIN_STEPS = 3
 
 
@@ -1978,6 +2003,9 @@ class TimedMesh:
     def all_reduce_(self, t):
         return self._timed("all_reduce", self.mesh.all_reduce_, t)
 
+    def reduce_scatter_(self, t):
+        return self._timed("reduce_scatter", self.mesh.reduce_scatter_, t)
+
     def all_gather(self, out, t):
         return self._timed("all_gather", self.mesh.all_gather, out, t)
 
@@ -2061,35 +2089,71 @@ def dp_noise_checkpoint(rank, world, mesh, cfg, batch, params, flag_all, barrier
     return {"step_ms": ms, "save_ms": save_ms, "restore_ms": restore_ms, "bytes": size}
 
 
-def dp_counts(n_layers, name):
-    """Launches of one rank's fused data-parallel step: K1 twice and K2 once
-    per layer (one backward), K11 once, K13 and the optimizer's update kernel
-    once, the trust epilogue once for LAMB and LARS; every other count 0."""
-    want = fused_counts(n_layers, 1, DP_UPDATE[name], carry=None)
-    want.update(flat_pack_square=1, leaf_r_partials=1)
-    if name in ("vr_lamb", "vr_lars"):
+def dp_counts(n_layers, name, opt=None, fresh=True):
+    """Launches of one rank's fused data-parallel step of optimizer ``name``
+    under the OptimizerConfig overrides ``opt`` (default: the data-axis
+    source).  A fresh data-axis VR step: K1 twice and K2 once per layer
+    (one backward), K11 once.  The microbatch source (and every stale step):
+    K1 twice and K2 once per layer per microbatch with K3 per microbatch and
+    K4 once (stale: K9 per microbatch), or, under "vmap", K1 twice and K2
+    once per layer for all k with K10 once (stale: no carry kernel).  A
+    fresh VR step adds K13 and the update kernel once, LAMB and LARS the
+    trust epilogue once, as does a stale VR-LAMB step.  A baseline: one
+    backward over the whole batch.  Every other count 0."""
+    opt = {"gsnr_source": "data_axis"} if opt is None else opt
+    vr = name.startswith("vr_")
+    vmap = opt.get("stats_method") == "vmap"
+    if vr and fresh and opt.get("gsnr_source") == "data_axis":
+        passes, carry = 1, {"flat_pack_square": 1}
+    elif not vr:
+        passes, carry = 1, {}
+    elif vmap:
+        passes, carry = 1, {"flat_vmap_moments": 1} if fresh else {}
+    else:
+        k = opt["k"]
+        passes = k
+        carry = {"flat_moments_accum": k, "flat_moments_finalize": 1} if fresh else \
+            {"flat_g_accum": k}
+    want = fused_counts(n_layers, 1, carry=None, backward_passes=passes)
+    want.update(carry)
+    if vr and fresh:
+        want.update({DP_UPDATE[name]: 1, "leaf_r_partials": 1})
+    if (fresh and name in ("vr_lamb", "vr_lars")) or (not fresh and name == "vr_lamb"):
         want["trust_apply"] = 1
     return want
 
 
+def dp_state(state, name, mesh):
+    """Optimizer state ``name`` as a new whole flat f32 buffer: a row shard
+    gathered (a collective: every rank calls it), a tree packed."""
+    x = state.opt_state[name]
+    if getattr(x, "shard", None) is not None:
+        return x.shard.gather(x.data, mesh).float().cpu()
+    return flat_state(state, name).cpu()
+
+
 def dp_rank(rank, world, init, out_dir, global_batch, runs):
     """One rank of a data-parallel group on the card (gloo: every rank shares
-    card 0).  For each (optimizer, steps): rank 0 first runs the single-card
-    k = world microbatch steps from the same weights on the same batches
-    (its step-1 update and state kept on the host); then every rank runs the
-    data-parallel steps, the launch counts held per step, the params checked
-    bit-identical across the ranks after every step, and rank 0 holds the
-    run against the single-card one within DP_TOL (compare_plans).
-    Writes its counts, walls, collective walls and peak memory to
-    out_dir."""
+    card 0).  For each run (label, optimizer, the mesh run's OptimizerConfig
+    overrides, the single-card run's, each step's fresh flag, whether the
+    single-card loss splits each group over the ranks' rows):
+    rank 0 first runs the single-card microbatch steps from the same weights
+    on the same batches (its step-1 update and state kept on the host);
+    then every rank runs the data-parallel steps, the launch counts held per
+    step (``dp_counts``), the params checked bit-identical across the ranks
+    after every step, and rank 0 holds the run against the single-card one
+    within DP_TOL (compare_plans).  Writes its counts, walls,
+    collective walls and peak memory to out_dir."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.accumulate import rank_split_loss
     from repro_torch.core.layout import FlatParams, is_flat
     from repro_torch.data import lm_batches
     from repro_torch.launch.mesh import init_data_mesh
     from repro_torch.models import init_params
     from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.loss import make_loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2099,9 +2163,9 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     m = cfg.model
     label = f"dp W={world} rank {rank}"
     stream = lm_batches(m.vocab_size, global_batch, cfg.seq_len, seed=2)
-    batches = [next(stream) for _ in range(max(s for _, s in runs))]
+    batches = [next(stream) for _ in range(max(len(run[4]) for run in runs))]
     tokens = global_batch * cfg.seq_len
-    summary = {"counts": {}, "walls": {}, "peak_gib": 0.0, "collectives": {}}
+    summary = {"counts": {}, "walls": {}, "peaks": {}, "peak_gib": 0.0, "collectives": {}}
 
     def barrier():
         mesh.mesh.all_reduce_(torch.zeros(1, device=dev))
@@ -2113,16 +2177,17 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     def params():
         return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
 
-    for name, steps in runs:
+    for run, name, mesh_opt, single_opt, fresh, split in runs:
         ref = None
         if rank == 0:
-            rc = plan_config(cfg, "fused", name=name, k=world)
+            rc = plan_config(cfg, "fused", name=name, **single_opt)
             state = init_state(rc, params=params(), device=dev)
-            step = make_train_step(rc, log_gsnr=True, device=dev)[0]
+            loss = rank_split_loss(make_loss_fn(rc), world) if split else None
+            step = make_train_step(rc, loss, log_gsnr=True, device=dev)[0]
             hist, first = [], {}
-            for i, batch in enumerate(batches[:steps]):
+            for i, (batch, with_stats) in enumerate(zip(batches, fresh)):
                 w0 = state.params.data.clone() if i == 0 else None
-                state, metrics = step(state, batch)
+                state, metrics = step(state, batch, with_stats)
                 hist.append({k: float(v) for k, v in metrics.items()})
                 if i == 0:
                     first = {"upd": (state.params.data - w0).cpu(),
@@ -2133,7 +2198,7 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
             del state, step
             torch.cuda.empty_cache()
         barrier()
-        dc = plan_config(cfg, "fused", name=name, gsnr_source="data_axis")
+        dc = plan_config(cfg, "fused", name=name, **mesh_opt)
         torch.cuda.reset_peak_memory_stats()
         tree = params()
         own = FlatParams(tree, m.n_groups(), device=dev).data  # this rank's seeded weights
@@ -2141,56 +2206,58 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
         if not flag_all(torch.equal(own, state.params.data)):
             raise RuntimeError(f"{label}: the seeded weights differ across the ranks")
         del own, tree
-        if not all(is_flat(v) and v.shard is not None and v.shard.n_shards == world
-                   for k, v in state.opt_state.items() if k in ("m", "v", "p")):
+        if name.startswith("vr_") and not all(
+                is_flat(v) and v.shard is not None and v.shard.n_shards == world
+                for k, v in state.opt_state.items() if k in ("m", "v", "p")):
             raise RuntimeError(f"{label}: the flat state is not row-sharded")
         step = make_train_step(dc, log_gsnr=True, device=dev, mesh=mesh)[0]
-        want = dp_counts(m.n_layers, name)
         hist, first, walls = [], {}, []
-        for i, batch in enumerate(batches[:steps]):
+        for i, (batch, with_stats) in enumerate(zip(batches, fresh)):
+            want = dp_counts(m.n_layers, name, mesh_opt, with_stats)
             w0 = state.params.data.clone() if (i == 0 and rank == 0) else None
             reset_counts()
-            (state, metrics), ms = host_ms(lambda: step(state, batch))
+            (state, metrics), ms = host_ms(lambda: step(state, batch, with_stats))
             counts = read_counts()
             if counts != want:
-                raise RuntimeError(f"{label} {name} step {i}: launches {counts} != {want}")
+                raise RuntimeError(f"{label} {run} step {i}: launches {counts} != {want}")
             for k, c in counts.items():
                 summary["counts"][k] = summary["counts"].get(k, 0) + c
             walls.append(ms)
             copy = state.params.data.clone()
             mesh.broadcast_(copy)
             if not flag_all(torch.equal(copy, state.params.data)):
-                raise RuntimeError(f"{label} {name} step {i}: params differ across the ranks")
+                raise RuntimeError(f"{label} {run} step {i}: params differ across the ranks")
             del copy
             vals = {k: float(v) for k, v in metrics.items()}
             if not all(np.isfinite(list(vals.values()))):
-                raise RuntimeError(f"{label} {name} step {i}: non-finite metrics {vals}")
+                raise RuntimeError(f"{label} {run} step {i}: non-finite metrics {vals}")
             hist.append(vals)
             if i == 0:  # every rank takes part in the gathers
-                gathered = {nm: state.opt_state[nm].shard.gather(
-                    state.opt_state[nm].data, mesh).float().cpu()
-                    for nm in "mvp" if nm in state.opt_state}
+                gathered = {nm: dp_state(state, nm, mesh) for nm in "mvp"
+                            if nm in state.opt_state}
                 if rank == 0:
                     first = {"upd": (state.params.data - w0).cpu(), **gathered}
                     del w0
                 del gathered
             if rank == 0:
-                print(f"  {label} {name} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
-                      f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e} gsnr mean "
-                      f"{vals['gsnr/mean']:.5f}; params bit-identical on {world} ranks; "
-                      f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+                gsnr = (f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else
+                        " (stale)" if not with_stats else "")
+                print(f"  {label} {run} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
+                      f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e}{gsnr}; "
+                      f"params bit-identical on {world} ranks; launches "
+                      f"{ {k: c for k, c in counts.items() if c} }", flush=True)
         if rank == 0:
-            single = f"k{world}"
-            compare_plans(f"dp W={world} {name} vs single-card k={world}",
+            single = f"k{single_opt['k']}"
+            compare_plans(f"dp W={world} {run} vs single-card {single}",
                           {"dp": hist, single: ref[0]}, {"dp": first, single: ref[1]},
                           pair=("dp", single), tol=DP_TOL)
-        summary["walls"][name] = walls
-        summary["peak_gib"] = max(summary["peak_gib"],
-                                  torch.cuda.max_memory_allocated() / 2**30)
+        summary["walls"][run] = walls
+        summary["peaks"][run] = torch.cuda.max_memory_allocated() / 2**30
+        summary["peak_gib"] = max(summary["peak_gib"], summary["peaks"][run])
         del state, step, first, ref
         torch.cuda.empty_cache()
         barrier()
-    if world == 2:
+    if world == 2 and any(run[2].get("gsnr_source") == "data_axis" for run in runs):
         summary["noise_ckpt"] = dp_noise_checkpoint(rank, world, mesh, cfg, batches[0], params,
                                                     flag_all, barrier, summary, out_dir)
     summary["collectives"] = mesh.wall
@@ -2200,33 +2267,64 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     mesh.mesh.close()
 
 
-# (world, global batch, [(optimizer, steps)])
+def dp_axis_runs(world, runs):
+    """Phase 10b's runs: the data-axis source (k = W) against single-card
+    k = W microbatch steps, every step fresh."""
+    return tuple((name, name, {"gsnr_source": "data_axis"}, {"k": world}, (True,) * steps,
+                  False) for name, steps in runs)
+
+
+# (world, global batch, source, runs); a run is (label, optimizer, the mesh
+# run's OptimizerConfig overrides, the single-card run's, each step's fresh
+# flag, whether the single-card loss splits each group as the ranks do)
 DP_GROUPS = (
-    (2, 64, (("vr_lamb", TRAIN_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1))),
-    (4, 128, (("vr_lamb", TRAIN_STEPS),)),
+    (2, 64, "data_axis GSNR (k = 2)",
+     dp_axis_runs(2, (("vr_lamb", TRAIN_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1)))),
+    (4, 128, "data_axis GSNR (k = 4)", dp_axis_runs(4, (("vr_lamb", TRAIN_STEPS),))),
+)
+# Phase 10c: the microbatch source at k = 4 (each microbatch spread over the
+# ranks), stale steps, the vmap method and a baseline, against the
+# single-card runs of the same method at k = 4.
+DP_PATHS_K = 4
+DP_PATH_GROUPS = (
+    (2, 64, f"microbatch GSNR (k = {DP_PATHS_K}, each microbatch over the ranks)", (
+        ("vr_lamb", "vr_lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,) * TRAIN_STEPS,
+         True),
+        ("vr_adam refresh 2", "vr_adam", {"k": DP_PATHS_K, "gsnr_refresh": 2},
+         {"k": DP_PATHS_K, "gsnr_refresh": 2}, (True, False, True), True),
+        ("vr_lamb vmap", "vr_lamb", {"k": DP_PATHS_K, "stats_method": "vmap"},
+         {"k": DP_PATHS_K, "stats_method": "vmap"}, (True,), True),
+        ("lamb", "lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,), True),
+    )),
 )
 DP_DEADLINE_S = 600.0
 
 
-def phase_train_dp(records):
-    """10b: data-parallel bert-large at full width on the card, every rank a
-    process sharing the card over gloo (NCCL refuses two ranks on one
-    card).  Two ranks at global batch 64 (32 sequences per rank, phase 8's
-    microbatch): three VR-LAMB steps, then one step each of VR-Adam, VR-LARS
-    and VR-SGD, against single-card k=2 microbatch steps.  Four ranks at
-    global batch 128, whose row shards pad the layout (44,510 blocks): three
-    VR-LAMB steps against single-card k=4."""
+def phase_train_dp(records, groups, tag):
+    """10b (``DP_GROUPS``): data-parallel bert-large at full width on the
+    card, every rank a process sharing the card over gloo (NCCL refuses two
+    ranks on one card), data-axis GSNR.  Two ranks at global batch 64 (32
+    sequences per rank, phase 8's microbatch): three VR-LAMB steps, then one
+    step each of VR-Adam, VR-LARS and VR-SGD, against single-card k=2
+    microbatch steps.  Four ranks at global batch 128, whose row shards pad
+    the layout (44,510 blocks): three VR-LAMB steps against single-card k=4.
+    10c (``DP_PATH_GROUPS``): two ranks at global batch 64 with the
+    microbatch source at k = 4 (8 sequences per rank per microbatch): three
+    VR-LAMB steps, VR-Adam with gsnr_refresh 2 (fresh, stale, fresh), one
+    vmap VR-LAMB step and one LAMB step, against the single-card k = 4
+    runs, whose loss splits each group over the ranks' rows
+    (rank_split_loss)."""
     import tempfile
 
     from repro_torch.launch.mesh import local_init_method, run_ranks
 
     cfg = bert_train_config()
     path_counts = {}
-    for world, batch, runs in DP_GROUPS:
-        print(f"[train dp] {cfg.model.name} at full width, {cfg.model.n_layers} layers, {world} "
-              f"gloo ranks on one card, global batch {batch} ({batch // world} sequences per "
-              f"rank), seq {cfg.seq_len}, fused plan, data_axis GSNR (k = {world}): "
-              f"{', '.join(f'{s} x {n}' for n, s in runs)}", flush=True)
+    for world, batch, source, runs in groups:
+        print(f"[train dp {tag}] {cfg.model.name} at full width, {cfg.model.n_layers} layers, "
+              f"{world} gloo ranks on one card, global batch {batch} ({batch // world} sequences "
+              f"per rank), seq {cfg.seq_len}, fused plan, {source}: "
+              f"{', '.join(f'{len(run[4])} x {run[0]}' for run in runs)}", flush=True)
         out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
         t0 = time.perf_counter()
         try:
@@ -2246,9 +2344,9 @@ def phase_train_dp(records):
                              res["collectives"].items())
             walls = "; ".join(f"{n} {', '.join(f'{w:.1f}' for w in ws)}" for n, ws in
                               res["walls"].items())
-            print(f"  rank {r}: step walls (ms, host clock) {walls}; peak memory "
-                  f"{res['peak_gib']:.1f} GiB; collectives (host clock, card synchronized) "
-                  f"{coll}", flush=True)
+            peaks = ", ".join(f"{n} {p:.1f}" for n, p in res["peaks"].items())
+            print(f"  rank {r}: step walls (ms, host clock) {walls}; peak memory (GiB) "
+                  f"{peaks}; collectives (host clock, card synchronized) {coll}", flush=True)
             for k, c in res["counts"].items():
                 path_counts[k] = path_counts.get(k, 0) + c
         lamb = [w for res in ranks for w in res["walls"]["vr_lamb"][1:]]
@@ -3058,7 +3156,8 @@ def main() -> None:
         torch.cuda.empty_cache()        # has seen no device events
         phase_train_optimizers(records)
         phase_spmd_kernels(records, layout)
-        phase_train_dp(records)
+        phase_train_dp(records, DP_GROUPS, "10b")
+        phase_train_dp(records, DP_PATH_GROUPS, "10c")
         phase_per_leaf(records, layout)
         torch.cuda.synchronize()
     finally:

@@ -27,14 +27,17 @@ version.
 Data parallelism
 ----------------
 ``Backend.shard(mesh)`` returns a :class:`FlatSpmd` plan (the reference's
-``Backend.shard`` / ``FlatSpmd``): the fused VR update then runs PER ROW
-SHARD of the flat buffers on each rank of a ``launch/mesh.py::DataMesh``
-(``sharding/rules.py``), with the optimizer state holding only the rank's
-rows.  The per-leaf sums split into a partials kernel over the shard, one
-all-reduce of the small per-leaf accumulator and an apply or compute kernel
-(kernels/flat_spmd.py); LAMB and LARS add a second all-reduce of the norm
-sums before their trust-ratio epilogue.  The update comes back as the
-rank's rows; the trainer gathers it.
+``Backend.shard`` / ``FlatSpmd``): the fused VR update and the flat moment
+carry then run PER ROW SHARD of the flat buffers on each rank of a
+``launch/mesh.py::DataMesh`` (``sharding/rules.py``), with the optimizer
+state and the carry holding only the rank's rows.  The carry's sweeps (K3,
+K9, K4, K10) are element-wise and need no collective once the gradient is
+reduce-scattered into the rank's rows.  The update's per-leaf sums split
+into a partials kernel over the shard, one all-reduce of the small
+per-leaf accumulator and an apply or compute kernel (kernels/flat_spmd.py);
+LAMB and LARS add a second all-reduce of the norm sums before their
+trust-ratio epilogue.  The update comes back as the rank's rows; the
+trainer gathers it.
 """
 from __future__ import annotations
 
@@ -101,18 +104,25 @@ class Backend:
 
 
 class FlatSpmd:
-    """Per-shard flat VR updates on a data mesh.
+    """Per-shard flat stats sweeps and VR updates on a data mesh.
 
-    Every buffer argument but the state is the whole replicated flat buffer
-    (the all-reduced moments g, g2, the gradient ga, the params w); each
-    pipeline takes this rank's rows of it (``RowShard.local``: a view, or a
-    zero-padded copy on a shard that runs past the layout), runs the
-    kernels over them and combines the per-leaf sums with the mesh's
-    all-reduce.  The state m, v, p (LARS: m) is the rank's rows, updated in
-    place; the returned update and scaled gradient are the rank's rows too.
-    Zero padding rows add exact zeros to every per-leaf sum, so padding
-    changes no real row; a leaf that straddles two shards has its sums
-    added in another order (~1 ulp of the leaf scalar)."""
+    The params w are the whole replicated flat buffer, of which a method
+    takes this rank's rows (``RowShard.local``: a view, or a zero-padded
+    copy on a shard that runs past the layout).  Every other buffer, the
+    moments g, g2, the gradient ga, the carries, the state m, v, p (LARS:
+    m) and everything returned, is the rank's rows; the carries and the
+    state are updated in place.
+
+    The stats sweeps (``moments_accum``, ``g_accum``, ``moments_finalize``,
+    ``vmap_moments``: K3, K9, K4, K10 on the rows) are element-wise, so a
+    shard's rows are bit for bit the whole-buffer kernel's rows and need no
+    collective; ``reduce_rows`` / ``reduce_stack_rows`` sum a rank's whole
+    gradient over the mesh into its rows first (the mesh's
+    ``reduce_scatter_``).  The updates run the kernels over the rows and
+    combine the per-leaf sums with the mesh's all-reduce.  Zero padding rows
+    add exact zeros to every per-leaf sum, so padding changes no real row; a
+    leaf that straddles two shards has its sums added in another order (~1
+    ulp of the leaf scalar)."""
 
     def __init__(self, mesh, rules):
         self.mesh = mesh
@@ -134,10 +144,75 @@ class FlatSpmd:
         """True when the flat buffer of ``layout`` shards over the mesh."""
         return self.n_shards(layout) > 1
 
-    def _local(self, layout, *bufs):
+    def _local(self, layout, *rows, w=None):
+        """(block leaf ids, inverse leaf sizes, this rank's rows of the whole
+        params ``w``) of the shard; each buffer of ``rows`` must hold the
+        shard's rows."""
         sh = self.shard(layout)
-        meta = sh.device_meta(bufs[0].device)
-        return sh, meta["block_leaf_ids"], meta["inv_sizes"], [sh.local(x) for x in bufs]
+        if any(x.shape[0] != sh.rows for x in rows):
+            raise ValueError(f"buffers of {[x.shape[0] for x in rows]} rows where the shard "
+                             f"holds {sh.rows}")
+        meta = sh.device_meta(rows[0].device)
+        return meta["block_leaf_ids"], meta["inv_sizes"], None if w is None else sh.local(w)
+
+    # -- the gradient's rows: the sum over the ranks, times 1/W -------------
+
+    def _padded(self, layout, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (n_rows, LANE) with zero rows to W x the shard's rows
+        (``x`` itself when the blocks divide)."""
+        sh = self.shard(layout)
+        rows = sh.n_shards * sh.rows
+        if x.shape[0] == rows:
+            return x
+        out = x.new_zeros((rows, x.shape[1]))
+        out[: x.shape[0]] = x
+        return out
+
+    def reduce_rows(self, g: torch.Tensor, layout) -> torch.Tensor:
+        """This rank's rows of (the ranks' whole flat buffers g summed) x
+        1/W, as the data-axis payload is scaled: a new f32 tensor of the
+        shard's rows (one reduce-scatter of g, zero-padded to whole
+        shards)."""
+        from repro_torch.kernels.flat_stats import inv_k
+
+        return self.mesh.reduce_scatter_(self._padded(layout, g)).mul_(inv_k(self.mesh.size))
+
+    def reduce_stack_rows(self, gstack: torch.Tensor, layout) -> torch.Tensor:
+        """``reduce_rows`` of each slice of a (k, n_rows, LANE) stack -> a
+        new (k, shard rows, LANE) stack."""
+        return torch.stack([self.reduce_rows(s, layout) for s in gstack])
+
+    # -- flat-stats sweeps on the rows (element-wise: no collective) ---------
+
+    def moments_accum(self, gs, g2s, g, layout):
+        """One microbatch into the rank's (g_sum, g2_sum) rows (K3, in
+        place)."""
+        from repro_torch.kernels import flat_stats as fs
+
+        return fs.flat_moments_accum(gs, g2s, g)
+
+    def g_accum(self, gs, g, layout):
+        """One microbatch into the rank's g-only carry rows (K9, in
+        place)."""
+        from repro_torch.kernels import flat_stats as fs
+
+        return fs.flat_g_accum(gs, g)
+
+    def moments_finalize(self, gs, g2s, k, layout):
+        """The /k of the rank's carry rows (K4, in place) -> (mean,
+        sq_mean) rows."""
+        from repro_torch.kernels import flat_stats as fs
+
+        return fs.flat_moments_finalize(gs, g2s, k)
+
+    def vmap_moments(self, gstack, k, layout):
+        """(mean, sq_mean) rows of a (k, shard rows, LANE) stack of the
+        rank's rows (K10)."""
+        from repro_torch.kernels import flat_stats as fs
+
+        return fs.flat_vmap_moments(gstack, k)
+
+    # -- optimizer updates (partials kernel -> all-reduce -> apply kernel) ---
 
     def _racc(self, g, g2, lids, layout, eps):
         from repro_torch.kernels import flat_spmd as fsp
@@ -149,7 +224,7 @@ class FlatSpmd:
         """(r * ga, r) over this rank's rows."""
         from repro_torch.kernels import flat_spmd as fsp
 
-        _, lids, inv, (g, ga, g2) = self._local(layout, g, ga, g2)
+        lids, inv, _ = self._local(layout, g, ga, g2)
         racc = self._racc(g, g2, lids, layout, eps)
         return fsp.vr_scale_apply(g, ga, g2, racc, lids, inv, gamma=gamma, eps=eps)
 
@@ -157,7 +232,7 @@ class FlatSpmd:
         """(upd, m', v', p') over this rank's rows; m, v, p are its rows."""
         from repro_torch.kernels import flat_spmd as fsp
 
-        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        lids, inv, w = self._local(layout, g, ga, g2, w=w)
         racc = self._racc(g, g2, lids, layout, hyper["gsnr_eps"])
         return fsp.vr_adam_apply(g, ga, g2, m, v, p, w, scal, racc, lids, inv, **hyper)
 
@@ -165,7 +240,7 @@ class FlatSpmd:
         """(upd, m', v', p') over this rank's rows; m, v, p are its rows."""
         from repro_torch.kernels import flat_spmd as fsp
 
-        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        lids, inv, w = self._local(layout, g, ga, g2, w=w)
         racc = self._racc(g, g2, lids, layout, hyper["gsnr_eps"])
         u, m, v, p, acc = fsp.vr_lamb_compute(g, ga, g2, m, v, p, w, scal, racc, lids, inv,
                                               **hyper)
@@ -176,9 +251,24 @@ class FlatSpmd:
         """(upd, m') over this rank's rows; m (f32) is its rows."""
         from repro_torch.kernels import flat_spmd as fsp
 
-        _, lids, inv, (g, ga, g2, w) = self._local(layout, g, ga, g2, w)
+        lids, inv, w = self._local(layout, g, ga, g2, w=w)
         racc = self._racc(g, g2, lids, layout, eps)
         u, acc = fsp.vr_lars_compute(g, ga, g2, w, scal, racc, lids, inv, wd=wd, eps=eps)
         self.mesh.all_reduce_(acc)
         return fsp.trust_apply(u, acc, lids, lr=float(scal[0]), lamb=False, m=m, mu=mu,
                                trust=trust)
+
+    def lamb_trust(self, d, w, layout, *, lr, wd):
+        """The stale-step LAMB epilogue over this rank's rows: u = d + wd w,
+        the shard's per-leaf sums of u^2 and w^2 (plain torch, as the
+        reference's ``lamb_trust_flat``), one all-reduce of them, then the
+        trust epilogue (``trust_apply``) -> the update rows."""
+        from repro_torch.kernels import flat_spmd as fsp
+
+        lids, _, w = self._local(layout, d, w=w)
+        u = d + wd * w
+        wf = w.float()
+        acc = torch.stack((fsp.shard_sums(u * u, lids, layout.leaf_slots),
+                           fsp.shard_sums(wf * wf, lids, layout.leaf_slots)))
+        self.mesh.all_reduce_(acc)
+        return fsp.trust_apply(u, acc, lids, lr=float(lr), lamb=True)

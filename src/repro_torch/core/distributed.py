@@ -59,9 +59,18 @@ def _split_like(tree, buf: torch.Tensor):
     return tree_map(take, tree)
 
 
+def mean_over_ranks(mesh, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The ranks' mean of the loss and of each aux scalar (one all-reduce,
+    times the f32 1/W)."""
+    names = sorted(aux)
+    scalars = torch.stack([loss.float()] + [aux[n].float() for n in names])
+    scalars = mesh.all_reduce_(scalars).mul_(inv_k(mesh.size))
+    return scalars[0], {n: scalars[i + 1] for i, n in enumerate(names)}
+
+
 def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
                          backend: Optional[Backend] = None,
-                         with_noise_terms: bool = False) -> Callable:
+                         with_noise_terms: bool = False, spmd=None) -> Callable:
     """Returns f(params, batch) -> (loss, aux, GradStats) with k = mesh.size,
     or (loss, aux, GradStats, terms) with ``with_noise_terms``, where terms
     is the (2,) f32 tensor [|G_big|^2, |G_small|^2].
@@ -70,7 +79,10 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
     the GLOBAL batch, of which the rank takes its rows; ``loss_fn(tree,
     batch) -> (loss, aux dict)`` as for core/accumulate.py::grad_stats.
     Every rank returns the same loss, aux and statistics: FlatBuffers on the
-    fused ``stats`` plan, stacked trees on the reference plan."""
+    fused ``stats`` plan, stacked trees on the reference plan.  With a
+    sharding plan ``spmd`` (``Backend.shard(mesh)``) whose layout shards,
+    the FlatBuffers are the rank's rows of the reduced moments, as the
+    sharded update takes them."""
     bk = backend if backend is not None else Backend()
     k = mesh.size
     inv = inv_k(k)
@@ -88,7 +100,12 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
             else:  # the paper's two collectives over the flat carries
                 mean = mesh.all_reduce_(g.clone()).mul_(inv)
                 sq = mesh.all_reduce_(g * g).mul_(inv)
-            stats = GradStats(FlatBuffer(mean, layout), FlatBuffer(sq, layout), k)
+            if spmd is not None and spmd.supports(layout):
+                sh = spmd.shard(layout)
+                stats = GradStats(FlatBuffer(sh.local(mean), layout, sh),
+                                  FlatBuffer(sh.local(sq), layout, sh), k)
+            else:
+                stats = GradStats(FlatBuffer(mean, layout), FlatBuffer(sq, layout), k)
         else:
             grads = params.stacked("grad")
             flat = _concat(grads)
@@ -99,10 +116,8 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
                 sq = mesh.all_reduce_(flat * flat).mul_(inv)
                 mean = mesh.all_reduce_(flat).mul_(inv)
             stats = GradStats(_split_like(grads, mean), _split_like(grads, sq), k)
-        names = sorted(aux)
-        scalars = torch.stack([loss.detach().float()] + [aux[n].detach().float() for n in names])
-        scalars = mesh.all_reduce_(scalars).mul_(inv)
-        out = (scalars[0], {n: scalars[i + 1] for i, n in enumerate(names)}, stats)
+        out = (*mean_over_ranks(mesh, loss.detach(), {n: v.detach() for n, v in aux.items()}),
+               stats)
         if with_noise_terms:
             # mean and sq are the reduced moments (whole buffers on the flat
             # path, zero tail padding) on every rank

@@ -71,16 +71,48 @@ def gsnr_scale(stats: GradStats, gamma: float = 0.1, eps: float = 1e-12) -> PyTr
     return clip_ratio(normalize_per_layer(raw_gsnr(stats, eps)), gamma)
 
 
+def _summary(total, floor, low, n: int) -> dict:
+    return {
+        "gsnr/mean": (total / n).float(),
+        "gsnr/min": low,
+        "gsnr/frac_floor": (floor.double() / n).float(),
+    }
+
+
+def _at_floor(x: torch.Tensor, gamma: float) -> torch.Tensor:
+    return x <= gamma * (1 + 1e-5)
+
+
 def gsnr_summary(scale: PyTree, gamma: float = 0.1) -> dict:
     """Scalar diagnostics over every element: mean, min and the fraction
     clipped at the floor.  Reduced leaf by leaf (the reference concatenates
     the leaves first; the values are the same up to summation order)."""
     leaves = [x.reshape(-1) for x in tree_leaves(scale)]
-    n = sum(x.numel() for x in leaves)
-    total = torch.stack([x.double().sum() for x in leaves]).sum()
-    floor = torch.stack([(x <= gamma * (1 + 1e-5)).sum() for x in leaves]).sum()
-    return {
-        "gsnr/mean": (total / n).float(),
-        "gsnr/min": torch.stack([x.min() for x in leaves]).min(),
-        "gsnr/frac_floor": (floor.double() / n).float(),
-    }
+    return _summary(torch.stack([x.double().sum() for x in leaves]).sum(),
+                    torch.stack([_at_floor(x, gamma).sum() for x in leaves]).sum(),
+                    torch.stack([x.min() for x in leaves]).min(),
+                    sum(x.numel() for x in leaves))
+
+
+def gsnr_summary_rows(stats: GradStats, gamma: float, mesh, eps: float = 1e-12) -> dict:
+    """``gsnr_summary(gsnr_scale(stats, gamma, eps), gamma)`` of a carry
+    whose FlatBuffers hold this rank's rows of a layout (a RowShard): r of
+    the rows (``raw_gsnr``), the per-leaf sums of r (f64) all-reduced for
+    the leaf means, ``clip_ratio``, then the summary's sum and floor count
+    over the rows' leaf elements (padding left out) all-reduced and the
+    ranks' minima gathered; every rank returns the same values."""
+    shard = stats.mean.shard
+    layout = shard.layout
+    r = raw_gsnr(GradStats(stats.mean.data, stats.sq_mean.data, stats.k), eps)
+    rid = shard.device_meta(r.device)["row_ids"]
+    leaf = torch.zeros(layout.n_leaves, dtype=torch.float64, device=r.device)
+    leaf = mesh.all_reduce_(leaf.index_add_(0, rid, r.double().sum(dim=1)))
+    sizes = torch.tensor(layout.sizes, dtype=torch.float64, device=r.device)
+    leaf_mean = torch.clamp((leaf / sizes).float(), min=1e-30)
+    scale = clip_ratio(r / leaf_mean[rid][:, None], gamma)
+    live = shard.live(r.device)
+    sums = mesh.all_reduce_(torch.stack([torch.where(live, scale, 0.0).double().sum(),
+                                         (_at_floor(scale, gamma) & live).sum().double()]))
+    low = torch.where(live, scale, torch.inf).min()[None]
+    lows = mesh.all_gather(torch.empty(mesh.size, dtype=low.dtype, device=low.device), low)
+    return _summary(sums[0], sums[1], lows.min(), sum(layout.sizes))

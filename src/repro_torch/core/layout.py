@@ -304,16 +304,27 @@ class RowShard:
 
     def device_meta(self, device) -> Dict[str, torch.Tensor]:
         """The shard's maps on ``device`` (made once per device):
-        ``block_leaf_ids`` (n_blocks,) int32 and the layout's
+        ``block_leaf_ids`` (n_blocks,) int32, ``row_ids`` (rows,) int64 (the
+        leaf of each row, 0 for a padding row) and the layout's
         ``inv_sizes``."""
         device = torch.device(device)
         meta = self._meta.get(device)
         if meta is None:
+            lids = torch.as_tensor(self.block_leaf_ids(), device=device)
             meta = self._meta[device] = {
-                "block_leaf_ids": torch.as_tensor(self.block_leaf_ids(), device=device),
+                "block_leaf_ids": lids,
+                "row_ids": lids.long().repeat_interleave(self.layout.block_rows),
                 "inv_sizes": self.layout.device_meta(device)["inv_sizes"],
             }
         return meta
+
+    def live(self, device) -> torch.Tensor:
+        """(rows, LANE) bool, made once per device: True where an element
+        of the shard's rows belongs to a leaf (``pad_mask``'s rows)."""
+        key = ("live", torch.device(device))
+        if key not in self._meta:
+            self._meta[key] = self.local(pad_mask(self.layout, device)).clone()
+        return self._meta[key]
 
     def local(self, buf: torch.Tensor) -> torch.Tensor:
         """The shard's rows of a whole (n_rows, LANE) buffer: a view, or a
@@ -367,6 +378,14 @@ class FlatBuffer:
 
 def is_flat(x: Any) -> bool:
     return isinstance(x, FlatBuffer)
+
+
+def shard_rows(x: FlatBuffer, shard: RowShard) -> FlatBuffer:
+    """``x`` as ``shard``'s rows: ``x`` itself when it holds a shard's rows
+    already, else its rows of the whole buffer (``RowShard.local``)."""
+    if x.shard is not None:
+        return x
+    return FlatBuffer(shard.local(x.data), x.layout, shard)
 
 
 def unpack_tree(tree):

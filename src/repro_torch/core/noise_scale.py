@@ -67,10 +67,13 @@ class NoiseTerms(NamedTuple):
     per_leaf: Optional[torch.Tensor] = None
 
 
-def noise_terms(stats: GradStats, *, per_leaf: bool = False) -> NoiseTerms:
+def noise_terms(stats: GradStats, *, per_leaf: bool = False, mesh=None) -> NoiseTerms:
     """Read |G_small|^2 and |G_big|^2 off a GradStats carry: flat carries in
     one pass over the packed buffers (one segment-sum when ``per_leaf``),
-    tree carries leaf by leaf (the same values up to summation order)."""
+    tree carries leaf by leaf (the same values up to summation order).  A
+    flat carry of a rank's rows (FlatBuffers with a ``shard``) sums its
+    rows, then one all-reduce over ``mesh`` adds the ranks' sums (padding
+    rows are zero)."""
     if stats.sq_mean is None:
         raise ValueError(
             "noise_terms needs second moments (GradStats.sq_mean is None — "
@@ -79,15 +82,23 @@ def noise_terms(stats: GradStats, *, per_leaf: bool = False) -> NoiseTerms:
         )
     if is_flat(stats.mean):
         mean, sq = stats.mean, stats.sq_mean
+        shard = mean.shard
+        if shard is not None and mesh is None:
+            raise ValueError("noise_terms: the carry holds a rank's rows; pass its mesh")
         if not per_leaf:  # one read of each buffer, no temporary
             m = mean.data.reshape(-1)
-            return NoiseTerms(g2_small=torch.sum(sq.data), g2_big=torch.dot(m, m))
+            terms = torch.stack([torch.sum(sq.data), torch.dot(m, m)])
+            if shard is not None:
+                mesh.all_reduce_(terms)
+            return NoiseTerms(g2_small=terms[0], g2_big=terms[1])
         # (2, rows): lane-reduced [mean^2, sq_mean] rows, then one segment-sum
         rows = torch.stack([torch.sum(torch.square(mean.data), dim=-1),
                             torch.sum(sq.data, dim=-1)])
-        ids = mean.layout.device_meta(rows.device)["row_ids"]
+        meta = (mean.layout if shard is None else shard).device_meta(rows.device)
         leaf = torch.zeros((mean.layout.n_leaves, 2), dtype=rows.dtype, device=rows.device)
-        leaf.index_add_(0, ids, rows.T)
+        leaf.index_add_(0, meta["row_ids"], rows.T)
+        if shard is not None:
+            mesh.all_reduce_(leaf)
         return NoiseTerms(g2_small=torch.sum(leaf[:, 1]), g2_big=torch.sum(leaf[:, 0]),
                           per_leaf=leaf)
     leaves_m = tree_leaves(stats.mean)
@@ -123,9 +134,10 @@ def estimate_from_terms(g2_small, g2_big, b_small: float, b_big: float) -> Noise
                               b_simple=b_simple)
 
 
-def estimate(stats: GradStats, b_small: float, b_big: float) -> NoiseScaleEstimate:
-    """GradStats carry -> NoiseScaleEstimate (see the module note)."""
-    terms = noise_terms(stats)
+def estimate(stats: GradStats, b_small: float, b_big: float, mesh=None) -> NoiseScaleEstimate:
+    """GradStats carry -> NoiseScaleEstimate (see the module note); ``mesh``
+    for a carry of a rank's rows."""
+    terms = noise_terms(stats, mesh=mesh)
     return estimate_from_terms(terms.g2_small, terms.g2_big, b_small, b_big)
 
 

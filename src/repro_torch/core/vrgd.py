@@ -40,7 +40,9 @@ Amortized-GSNR "stale" steps (``stats=None``, VR-Adam and VR-LAMB only):
 the GSNR momentum p is left untouched and the stale p̂ rescales the fresh
 gradient.  On flat state the element-wise math below runs directly on the
 flat buffers (plain torch, no kernel), and VR-LAMB's trust ratio is
-``kernels/ops.py::lamb_trust_flat``.
+``kernels/ops.py::lamb_trust_flat``.  Under a mesh the gradient and the
+state are the rank's rows, the chain runs on them and the trust ratio's
+per-leaf sums are combined with one all-reduce (``FlatSpmd.lamb_trust``).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ import torch
 from repro_torch.backend import Backend
 from repro_torch.core import baselines as B
 from repro_torch.core.gsnr import GradStats, gsnr_scale
-from repro_torch.core.layout import FlatBuffer, FlatParams, is_flat, tree_leaves, tree_map
+from repro_torch.core.layout import (FlatBuffer, FlatParams, is_flat, shard_rows, tree_leaves,
+                                     tree_map)
 
 
 def _require(stats: Optional[GradStats]) -> GradStats:
@@ -85,6 +88,14 @@ def _fused(bk: Backend, name: str, grads, state) -> bool:
                 f"resolves optimizer={bk.resolve('optimizer', device)!r} on {device}; init the "
                 "state on the device the update runs on")
     return fused
+
+
+def _like(params, d):
+    """The params in the form of the direction ``d``: the rank's rows of
+    the whole flat buffer when ``d`` holds a row shard."""
+    if is_flat(d) and d.shard is not None:
+        return shard_rows(params, d.shard)
+    return params
 
 
 def bias_corrections(state, b1: float, b2: float, b3: float, fresh: bool = True):
@@ -198,7 +209,7 @@ def vr_adam(
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
                                     state_dtype)
         if wd and params is not None:
-            d = tree_map(lambda d_, p_: d_ + wd * p_, d, params)
+            d = tree_map(lambda d_, p_: d_ + wd * p_, d, _like(params, d))
         return tree_map(lambda d_: -lr * d_, d), new_state
 
     return B.Transform(init, update)
@@ -267,7 +278,7 @@ def vr_lamb(
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
                                     state_dtype)
         if fused:
-            return kops.lamb_trust_flat(d, params, lr, wd), new_state
+            return kops.lamb_trust_flat(d, params, lr, wd, spmd), new_state
         return tree_map(lambda d_, p_: B.lamb_trust(d_, p_, lr, wd), d, params), new_state
 
     return B.Transform(init, update)

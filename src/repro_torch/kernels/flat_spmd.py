@@ -65,7 +65,7 @@ def _row_ids(lids: torch.Tensor, rows: int) -> torch.Tensor:
     return lids.long().repeat_interleave(rows // lids.numel())
 
 
-def _sums(x: torch.Tensor, lids: torch.Tensor, leaf_slots: int) -> torch.Tensor:
+def shard_sums(x: torch.Tensor, lids: torch.Tensor, leaf_slots: int) -> torch.Tensor:
     """(leaf_slots,) f32 per-leaf sums of the shard's rows of x."""
     out = torch.zeros(leaf_slots, dtype=torch.float32, device=x.device)
     return out.index_add_(0, _row_ids(lids, x.shape[0]), x.float().sum(dim=1))
@@ -81,7 +81,7 @@ def _ratio(g, g2, racc, lids, inv, gamma, gsnr_eps) -> torch.Tensor:
 
 def leaf_r_partials_ref(g, g2, lids, leaf_slots: int, *, gsnr_eps):
     """Plain version of ``leaf_r_partials``."""
-    return _sums(raw_r(g, g2, gsnr_eps), lids, leaf_slots)
+    return shard_sums(raw_r(g, g2, gsnr_eps), lids, leaf_slots)
 
 
 def vr_scale_apply_ref(g, ga, g2, racc, lids, inv, *, gamma, eps):
@@ -110,7 +110,8 @@ def vr_lamb_compute_ref(g, ga, g2, m, v, p, w, scal: Sequence[float], racc, lids
     """Plain version of ``vr_lamb_compute``; m, v, p are updated in place."""
     u = _adam(g, ga, g2, m, v, p, w, scal, racc, lids, inv, b1, b2, b3, eps, wd, gamma, gsnr_eps)
     wf = w.float()
-    acc = torch.stack((_sums(u * u, lids, racc.numel()), _sums(wf * wf, lids, racc.numel())))
+    acc = torch.stack((shard_sums(u * u, lids, racc.numel()),
+                       shard_sums(wf * wf, lids, racc.numel())))
     return u, m, v, p, acc
 
 
@@ -118,7 +119,8 @@ def vr_lars_compute_ref(g, ga, g2, w, scal: Sequence[float], racc, lids, inv, *,
     """Plain version of ``vr_lars_compute``; scal = (lr, gamma)."""
     wf = w.float()
     u = _ratio(g, g2, racc, lids, inv, float(scal[1]), eps) * ga.float() + wd * wf
-    acc = torch.stack((_sums(u * u, lids, racc.numel()), _sums(wf * wf, lids, racc.numel())))
+    acc = torch.stack((shard_sums(u * u, lids, racc.numel()),
+                       shard_sums(wf * wf, lids, racc.numel())))
     return u, acc
 
 

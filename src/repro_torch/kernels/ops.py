@@ -9,19 +9,23 @@ reduction (``vmap_moments_flat``) and the VR updates (``vr_scale_tree``
 for VR-SGD/Momentum, ``vr_adam_update``, ``vr_lamb_update``,
 ``vr_lars_update``) over the ParamLayout flat buffers: one kernel wrapper
 call each.  ``lamb_trust_flat``, the stale-step LAMB epilogue, is plain
-torch, as the reference computes it outside any kernel.  The GSNR ratio
+torch, as the reference computes it outside any kernel (on a rank's rows:
+plain partial sums, one all-reduce and the ``trust_apply`` kernel).  The GSNR ratio
 derives from the raw group moments (stats.mean, stats.sq_mean) but
 multiplies the gradient entering the update (``grads``, possibly
 grad-clipped); moments are stored in ``state_dtype`` and the GSNR-momentum
 bias correction uses the stats counter ``pt``.  Gradients, params, state
 and updates are FlatBuffers.
 
-Under a data mesh the VR updates take an ``spmd`` plan (backend.FlatSpmd),
-as in the reference: when the layout's flat buffer shards over the mesh the
-update runs per row shard (kernels/flat_spmd.py with the collectives
-between the launches), the state is the rank's rows and the update and
-scaled gradient come back as the rank's rows (FlatBuffers with a
-``shard``).
+Under a data mesh the VR updates and the moment carry take an ``spmd``
+plan (backend.FlatSpmd), as in the reference (``_spmd_for(spmd,
+layout)``): when the layout's flat buffer shards over the mesh, K3, K9, K4
+and K10 run over the rank's rows of the carries (element-wise: the rows
+equal the whole-buffer kernel's), the update runs per row shard
+(kernels/flat_spmd.py with the collectives between the launches) on the
+rank's rows of the moments, the gradient and the state, and the update
+and scaled gradient come back as the rank's rows (FlatBuffers with a
+``shard``); the params stay the whole replicated buffer.
 """
 from __future__ import annotations
 
@@ -118,7 +122,8 @@ def vr_adam_update(grads: FlatBuffer, state, stats: GradStats, lr, b1, b2, b3, e
     params the weight decay is skipped (zeros stand in for w), as in the
     reference."""
     if params is None:
-        params, wd = FlatBuffer(torch.zeros_like(grads.data), grads.layout), 0.0
+        params, wd = FlatBuffer(grads.layout.zeros(grads.data.dtype, grads.data.device),
+                                grads.layout), 0.0
     return _adam_family(fu.flat_vr_adam, "vr_adam", grads, state, stats, lr, b1, b2, b3, eps,
                         wd, gamma, gsnr_eps, params, state_dtype, spmd)
 
@@ -147,11 +152,19 @@ def vr_lars_update(grads: FlatBuffer, state, stats: GradStats, lr, mu, wd, trust
             {"step": state["step"] + 1, "m": FlatBuffer(m, layout, shard)})
 
 
-def lamb_trust_flat(d: FlatBuffer, params: FlatBuffer, lr, wd) -> FlatBuffer:
+def lamb_trust_flat(d: FlatBuffer, params: FlatBuffer, lr, wd, spmd=None) -> FlatBuffer:
     """The stale-step LAMB epilogue over the flat buffer, in plain torch:
     u = d + wd w, upd = -lr ratio_leaf u with the per-leaf norms summed by
-    leaf id (the zero tail adds nothing)."""
+    leaf id (the zero tail adds nothing).  When ``d`` holds a rank's rows,
+    over those rows (``FlatSpmd.lamb_trust``: the partial sums, one
+    all-reduce, ``trust_apply``)."""
     layout = d.layout
+    if d.shard is not None:
+        plan = _spmd_for(spmd, layout)
+        if plan is None:
+            raise ValueError("lamb_trust_flat: the direction is a row shard; pass its plan")
+        return FlatBuffer(plan.lamb_trust(d.data, params.data, layout, lr=lr, wd=wd), layout,
+                          d.shard)
     w = params.data
     u = d.data + wd * w
     un = torch.sqrt(leaf_sums(layout, u * u))
@@ -160,31 +173,65 @@ def lamb_trust_flat(d: FlatBuffer, params: FlatBuffer, lr, wd) -> FlatBuffer:
     return FlatBuffer(-lr * rows_of(layout, ratio) * u, layout)
 
 
-def moments_init_flat(layout: ParamLayout, device):
-    """Flat zero carries (g_sum, g2_sum) for the accumulation loop."""
-    return layout.zeros(torch.float32, device), layout.zeros(torch.float32, device)
+def moments_init_flat(layout: ParamLayout, device, spmd=None):
+    """Flat zero carries (g_sum, g2_sum) for the accumulation loop: the
+    rank's rows under a sharding plan."""
+    return flat_zeros(layout, device, spmd), flat_zeros(layout, device, spmd)
 
 
-def moments_accum_flat(g_sum, g2_sum, g):
+def flat_zeros(layout: ParamLayout, device, spmd=None) -> torch.Tensor:
+    """A zero f32 carry: the whole buffer, or the rank's rows under a
+    sharding plan."""
+    plan = _spmd_for(spmd, layout)
+    if plan is None:
+        return layout.zeros(torch.float32, device)
+    return plan.shard(layout).zeros(torch.float32, device)
+
+
+def moments_accum_flat(g_sum, g2_sum, g, layout: ParamLayout = None, spmd=None):
     """One microbatch's flat gradient into both carries (one launch, in
-    place)."""
+    place); under a sharding plan the carries and ``g`` are the rank's rows
+    and K3 runs over them."""
+    plan = _spmd_for(spmd, layout)
+    if plan is not None:
+        return plan.moments_accum(g_sum, g2_sum, g, layout)
     return fs.flat_moments_accum(g_sum, g2_sum, g)
 
 
-def g_accum_flat(g_sum, g):
+def g_accum_flat(g_sum, g, layout: ParamLayout = None, spmd=None):
     """One microbatch's flat gradient into the g-only carry of a stale-GSNR
-    step (one launch, in place)."""
+    step (one launch, in place; the rank's rows under a sharding plan)."""
+    plan = _spmd_for(spmd, layout)
+    if plan is not None:
+        return plan.g_accum(g_sum, g, layout)
     return fs.flat_g_accum(g_sum, g)
 
 
-def vmap_moments_flat(gstack, k: int, layout: ParamLayout) -> GradStats:
+def _stats(mean, sq, k, layout, plan) -> GradStats:
+    shard = None if plan is None else plan.shard(layout)
+    return GradStats(mean=FlatBuffer(mean, layout, shard), sq_mean=FlatBuffer(sq, layout, shard),
+                     k=k)
+
+
+def vmap_moments_flat(gstack, k: int, layout: ParamLayout, spmd=None) -> GradStats:
     """The (k, n_rows, LANE) gradient stack of the vmap stats method ->
-    GradStats of FlatBuffers (one launch)."""
-    mean, sq = fs.flat_vmap_moments(gstack, k)
-    return GradStats(mean=FlatBuffer(mean, layout), sq_mean=FlatBuffer(sq, layout), k=k)
+    GradStats of FlatBuffers (one launch); under a sharding plan the stack
+    is (k, shard rows, LANE), the rank's rows of each slice, and K10 runs
+    over them."""
+    plan = _spmd_for(spmd, layout)
+    if plan is not None:
+        mean, sq = plan.vmap_moments(gstack, k, layout)
+    else:
+        mean, sq = fs.flat_vmap_moments(gstack, k)
+    return _stats(mean, sq, k, layout, plan)
 
 
-def moments_finalize_flat(g_sum, g2_sum, k: int, layout: ParamLayout) -> GradStats:
-    """The /k normalize (one launch, in place) -> GradStats of FlatBuffers."""
-    mean, sq = fs.flat_moments_finalize(g_sum, g2_sum, k)
-    return GradStats(mean=FlatBuffer(mean, layout), sq_mean=FlatBuffer(sq, layout), k=k)
+def moments_finalize_flat(g_sum, g2_sum, k: int, layout: ParamLayout, spmd=None) -> GradStats:
+    """The /k normalize (one launch, in place) -> GradStats of FlatBuffers
+    (the rank's rows under a sharding plan)."""
+    plan = _spmd_for(spmd, layout)
+    if plan is not None:
+        mean, sq = plan.moments_finalize(g_sum, g2_sum, k, layout)
+    else:
+        mean, sq = fs.flat_moments_finalize(g_sum, g2_sum, k)
+    return _stats(mean, sq, k, layout, plan)

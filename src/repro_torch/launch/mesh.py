@@ -4,12 +4,13 @@ Counterpart of ``repro/launch/mesh.py`` for data parallelism: where the
 reference builds a ``jax.sharding.Mesh`` over devices, the port's mesh is
 the process group of its ranks, one process per rank.  ``DataMesh`` names
 the group, its size and this process's rank and device, and carries the
-three collectives the data-parallel step uses (sum all-reduce, all-gather,
-broadcast).  Tensors stay on the rank's device whichever transport the
-group uses: NCCL reduces CUDA tensors on the cards; gloo takes CUDA tensors
-too (the installed PyTorch's gloo stages them through host memory itself)
-and is what two ranks sharing one card, or ranks on the CPU, must use.  The
-process-group backend is always an explicit argument.
+collectives the data-parallel steps use (sum all-reduce, sum
+reduce-scatter, all-gather, broadcast).  Tensors stay on the rank's device
+whichever transport the group uses: NCCL reduces CUDA tensors on the cards;
+gloo takes CUDA tensors too (the installed PyTorch's gloo stages them
+through host memory itself) and is what two ranks sharing one card, or
+ranks on the CPU, must use.  The process-group backend is always an
+explicit argument.
 
 ``run_ranks`` (``start_ranks`` then ``wait_ranks``) starts a function in W
 fresh processes and waits for them under a deadline, so a rank that hangs
@@ -43,6 +44,22 @@ class DataMesh:
         """Sum ``t`` over the ranks, in place."""
         dist.all_reduce(t)
         return t
+
+    def reduce_scatter_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks and return this rank's share of the sum,
+        a new tensor: rows [rank * R, (rank + 1) * R) of its dim 0, where t
+        holds size * R rows (a flat buffer zero-padded to whole shards).
+
+        Both backends run one ``reduce_scatter_tensor``: NCCL on the cards;
+        gloo on CPU tensors and on CUDA tensors (staged through host
+        memory)."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter_: {t.shape[0]} rows do not split over "
+                             f"{self.size} ranks")
+        out = torch.empty((t.shape[0] // self.size, *t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, t.contiguous())
+        return out
 
     def all_gather(self, out: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked along dim 0 into ``out`` (size *

@@ -6,17 +6,22 @@
   python -m repro_torch.launch.train --arch bert-large --smoke --device cpu --steps 4 \
       --stats-method vmap
   torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
+      --device cpu --dist-backend gloo
+  torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
       --device cpu --gsnr-source data_axis --dist-backend gloo
 
 ``--optimizer`` takes any name of ``core/vrgd.py::make_optimizer`` (default:
 the config's).  ``--stats-method vmap`` takes the k microbatches of a VR
 step through one vmapped forward and backward (core/accumulate.py).
-``--gsnr-source data_axis`` trains data-parallel over the
-ranks torchrun starts (its RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT
-environment), k = the number of ranks, over the process-group backend
-``--dist-backend`` names (nccl: one card per rank; gloo: the CPU, or ranks
+``--dist-backend`` trains data-parallel over the ranks torchrun starts (its
+RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT environment) over that
+process-group backend (nccl: one card per rank; gloo: the CPU, or ranks
 that share a card); every rank draws the same global batches and takes its
-rows, and rank 0 prints.
+rows, and rank 0 prints.  With the microbatch GSNR source (the default)
+the statistics are those of the config's k microbatches, each spread over
+the ranks; ``--gsnr-source data_axis`` takes them from the ranks' gradients
+instead (k = the number of ranks) and needs ``--dist-backend``; without it
+the microbatch source runs, as in the reference.
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.
@@ -49,16 +54,20 @@ def main(argv=None) -> None:
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--stats-method", default="scan", choices=("scan", "vmap"),
                     help="k microbatches one after another, or one vmapped backward over them")
-    ap.add_argument("--gsnr-source", default="microbatch", choices=("microbatch", "data_axis"))
+    ap.add_argument("--gsnr-source", default="microbatch", choices=("microbatch", "data_axis"),
+                    help="GSNR groups: the k microbatches (each spread over the ranks under "
+                         "--dist-backend), or the ranks' gradients (k = the number of ranks; "
+                         "needs --dist-backend)")
     ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
-                    help="process-group backend of a data_axis run (required there)")
+                    help="train data-parallel over torchrun's ranks with this process-group "
+                         "backend")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
+    if args.gsnr_source == "data_axis" and args.dist_backend is None:
+        ap.error("--gsnr-source data_axis needs --dist-backend (nccl or gloo)")
     mesh = None
-    if args.gsnr_source == "data_axis":
-        if args.dist_backend is None:
-            ap.error("--gsnr-source data_axis needs --dist-backend (nccl or gloo)")
+    if args.dist_backend is not None:
         mesh = init_data_mesh(args.dist_backend, args.device)
         device = mesh.device
     else:
@@ -84,8 +93,14 @@ def main(argv=None) -> None:
     stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len)
     rank0 = mesh is None or mesh.rank == 0
     if rank0:
-        k = cfg.optimizer.k if mesh is None else f"{mesh.size} ranks ({mesh.backend})"
-        print(f"training {m.name} on {device}: opt={cfg.optimizer.name} k={k} "
+        o = cfg.optimizer
+        if mesh is not None and o.is_vr and o.gsnr_source == "data_axis":
+            k = f"{mesh.size} ({mesh.size} ranks, {mesh.backend}: data_axis source)"
+        else:
+            k = f"{o.k} (microbatch source)"
+            if mesh is not None:
+                k += f" on {mesh.size} ranks ({mesh.backend})"
+        print(f"training {m.name} on {device}: opt={o.name} k={k} "
               f"gamma={cfg.optimizer.gamma} batch={cfg.global_batch} seq={cfg.seq_len}",
               flush=True)
     _state, hist = train_loop(cfg, stream, steps=args.steps, log_every=args.log_every,

@@ -9,8 +9,8 @@ block count does not divide (``FlatSpmd._pad_rows`` / ``_meta`` in the
 reference's backend.py), so any rank count shards the rows.  A mesh of one
 rank keeps the buffer whole (no shard).
 
-Not yet ported: the per-leaf TP and FSDP rules of the model's weights, the
-activation constraints and the expert rules.
+Not yet ported: TP and FSDP of the model's weights (the reference's
+per-leaf rules, its activation constraints and its expert rules).
 """
 from __future__ import annotations
 

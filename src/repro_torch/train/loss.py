@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import Config
+from repro_torch.core.accumulate import LOSS_DENOM
 from repro_torch.kernels.flash_attention import segment_ids_from_positions
 from repro_torch.models import forward
 
@@ -25,33 +26,60 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
-def cross_entropy(logits, targets, mask: Optional[torch.Tensor] = None):
-    """logits (B,S,V) f32, targets (B,S) int -> scalar mean CE over mask."""
-    nll = _nll(logits, targets)
+def token_count(targets, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token-mean CE's denominator: the mask's sum (at least 1), or
+    every target."""
     if mask is None:
+        return torch.tensor(float(targets.numel()), device=targets.device)
+    return torch.clamp(torch.sum(mask.float()), min=1.0)
+
+
+def cross_entropy(logits, targets, mask: Optional[torch.Tensor] = None,
+                  denom: Optional[torch.Tensor] = None):
+    """logits (B,S,V) f32, targets (B,S) int -> scalar mean CE over mask;
+    ``denom`` replaces the mask's own count (``token_count``)."""
+    nll = _nll(logits, targets)
+    if denom is None and mask is None:
         return torch.mean(nll)
-    m = mask.float()
-    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    total = torch.sum(nll) if mask is None else torch.sum(nll * mask.float())
+    return total / (token_count(targets, mask) if denom is None else denom)
 
 
-def document_cross_entropy(logits, targets, segments, mask: Optional[torch.Tensor] = None):
+def _documents(targets, segments, mask):
+    """(key, weight) of every token: its document's slot (row, segment)
+    and its weight, 0 for pads and masked tokens."""
+    b, s = targets.shape
+    m = torch.ones((b, s), device=targets.device) if mask is None else mask.float()
+    m = m * (segments >= 0)
+    key = (segments.long() + s * torch.arange(b, device=targets.device)[:, None]).reshape(-1)
+    return torch.clamp(key, min=0), m.reshape(-1)  # pad keys weigh 0 anyway
+
+
+def document_count(targets, segments, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The document-mean CE's denominator: live documents (at least 1)."""
+    key, m = _documents(targets, segments, mask)
+    doc_tok = torch.zeros(m.numel(), device=m.device).index_add(0, key, m)
+    return torch.clamp(torch.sum((doc_tok > 0).float()), min=1.0)
+
+
+def document_cross_entropy(logits, targets, segments, mask: Optional[torch.Tensor] = None,
+                           denom: Optional[torch.Tensor] = None):
     """Segment-weighted CE for packed rows: mean over documents of each
     document's token-mean NLL.  Documents are keyed by (row, segment);
-    negative segment ids (pads) weigh 0."""
+    negative segment ids (pads) weigh 0.  ``denom`` replaces the live
+    document count (``document_count``)."""
     nll = _nll(logits, targets)
-    b, s = targets.shape
-    m = torch.ones((b, s), device=nll.device) if mask is None else mask.float()
-    m = m * (segments >= 0)
-    key = (segments.long() + s * torch.arange(b, device=nll.device)[:, None]).reshape(-1)
-    key = torch.clamp(key, min=0)  # pad keys weigh 0 anyway
+    key, m = _documents(targets, segments, mask)
     # out of place: torch.func.vmap refuses an in-place add of a batched
     # tensor into an unbatched one
-    zeros = torch.zeros(b * s, device=nll.device)
-    doc_tok = zeros.index_add(0, key, m.reshape(-1))
-    doc_nll = zeros.index_add(0, key, (nll * m).reshape(-1))
+    zeros = torch.zeros(m.numel(), device=nll.device)
+    doc_tok = zeros.index_add(0, key, m)
+    doc_nll = zeros.index_add(0, key, nll.reshape(-1) * m)
     live = doc_tok > 0
     per_doc = torch.where(live, doc_nll / torch.clamp(doc_tok, min=1.0), 0.0)
-    return torch.sum(per_doc) / torch.clamp(torch.sum(live.float()), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(live.float()), min=1.0)
+    return torch.sum(per_doc) / denom
 
 
 def make_loss_fn(cfg: Config):
@@ -59,30 +87,52 @@ def make_loss_fn(cfg: Config):
 
     batch: {"tokens": (B,S) int, "targets": (B,S) int, optional "mask",
     optional "positions" (B,S) int32 (packed/offset layouts; pads carry
-    position -1 and are masked out of the loss), optional "segments"}."""
+    position -1 and are masked out of the loss), optional "segments",
+    optional ``LOSS_DENOM``: the mean's denominator in place of the batch's
+    own count}.  ``loss_fn.denominator(batch)`` is that count: under a mesh
+    core/accumulate.py hands each rank its group's global count / W, so the
+    ranks' losses average to the group's loss over all its rows (the
+    reference's ``pjit`` mean), however the pads fall on the ranks."""
     m, p = cfg.model, cfg.parallel
     loss_norm = cfg.loss_norm
     if loss_norm not in ("token", "document"):
         raise ValueError(f"Config.loss_norm={loss_norm!r}: must be 'token' or 'document'")
 
-    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
+    def masks(batch):
+        """(positions, mask, packed, document segments or None)."""
         positions = batch.get("positions")
-        logits, _aux, _ = forward(m, p, params, batch["tokens"], mode="train",
-                                  positions=positions)
         mask = batch.get("mask")
         packed = positions is not None and positions.ndim == 2
         if mask is None and packed:
             mask = positions >= 0
+        segments = None
         if loss_norm == "document" and packed:
             segments = batch.get("segments")
             if segments is None:
                 segments = segment_ids_from_positions(positions)
-            ce = document_cross_entropy(logits, batch["targets"], segments, mask)
+        return positions, mask, packed, segments
+
+    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
+        positions, mask, packed, segments = masks(batch)
+        logits, _aux, _ = forward(m, p, params, batch["tokens"], mode="train",
+                                  positions=positions)
+        denom = batch.get(LOSS_DENOM)
+        if segments is not None:
+            ce = document_cross_entropy(logits, batch["targets"], segments, mask, denom)
         else:
-            ce = cross_entropy(logits, batch["targets"], mask)
+            ce = cross_entropy(logits, batch["targets"], mask, denom)
         metrics = {"ce": ce.detach()}
         if packed:
             metrics["pack_efficiency"] = torch.mean((positions >= 0).float())
         return ce, metrics
 
+    def denominator(batch) -> torch.Tensor:
+        """The loss's denominator over ``batch``: its live tokens, or its
+        live documents under the document norm."""
+        _, mask, _, segments = masks(batch)
+        if segments is not None:
+            return document_count(batch["targets"], segments, mask)
+        return token_count(batch["targets"], mask)
+
+    loss_fn.denominator = denominator
     return loss_fn

@@ -1,9 +1,8 @@
 """Training loop: the train step with k-group GSNR statistics.
 
-Port of ``repro/train/trainer.py::make_train_step`` (the microbatch GSNR
-source without a mesh, the data-axis source on a data mesh),
-``init_state`` and ``train_loop``.  One fresh VR step is the paper's
-Algorithm 1/3/5 end to end:
+Port of ``repro/train/trainer.py::make_train_step`` (both GSNR sources,
+with or without a data mesh), ``init_state`` and ``train_loop``.  One fresh
+VR step is the paper's Algorithm 1/3/5 end to end:
 
   1. split the batch into k microbatches; forward + backward of each, its
      gradient folded into the (g_sum, g2_sum) carry; then /k
@@ -29,19 +28,33 @@ update); on the reference plan their
 plain PyTorch versions.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 
-Data parallelism (``mesh=``, a launch/mesh.py::DataMesh, with
-``gsnr_source="data_axis"``; the reference's ``use_device_stats`` with its
-``_shard_plan``): every rank holds the same params and takes one backward
-over its rows of the global batch; one all-reduce of the [g; g^2] payload
-(K11 on the fused plan) gives every rank the statistics of k = W groups
-(core/distributed.py).  On the fused plan the VR update then runs per row
-shard (``Backend.shard``: K13, an all-reduce, K14-K17, the optimizer state
-holding the rank's rows) and the ranks' update rows are gathered and added
-to every rank's params, so the params stay identical; update_norm comes
-from the shards' sums of squares and one scalar all-reduce.  The reference
-plan all-reduces the per-leaf stack and runs the tree math on every rank.
-Not yet ported: the microbatch source, stale steps, the vmap stats method
-and the baselines under a mesh, and TP/FSDP sharding of the model's weights.
+Data parallelism (``mesh=``, a launch/mesh.py::DataMesh; the reference's
+``pjit`` step with its ``_shard_plan``): every rank holds the same params
+and the global batch, and takes its rows of it.
+  * ``gsnr_source="data_axis"`` (the reference's ``use_device_stats``):
+    one backward over the rank's rows; one all-reduce of the [g; g^2]
+    payload (K11 on the fused plan) gives every rank the statistics of k = W
+    groups (core/distributed.py), of which the fused plan keeps the rank's
+    rows.
+  * The microbatch source (and ``data_axis`` without a mesh, as in the
+    reference): each of the k microbatches is one backward over the rank's
+    rows of it, its loss divided by the group's global live count / W
+    (train/loss.py), the flat gradient reduce-scattered x 1/W, and K3 folds
+    the rank's rows into the carry's rows, K4 after the last (the vmap
+    method: one vmapped backward over the rank's rows of the k groups, the
+    stack reduce-scattered, K10 on its rows).  A stale step under a mesh
+    always takes this source with K9 on the rows, as the reference does.
+  * On the fused plan the VR update runs per row shard (``Backend.shard``:
+    K13, an all-reduce, K14-K17, the optimizer state holding the rank's
+    rows; a stale step's chain on the rows, LAMB's trust ratio from one
+    all-reduce of per-leaf partials) and the ranks' update rows are gathered
+    and added to every rank's params, so the params stay identical;
+    grad_norm and update_norm come from the shards' sums of squares and one
+    scalar all-reduce each.  The reference plan all-reduces the gradient
+    (or the per-leaf stack) and runs the tree math on every rank, and so do
+    the baselines on either plan (one all-reduce of the flat gradient x
+    1/W).
+Not yet ported: TP/FSDP sharding of the model's weights.
 
 ``noise_scale=True`` adds the gradient-noise-scale readings of a fresh VR
 step (core/noise_scale.py: plain reductions over the moments the step has
@@ -59,7 +72,7 @@ from repro_torch.configs.base import Config
 from repro_torch.core import noise_scale as ns
 from repro_torch.core.accumulate import grad_only, grad_stats
 from repro_torch.core.distributed import device_grad_stats_fn
-from repro_torch.core.gsnr import gsnr_scale, gsnr_summary
+from repro_torch.core.gsnr import gsnr_scale, gsnr_summary, gsnr_summary_rows
 from repro_torch.core.layout import FlatBuffer, FlatParams, tree_leaves, tree_map
 from repro_torch.core.schedule import make_schedule
 from repro_torch.core.vrgd import make_optimizer
@@ -69,10 +82,14 @@ from repro_torch.train.loss import make_loss_fn
 from repro_torch.train.train_state import TrainState
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in f32 (the zero tail of
-    a flat buffer adds nothing)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    a flat buffer adds nothing).  A FlatBuffer of a rank's rows sums its
+    rows, then one scalar all-reduce over ``mesh`` adds the ranks'."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if getattr(tree, "shard", None) is not None:
+        sq = mesh.all_reduce_(sq[None])[0]
+    return torch.sqrt(sq)
 
 
 def _to_device(batch: Dict, device) -> Dict:
@@ -115,21 +132,10 @@ def make_train_step(
     ``state.step`` for the effective batch ``cfg.global_batch``) to every
     step and, on a fresh VR step, noise/g2_small, noise/g2_big,
     noise/tr_sigma, noise/g2 and noise/b_simple, with B_small = B/k and
-    B_big = B: from the moment carry on the microbatch source, from the
-    reduced payload's two sums under a mesh."""
+    B_big = B: from the moment carry on the microbatch source (its rows
+    summed over the ranks under a mesh), from the reduced payload's two
+    sums on the data-axis source."""
     opt_cfg = cfg.optimizer
-    if mesh is None and opt_cfg.gsnr_source != "microbatch":
-        raise NotImplementedError(
-            f"gsnr_source={opt_cfg.gsnr_source!r} without a mesh is not ported (the reference "
-            "then falls back to the microbatch source): pass mesh=")
-    if mesh is not None and not (opt_cfg.is_vr and opt_cfg.gsnr_source == "data_axis"):
-        raise NotImplementedError(
-            f"{opt_cfg.name} with gsnr_source={opt_cfg.gsnr_source!r} under a mesh is not yet "
-            "ported: a mesh runs the VR optimizers with gsnr_source='data_axis'")
-    if mesh is not None and opt_cfg.stats_method == "vmap":
-        raise NotImplementedError(
-            "stats_method='vmap' under a mesh is not ported: the reference's vmap path has no "
-            "per-shard form; use stats_method='scan'")
     device = _device_of(device, mesh)
     bk = cfg.parallel.backend
     if bk.resolve("stats", device) != bk.resolve("optimizer", device):
@@ -137,13 +143,16 @@ def make_train_step(
             "a plan whose stats and optimizer subsystems resolve to different modes "
             f"({bk.resolve('stats', device)} / {bk.resolve('optimizer', device)}) is not yet "
             "ported: the flat carry feeds only the flat update")
-    opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch,
-                         spmd=_shard_plan(bk, mesh))
+    spmd = _shard_plan(bk, mesh)
+    opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch, spmd=spmd)
     loss_fn = loss_fn or make_loss_fn(cfg)
     is_vr = opt_cfg.is_vr
-    if mesh is not None:
+    # the reference's use_device_stats: data_axis without a mesh falls back
+    # to the microbatch source
+    device_stats = None
+    if is_vr and opt_cfg.gsnr_source == "data_axis" and mesh is not None:
         device_stats = device_grad_stats_fn(loss_fn, mesh, backend=bk,
-                                            with_noise_terms=noise_scale)
+                                            with_noise_terms=noise_scale, spmd=spmd)
     lr_fn = make_schedule(opt_cfg, effective_batch=cfg.global_batch) if noise_scale else None
     # the VR optimizers take and return FlatBuffers on the fused plan; the
     # baselines are tree math on either plan (core/baselines.py)
@@ -154,30 +163,28 @@ def make_train_step(
         flat: FlatParams = state.params
         batch = _to_device(batch, flat.device)
         noise = None
-        if mesh is not None:
-            if not with_stats:
-                raise NotImplementedError("a stale-GSNR step under a mesh is not yet ported")
+        if is_vr and with_stats and device_stats is not None:
             loss, aux, stats, *terms = device_stats(flat, batch)
-            grads = stats.mean
             if noise_scale:
                 noise = ns.estimate_from_terms(g2_small=terms[0][1], g2_big=terms[0][0],
                                                b_small=cfg.global_batch / stats.k,
                                                b_big=cfg.global_batch)
-        elif is_vr:
+        elif is_vr:  # the microbatch source; a stale step under a mesh too
             loss, aux, stats = grad_stats(loss_fn, flat, batch, opt_cfg.k,
                                           method=opt_cfg.stats_method, squares=with_stats,
-                                          backend=bk)
+                                          backend=bk, spmd=spmd)
+            if with_stats and noise_scale:
+                with torch.no_grad():
+                    noise = ns.estimate(stats, b_small=cfg.global_batch / stats.k,
+                                        b_big=cfg.global_batch, mesh=mesh)
+        else:
+            loss, aux, grads = grad_only(loss_fn, flat, batch, spmd=spmd)
+            stats = None
+        if is_vr:
             grads = stats.mean
             if not with_stats:
                 stats = None
-            elif noise_scale:
-                with torch.no_grad():
-                    noise = ns.estimate(stats, b_small=cfg.global_batch / stats.k,
-                                        b_big=cfg.global_batch)
-        else:
-            loss, aux, grads = grad_only(loss_fn, flat, batch)
-            stats = None
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh)
         if opt_cfg.grad_clip > 0:
             scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
@@ -189,12 +196,16 @@ def make_train_step(
                 tree_map(lambda p, u: p.add_(u), w, upd)
                 unorm = global_norm(upd)
             else:  # the rank's rows: one scalar all-reduce, then every rank's rows
-                unorm = torch.sqrt(mesh.all_reduce_(torch.sum(torch.square(upd.data))[None]))[0]
+                unorm = global_norm(upd, mesh)
                 flat.data.add_(shard.gather(upd.data, mesh))
         metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": unorm, **aux}
         if log_gsnr and stats is not None:
             with torch.no_grad():
-                metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma), opt_cfg.gamma))
+                if getattr(stats.mean, "shard", None) is not None:
+                    metrics.update(gsnr_summary_rows(stats, opt_cfg.gamma, mesh))
+                else:
+                    metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma),
+                                                opt_cfg.gamma))
         if noise_scale:
             metrics["lr"] = lr_fn(state.step)
             if noise is not None:

@@ -306,13 +306,14 @@ def test_flat_spmd_pipelines_match_single_card(layout, n_shards, opt):
         plan = Backend.all_fused().shard(mesh)
         sh = plan.shard(tl)
         assert plan.supports(tl) and sh.n_shards == n_shards and sh.index == mesh.rank
-        local = {k: sh.local(x[k]).clone() for k in "mvp"}
+        local = {k: sh.local(x[k]).clone() for k in ("m", "v", "p", "g", "ga", "g2")}
+        gl, gal, g2l = local["g"], local["ga"], local["g2"]
         if opt == "scale":
-            return plan.vr_scale(g, ga, g2, tl, gamma=0.1, eps=1e-12)
+            return plan.vr_scale(gl, gal, g2l, tl, gamma=0.1, eps=1e-12)
         if opt == "lars":
-            return plan.vr_lars(g, ga, g2, local["m"], w, LARS_SCAL, tl, **LARS_HYPER)
+            return plan.vr_lars(gl, gal, g2l, local["m"], w, LARS_SCAL, tl, **LARS_HYPER)
         fn = plan.vr_adam if opt == "adam" else plan.vr_lamb
-        return fn(g, ga, g2, local["m"], local["v"], local["p"], w, ADAM_SCAL, tl,
+        return fn(gl, gal, g2l, local["m"], local["v"], local["p"], w, ADAM_SCAL, tl,
                   state_dtype="float32", **ADAM_HYPER)
 
     parts = _threads(n_shards, rank)
@@ -396,37 +397,3 @@ def test_data_mesh_backend_is_explicit():
     with pytest.raises(ValueError, match="nccl backend reduces CUDA tensors only"):
         init_data_mesh("nccl", "cpu")
 
-
-class _SoloMesh:
-    """Rank 0 of a two-rank mesh whose peer never speaks: enough for the
-    checks that run before any collective (the broadcast of init_state
-    leaves the tensor as it is)."""
-
-    size, rank, device = 2, 0, torch.device("cpu")
-
-    def broadcast_(self, t, src=0):
-        return t
-
-
-@pytest.mark.parametrize("opt,with_stats,match", [
-    (dict(gsnr_source="microbatch"), True, "under a mesh is not yet ported"),
-    (dict(name="lamb", gsnr_source="data_axis"), True, "under a mesh is not yet ported"),
-    (dict(gsnr_source="data_axis"), False, "stale-GSNR step under a mesh"),
-])
-def test_unported_paths_under_a_mesh_raise(opt, with_stats, match):
-    import dataclasses
-
-    from repro_torch.configs import get_smoke
-    from repro_torch.data import lm_batches
-    from repro_torch.train import init_state, make_train_step
-
-    cfg = get_smoke("bert-large")
-    cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, **opt),
-                      parallel=dataclasses.replace(cfg.parallel, backend=Backend.all_fused()))
-    mesh = _SoloMesh()
-    with pytest.raises(NotImplementedError, match=match):
-        step = make_train_step(cfg, device="cpu", mesh=mesh)[0]
-        state = init_state(cfg, device="cpu", mesh=mesh)
-        assert state.opt_state["m"].shard.n_shards == 2  # the rank's rows only
-        step(state, next(lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len)),
-             with_stats)

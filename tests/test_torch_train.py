@@ -196,22 +196,17 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("opt,err,match", [
-    (dict(stats_method="vmap", gsnr_source="data_axis"), NotImplementedError, "vmap"),
-    (dict(gsnr_source="data_axis"), NotImplementedError, "data_axis"),
-    (dict(name="adagrad"), KeyError, "unknown optimizer"),
+    # the vmap method under a mesh and data_axis without one run now
+    # (tests/test_torch_mesh_paths.py); the id of the remaining case is kept
+    pytest.param(dict(name="adagrad"), KeyError, "unknown optimizer",
+                 id="opt2-KeyError-unknown optimizer"),
 ])
 def test_unported_paths_and_unknown_optimizers_raise(opt, err, match):
-    """The vmap stats method under a mesh raises ("stats_method='vmap' under
-    a mesh is not ported") before the mesh is used: a one-rank mesh that
-    joined no process group stands in for one."""
-    from repro_torch.launch.mesh import DataMesh
-
     cfg = get_smoke("bert-large")
     cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, **opt))
     batch = next(lm_batches(cfg.model.vocab_size, cfg.global_batch, cfg.seq_len))
-    mesh = DataMesh(1, 0, torch.device("cpu"), "gloo") if "stats_method" in opt else None
     with pytest.raises(err, match=match):
-        step = make_train_step(cfg, device="cpu", mesh=mesh)[0]
+        step = make_train_step(cfg, device="cpu")[0]
         step(init_state(cfg, device="cpu"), batch)
 
 
