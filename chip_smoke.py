@@ -112,6 +112,23 @@ Phases, in order; any failure exits non-zero:
                 after the prepass) against the flat K8, K6, K5, K7 steps
                 from the same inputs; then two device kernels per per-leaf
                 VR call on the largest leaf (the call's CUDA graph).
+ 14. dlrm    — DLRM at published widths (configs/dlrm.py: 13 dense and 26
+                sparse features, embedding 128, bottom (512, 256, 128), top
+                (1024, 1024, 512, 256, 1), f32) with one cut, 2^19 rows per
+                table (2^20 needs 84-98 GB of step buffers), seeded weights,
+                ctr_batches at Table 5's global batch 524,288: three
+                Table 11 VR-SGD steps (k = 8) through train/driver.py::
+                train_optimizer on the fused plan (K3 8, K4 1, K8 1
+                asserted per step) against three on the reference plan
+                (DLRM_TOL_STEP0 at step 0, DLRM_TOL after: loss, each MLP
+                leaf's change, the tables' change on the rows read; no
+                unread table row may change), one SGD step (one backward, no kernel),
+                one step on each mixed stats/optimizer plan against the
+                fused step; step walls, samples/s, peak memory, a profiled
+                step, the AUC on 8,192 held-out samples; K3, K4 and K8 at
+                DLRM's flat layout against their plain versions (K8 also on
+                mostly unclipped r, its tables-leaf mean against an f64
+                sum), timed beside their bounds.  Runs last.
  13. autoscale — bert-large at published width and depth on packed rows
                 from a token cache (Markov documents over its vocabulary,
                 written under build/ before phase 7 and removed at the
@@ -175,26 +192,37 @@ TWO_LAUNCH_DECODE_MS = {"split": 0.022624, "combine": 0.0112}
 EARLIER_MS = {"flat_moments_accum": "2.5180-2.5273", "flat_pack_square": "1.8047"}
 
 
+# Rows per chunk of check_close: a check of DLRM's (13.6 M, 128) buffers
+# then needs no buffer-sized temporaries.
+CHECK_ROWS = 1 << 20
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
 def check_close(name, got, want, tol):
+    """|got - want| <= atol + rtol |want| elementwise, taken over
+    CHECK_ROWS-row chunks so that buffers of several GB need no temporaries
+    of their size; returns the largest |got - want|."""
     import torch
 
-    got, want = got.float(), want.float()
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-    if not torch.isfinite(got).all():
-        fail(f"{name}: non-finite values")
-    err = (got - want).abs()
-    bad = err > tol["atol"] + tol["rtol"] * want.abs()
-    max_err = float(err.max())
+    got, want = got.reshape(-1, *got.shape[1:]), want.reshape(-1, *want.shape[1:])
+    max_err, n_bad = 0.0, 0
+    for i in range(0, want.shape[0], CHECK_ROWS):
+        a, b = got[i: i + CHECK_ROWS].float(), want[i: i + CHECK_ROWS].float()
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite values")
+        err = (a - b).abs()
+        max_err = max(max_err, float(err.max()))
+        n_bad += int((err > tol["atol"] + tol["rtol"] * b.abs()).sum())
     print(f"  {name}: max_abs_err={max_err:.3e} tol(atol={tol['atol']}, rtol={tol['rtol']}) "
-          f"{'ok' if not bad.any() else 'FAIL'}", flush=True)
-    if bad.any():
-        fail(f"{name}: {int(bad.sum())} elements outside tolerance")
+          f"{'ok' if not n_bad else 'FAIL'}", flush=True)
+    if n_bad:
+        fail(f"{name}: {n_bad} elements outside tolerance")
     return max_err
 
 
@@ -580,7 +608,7 @@ def graph_kernels(fn):
 # cuBLAS GEMMs, and the rest (element-wise, copies, reductions)
 PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_fwd_wgmma_kernel",
                 "flash_bwd_wgmma_kernel", "decode_kernel", "accum_kernel", "finalize_kernel",
-                "r_partials_kernel", "adam_kernel", "apply_kernel", "scale_kernel",
+                "r_sums_kernel", "adam_kernel", "apply_kernel", "scale_kernel",
                 "lars_compute_kernel", "vmap_moments_kernel", "leaf_")
 
 
@@ -1777,9 +1805,11 @@ def phase_spmd_kernels(records, layout):
     def scaled(want):
         return dict(atol=1e-4 * float(want.abs().max()), rtol=1e-4)
 
-    # K13's partials are one f32 sum per leaf, the largest ~6.7e8 and the
-    # smallest orders of magnitude below it: each is held to its own sum
-    # (a leaf not on the shard must read exactly 0)
+    # K13's partials are one f32 sum per leaf, added up in f64 in both
+    # versions (the kernel's block partials in block order, the plain
+    # version's row sums), the largest ~6.7e8 and the smallest orders of
+    # magnitude below it: each is held to its own sum (a leaf not on the
+    # shard must read exactly 0)
     tol_leaf = dict(atol=0.0, rtol=1e-4)
 
     errs = {k: 0.0 for k in ("leaf_r_partials", "vr_scale_apply", "vr_adam_apply",
@@ -3100,6 +3130,378 @@ def phase_autoscale(records, data):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: DLRM, the paper's Table 5 workload, VR-SGD at batch 512k
+# ---------------------------------------------------------------------------
+
+# The one cut of DLRM's published widths (configs/dlrm.py::config): 2^19 rows
+# per table, not 2^20.  At 2^20 the (26, 2^20, 128) tables leaf is 13.96 GB
+# per f32 buffer, and a fused VR-SGD step holds six to seven such buffers
+# (params, gradient, the two moment carries, K8's sg and r, -lr sg): 84-98 GB
+# against the card's 80 GB.
+DLRM_TABLE_SIZE = 2 ** 19
+DLRM_BATCH = 524_288  # Table 5's largest global batch (512k): 65,536 rows per microbatch
+DLRM_STEPS = 3
+DLRM_EVAL = 8_192  # held-out samples for the AUC, drawn as benchmarks/bench_dlrm_proxy.py does
+# The fused plan against the reference plan, and each mixed plan and the
+# whole-batch loss of the SGD step against the fused plan, from the same
+# params and batches.  Both plans run the same f32 GEMMs (TF32 off), so the
+# gradients agree but for rounding; the moments differ by K3's FMA (one
+# rounding of g^2), and the GSNR leaf means by the order of K8's f64 block
+# combine against the plain f64 row sums.  Compared: the loss (relative),
+# and each leaf's change over the step against the other run's relative to
+# its norm: the worst MLP leaf ("mlp") and the tables leaf over the rows the
+# batch read ("touched").  run() fails when the tables changed on any row
+# the batch did not read, so "touched" covers the whole leaf.  Bounds, set
+# from the first full-width run on an H100 80GB HBM3 (700 W), which measured
+# the loss equal to the bit at every step.  Step 0 (DLRM_TOL_STEP0, which
+# also holds both mixed plans, compared at step 0 alone): the MLP leaves'
+# change 1.08e-5, the tables' 0, in the fused-vs-reference run and in both
+# mixed plans; "mlp" is 9.3 times that gap and the tables get the same
+# 1e-4.  Steps 1-2 (DLRM_TOL): the GSNR ratio amplifies step 0's rounding
+# gap, to 8.89e-4 on the MLP leaves (a 256-element bias, step 1) and 3.56e-3
+# on the tables (step 2, a row read once moves by rounding quanta of its
+# weights); both bounds are 5.6 times the gap (PERF.md).  The loss, whose
+# gap is 0, gets 1e-6 (17 f32 ulps at 0.69) at every step.
+DLRM_TOL_STEP0 = {"loss": 1e-6, "mlp": 1e-4, "touched": 1e-4}
+DLRM_TOL = {"loss": 1e-6, "mlp": 5e-3, "touched": 2e-2}
+
+
+def event_ms(fn, iters: int = 5) -> float:
+    """Median device time of fn() between two CUDA events, after one warm-up
+    call: for launches of several ms over buffers too large to hold a CUDA
+    graph's private copies."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def dlrm_touched(cfg, batch):
+    """The flat rows of the tables leaf a batch reads, sorted: feature f's id
+    i is row f * T + i (an embedding row of 128 is one flat row)."""
+    import torch
+
+    offs = torch.arange(cfg.n_sparse_features, device=batch["sparse"].device) * cfg.table_size
+    return torch.unique(offs[None, :] + batch["sparse"].long())
+
+
+def compare_dlrm(label, got, want):
+    """Each step's record of run ``got`` against run ``want``, step 0 within
+    DLRM_TOL_STEP0 and later steps within DLRM_TOL; returns the largest
+    gaps."""
+    worst = {key: 0.0 for key in DLRM_TOL}
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = DLRM_TOL_STEP0 if i == 0 else DLRM_TOL
+        mlp = {p: rel_diff(a["mlp"][p], b["mlp"][p]) for p in b["mlp"]}
+        p_max = max(mlp, key=mlp.get)
+        gaps = {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "mlp": mlp[p_max],
+                "touched": rel_diff(a["touched"], b["touched"])}
+        print(f"  {label} step {i}: |loss rel diff| {gaps['loss']:.3e}; change rel diff: worst "
+              f"MLP leaf ({p_max}) {gaps['mlp']:.3e}, tables leaf (on the rows read, the only "
+              f"rows it changed on) {gaps['touched']:.3e} (tol {tol})", flush=True)
+        for key, gap in gaps.items():
+            worst[key] = max(worst[key], gap)
+            if not gap <= tol[key]:
+                fail(f"{label} step {i}: {key} gap {gap:.3e} > {tol[key]}")
+    return worst
+
+
+def dlrm_kernels(records, box, batch, k, loss_fn):
+    """K3, K4 and K8 at DLRM's flat layout (13.6 M rows), each against its
+    plain version, timed beside its bound: K3 and K4 on one microbatch's
+    gradient, K8 on a step's moments and on moments whose GSNR ratio is
+    mostly unclipped (g2 = g^2 (1 + u), u ~ U(0.5, 2): r_raw = 1/u), where
+    r shows each version's per-leaf mean of r, held against an f64 sum.
+    ``box`` holds the only reference to the stepped FlatParams, which is
+    freed before K8; launches made here count on no path."""
+    import torch
+
+    from repro_torch.backend import Backend
+    from repro_torch.core.accumulate import grad_stats, split_batch
+    from repro_torch.core.layout import pad_mask
+    from repro_torch.kernels import flat_stats as fs
+    from repro_torch.kernels import flat_update as fu
+
+    flat = box.pop()
+    layout, dev = flat.layout, flat.device
+    n = layout.n_rows * 128
+    print(f"[dlrm kernels] K3, K4, K8 at DLRM's flat layout: {layout.n_rows} rows "
+          f"({layout.n_blocks} blocks), {n * 4 / 1e9:.3f} GB per f32 buffer", flush=True)
+    flat.zero_grad()
+    loss_fn(flat.tree, {name: x[0] for name, x in split_batch(batch, k).items()})[0].backward()
+    g = flat.grad
+    a1, b1 = g.clone(), g * g
+    a2, b2 = a1.clone(), b1.clone()
+    fs.flat_moments_accum(a1, b1, g)
+    fs.moments_accum_ref(a2, b2, g)
+    err3 = max(check_close("K3 g_sum", a1, a2, TOL_CARRY),
+               check_close("K3 g2_sum", b1, b2, TOL_CARRY))
+    t3 = event_ms(lambda: fs.flat_moments_accum(a1, b1, g))
+    t3_plain = event_ms(lambda: fs.moments_accum_ref(a2, b2, g))
+    t3_lib = event_ms(lambda: (a2.add_(g), b2.addcmul_(g, g)))
+    b3 = bound(5 * n * 4, 3 * n, "float32")
+    a2.copy_(a1)  # the timings above accumulated each pair a different number of times
+    b2.copy_(b1)
+    fs.flat_moments_finalize(a1, b1, k)
+    fs.moments_finalize_ref(a2, b2, k)
+    if not (torch.equal(a1, a2) and torch.equal(b1, b2)):
+        fail("K4 at DLRM's layout is not bit-identical to its plain version")
+    print("  K4: torch.equal ok", flush=True)
+    t4 = event_ms(lambda: fs.flat_moments_finalize(a1, b1, k))
+    t4_plain = event_ms(lambda: fs.moments_finalize_ref(a2, b2, k))
+    t4_lib = event_ms(lambda: (a2.mul_(0.125), b2.mul_(0.125)))
+    b4 = bound(4 * n * 4, 2 * n, "float32")
+    del a1, b1, a2, b2, g
+    print(f"  K3 (ms): kernel={t3:.4f} plain={t3_plain:.4f} add_+addcmul_={t3_lib:.4f} "
+          f"bound={b3[0]:.4f} ({b3[1]}); K4 (ms): kernel={t4:.4f} plain={t4_plain:.4f} "
+          f"2x mul_={t4_lib:.4f} bound={b4[0]:.4f} ({b4[1]})", flush=True)
+    records["flat_moments_accum"]["dlrm"] = dict(
+        max_abs_err=err3, ms=t3, plain_ms=t3_plain, bound_ms=b3[0], bound_by=b3[1],
+        library_ms=t3_lib)
+    records["flat_moments_finalize"]["dlrm"] = dict(
+        max_abs_err=0.0, ms=t4, plain_ms=t4_plain, bound_ms=b4[0], bound_by=b4[1],
+        library_ms=t4_lib)
+
+    # K8 on a step's moments (VR-SGD: ga is the mean itself)
+    stats = grad_stats(loss_fn, flat, batch, k, backend=Backend.all_fused())[2]
+    del flat
+    torch.cuda.empty_cache()
+    g, g2 = stats.mean.data, stats.sq_mean.data
+    del stats
+    meta_bytes = 4 * layout.n_blocks + 4 * layout.leaf_slots
+    # ga is g here, so the function reads g and g2 and writes sg and r: 4 buffers
+    b8 = bound(4 * n * 4 + meta_bytes, 10 * n, "float32")
+    ti = layout.paths.index("tables")
+    rows = slice(layout.row_offsets[ti], layout.row_offsets[ti] + layout.leaf_rows[ti])
+
+    def tables_inv_mean(r, wr):
+        """1 / mean(r_raw) over the tables leaf: an f64 sum of the plain
+        version's r_raw, beside what the kernel's and the plain version's r
+        imply (r / r_raw, median over the unclipped elements of the leaf's
+        first CHECK_ROWS rows); returns their relative errors."""
+        total = 0.0
+        for i in range(rows.start, rows.stop, CHECK_ROWS):
+            j = min(i + CHECK_ROWS, rows.stop)
+            total += float(fu.raw_r(g[i:j], g2[i:j], 1e-12).double().sum())
+        inv64 = layout.sizes[ti] / total
+        probe = slice(rows.start, rows.start + CHECK_ROWS)
+        raw = fu.raw_r(g[probe], g2[probe], 1e-12)
+        inv = {}
+        for who, rr in (("kernel", r[probe]), ("plain", wr[probe])):
+            free = (rr > 0.1) & (rr < 1.0)
+            inv[who] = float((rr[free] / raw[free]).double().median())
+        rel = {who: abs(x - inv64) / inv64 for who, x in inv.items()}
+        print(f"  K8 tables leaf 1/mean(r_raw) ({layout.sizes[ti]} elements, "
+              f"{layout.leaf_rows[ti] // layout.block_rows} blocks): f64 sum {inv64:.9f}; from "
+              f"r: kernel {inv['kernel']:.9f} (rel err {rel['kernel']:.2e}), plain "
+              f"{inv['plain']:.9f} (rel err {rel['plain']:.2e})", flush=True)
+        return rel
+
+    def k8(what, probe=False):  # phase 7's tolerance
+        sg, r = fu.flat_vr_scale(g, g, g2, layout, gamma=0.1, eps=1e-12)
+        wsg, wr = fu.flat_vr_scale_ref(g, g, g2, layout, gamma=0.1, eps=1e-12)
+        rel = tables_inv_mean(r, wr) if probe else None
+        tol_sg = dict(atol=1e-4 * max(float(wsg[i: i + CHECK_ROWS].abs().max())
+                                      for i in range(0, wsg.shape[0], CHECK_ROWS)), rtol=1e-4)
+        err = max(check_close(f"K8 sg ({what})", sg, wsg, tol_sg),
+                  check_close(f"K8 r ({what})", r, wr, dict(atol=1e-4, rtol=1e-4)))
+        return err, rel
+
+    err8, _ = k8("a step's moments")
+    t8 = event_ms(lambda: fu.flat_vr_scale(g, g, g2, layout, gamma=0.1, eps=1e-12))
+    t8_plain = event_ms(lambda: fu.flat_vr_scale_ref(g, g, g2, layout, gamma=0.1, eps=1e-12),
+                        iters=3)
+    # the per-leaf sum of r over 212,992 blocks, with r mostly unclipped
+    gen = torch.Generator(device=dev).manual_seed(14)
+    g.normal_(generator=gen).mul_(pad_mask(layout, dev))
+    g2.uniform_(1.5, 3.0, generator=gen).mul_(g).mul_(g)
+    err_u, rel = k8("unclipped r", probe=True)
+    del g, g2
+    torch.cuda.empty_cache()
+    print(f"  K8 (ms): kernel (2 launches)={t8:.4f} plain={t8_plain:.4f} bound={b8[0]:.4f} "
+          f"({b8[1]}); no single PyTorch call computes it", flush=True)
+    records["flat_vr_scale"]["dlrm"] = dict(
+        max_abs_err=max(err8, err_u), ms=t8, plain_ms=t8_plain, bound_ms=b8[0], bound_by=b8[1],
+        library_ms=None, tables_inv_mean_rel_err=rel)
+
+
+def phase_dlrm(records):
+    """14: DLRM at its published widths (table_size cut to 2^19) trained with
+    Table 11's VR-SGD at Table 5's 512k batch through train/driver.py."""
+    import torch
+
+    from repro_torch.backend import Backend
+    from repro_torch.configs import dlrm as dc
+    from repro_torch.core.layout import FlatParams
+    from repro_torch.data import CTRModel, ctr_batches
+    from repro_torch.models import dlrm
+    from repro_torch.train.driver import auc, train_optimizer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = dc.config()
+    cfg = dataclasses.replace(full, table_size=DLRM_TABLE_SIZE)
+    opt = dc.optimizer(DLRM_BATCH)
+    print(f"[dlrm] {full.name} ({full.citation}): {cfg.n_dense_features} dense and "
+          f"{cfg.n_sparse_features} sparse features, embedding {cfg.embedding_dim}, bottom MLP "
+          f"{cfg.bottom_mlp}, top MLP {cfg.top_mlp}, f32; {opt.name} k={opt.k} gamma {opt.gamma} "
+          f"lr {opt.lr:.4f} ({opt.schedule}, warm-up {opt.warmup_steps}; Table 11); global batch "
+          f"{DLRM_BATCH} (Table 5's 512k), {DLRM_BATCH // opt.k} rows per microbatch", flush=True)
+    full_gb = full.n_sparse_features * full.table_size * full.embedding_dim * 4 / 1e9
+    print(f"  cut: table_size {cfg.table_size} (2^19), not {full.table_size} (2^20): at 2^20 the "
+          f"tables leaf is {full_gb:.2f} GB per f32 buffer and a fused VR-SGD step holds 6-7 "
+          f"such buffers (params, gradient, two moment carries, K8's sg and r, -lr sg), "
+          f"{6 * full_gb:.0f}-{7 * full_gb:.0f} GB, against the 80 GB card", flush=True)
+    t0 = time.perf_counter()
+    stream = ctr_batches(DLRM_BATCH, cfg.table_size, cfg.n_sparse_features, seed=0)
+    host = [next(stream) for _ in range(DLRM_STEPS + 1)]
+    test = CTRModel(table_size=cfg.table_size, n_sparse=cfg.n_sparse_features,
+                    seed=0).sample(DLRM_EVAL, np.random.RandomState(123))
+    t_data = time.perf_counter() - t0
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+    touched = [dlrm_touched(cfg, b) for b in batches]
+    base_loss = dlrm.loss_fn(cfg)
+    calls = [0]
+
+    def loss_fn(p, b):  # one call is one forward and one backward
+        calls[0] += 1
+        return base_loss(p, b)
+
+    def make_params():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return FlatParams(dlrm.init_params(cfg, gen, device=dev), 1, device=dev)
+
+    flat = make_params()
+    layout = flat.layout
+    ti = layout.paths.index("tables")
+    tab = slice(layout.row_offsets[ti], layout.row_offsets[ti] + layout.leaf_rows[ti])
+    buf_gb = layout.n_rows * 128 * 4 / 1e9
+    n_mlp = sum(layout.sizes) - layout.sizes[ti]
+    print(f"  params: {layout.sizes[ti]} table elements ({layout.leaf_rows[ti]} flat rows, "
+          f"{layout.leaf_rows[ti] // layout.block_rows} blocks of {layout.block_rows}) + {n_mlp} "
+          f"MLP elements in {layout.n_leaves} leaves, {layout.n_rows} rows, {buf_gb:.2f} GB per "
+          f"f32 buffer; batches made on the host in {t_data:.1f} s; the steps read "
+          f"{', '.join(str(t.numel()) for t in touched[:DLRM_STEPS])} table rows", flush=True)
+    print(f"  memory reckoned from the code: fused step ~5 buffers in the backward "
+          f"({5 * buf_gb:.0f} GB: params, gradient, g_sum, g2_sum, the embedding's dense "
+          f"gradient), ~7 in the update ({7 * buf_gb:.0f} GB: + sg, r, -lr sg); reference plan "
+          f"~8 ({8 * buf_gb:.0f} GB: the tree GSNR chain's temporaries)", flush=True)
+    prev = torch.empty((layout.leaf_rows[ti], 128), dtype=torch.float32, pin_memory=True)
+
+    def run(label, bk, opt_cfg, steps, want, want_calls, params=None):
+        """``steps`` steps through train_optimizer from the seeded params;
+        after each, the launches and loss_fn calls held against ``want`` and
+        ``want_calls``, and the step's record on the host: loss, each MLP
+        leaf's change, the tables leaf's change on the rows the batch read
+        and its nonzero rows (which must lie among them).  Returns (params,
+        driver result, records, launches summed)."""
+        flat = params if params is not None else make_params()
+        tables = flat.data[tab]
+        mlp = [(p, v) for i, (p, v) in enumerate(zip(layout.paths, layout.leaf_views(flat.data)))
+               if i != ti]
+        before = {"mlp": [v.clone() for _, v in mlp]}
+        prev.copy_(tables)
+        recs, peaks, path_counts = [], [], {}
+
+        def after(i, params, loss):
+            counts = read_counts()
+            if counts != want or calls[0] != want_calls:
+                fail(f"dlrm {label} step {i}: launches {counts} and {calls[0]} loss_fn calls, "
+                     f"want {want} and {want_calls}")
+            for name, c in counts.items():
+                path_counts[name] = path_counts.get(name, 0) + c
+            peaks.append(torch.cuda.max_memory_allocated())
+            delta = prev.to(dev).neg_().add_(tables)
+            rows = (delta != 0).any(dim=1).nonzero()[:, 0]
+            if not bool(torch.isin(rows, touched[i]).all()):
+                fail(f"dlrm {label} step {i}: the tables changed on rows the batch did not read")
+            recs.append({"loss": loss, "n_changed": rows.numel(),
+                         "touched": delta[touched[i]].cpu(),
+                         "mlp": {p: (v - v0).cpu() for (p, v), v0 in zip(mlp, before["mlp"])}})
+            del delta
+            prev.copy_(tables)
+            before["mlp"] = [v.clone() for _, v in mlp]
+            reset_counts()
+            calls[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        calls[0] = 0
+        out = train_optimizer(loss_fn, flat, batches[:steps], opt_cfg, steps, backend=bk,
+                              device=dev, callback=after)
+        print(f"  {label}: {held / 2**30:.1f} GiB held on the card before the first step "
+              f"(the params, their gradient, the batches)", flush=True)
+        for i, (rec, s, peak) in enumerate(zip(recs, out["step_s"], peaks)):
+            print(f"  {label} step {i}: {s * 1e3:.1f} ms ({DLRM_BATCH / s:.0f} samples/s), loss "
+                  f"{rec['loss']:.6f}, peak {peak / 2**30:.1f} GiB; tables changed on "
+                  f"{rec['n_changed']} rows, all read by the batch", flush=True)
+        return flat, out, recs, path_counts
+
+    fused = Backend.all_fused()
+    want_fused = fused_counts(0, opt.k, "flat_vr_scale")
+    flat, out, rec_fused, counts = run("fused", fused, opt, DLRM_STEPS, want_fused, opt.k, flat)
+    add_path(records, "dlrm", counts)
+    walls = [s * 1e3 for s in out["step_s"]]
+    del out
+    warm = float(np.mean(walls[1:]))
+    print(f"  fused step wall (host clock, synchronized): {', '.join(f'{w:.1f}' for w in walls)} "
+          f"ms; warm mean {warm:.1f} ms = {DLRM_BATCH / warm * 1e3:.0f} samples/s; launches per "
+          f"step {({k_: c for k_, c in want_fused.items() if c})}", flush=True)
+    with torch.no_grad():
+        scores = dlrm.forward(cfg, flat.tree, *(torch.from_numpy(test[k_]).to(dev)
+                                                for k_ in ("dense", "sparse")))
+    print(f"  AUC of the stepped params on {DLRM_EVAL} held-out samples: "
+          f"{auc(test['label'], scores.float().cpu().numpy()):.4f} (after {DLRM_STEPS} warm-up "
+          "steps: printed, gates nothing)", flush=True)
+    def one_more():  # returns nothing: the driver's result holds the params
+        train_optimizer(base_loss, flat, batches[DLRM_STEPS:], opt, 1, backend=fused, device=dev)
+
+    t_prof = host_ms(one_more)[1]
+    report_profile("dlrm fused VR-SGD step (profiled)", one_more, t_prof, top=12)
+    box = [flat]
+    del flat, one_more, scores
+    dlrm_kernels(records, box, batches[0], opt.k, base_loss)
+    torch.cuda.empty_cache()
+
+    zero = {name: 0 for name in counters()}
+    _, _, rec_ref, _ = run("reference", Backend.all_reference(), opt, DLRM_STEPS, zero, opt.k)
+    torch.cuda.empty_cache()
+    gaps = compare_dlrm("fused vs reference", rec_fused, rec_ref)
+    print(f"  largest gaps over the {DLRM_STEPS} steps: {gaps}", flush=True)
+    sgd = dataclasses.replace(opt, name="sgd")
+    _, _, rec_sgd, _ = run("sgd baseline", fused, sgd, 1, zero, 1)
+    torch.cuda.empty_cache()
+    d_loss = abs(rec_sgd[0]["loss"] - rec_fused[0]["loss"]) / abs(rec_fused[0]["loss"])
+    print(f"  sgd step's loss over the whole batch against the fused step's mean over "
+          f"{opt.k} microbatches: |rel diff| {d_loss:.3e} (tol {DLRM_TOL['loss']})", flush=True)
+    if not d_loss <= DLRM_TOL["loss"]:
+        fail("dlrm: the whole-batch loss differs from the microbatches' mean")
+    for label, bk, want in (
+            ("stats fused / optimizer reference", Backend(stats="fused", optimizer="reference"),
+             fused_counts(0, opt.k)),
+            ("stats reference / optimizer fused", Backend(stats="reference", optimizer="fused"),
+             fused_counts(0, opt.k, "flat_vr_scale", carry=None))):
+        _, _, rec, _ = run(label, bk, opt, 1, want, opt.k)
+        torch.cuda.empty_cache()
+        compare_dlrm(f"{label} vs fused", rec, rec_fused[:1])
+    del prev
+    print(f"  dlrm phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3159,6 +3561,8 @@ def main() -> None:
         phase_train_dp(records, DP_GROUPS, "10b")
         phase_train_dp(records, DP_PATH_GROUPS, "10c")
         phase_per_leaf(records, layout)
+        torch.cuda.empty_cache()
+        phase_dlrm(records)
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(data["dir"], ignore_errors=True)

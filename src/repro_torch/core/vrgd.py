@@ -21,10 +21,15 @@ base optimizer (core/baselines.py).
 
 Dispatch follows the plan's ``optimizer`` subsystem (repro_torch.backend),
 resolved for the device the parameters live on at ``init`` and for the
-gradient's device at ``update``, which raises if the gradient's or the
-state's form disagrees with it.  Fused keeps the state as flat buffers
-(core/layout.py), takes and returns FlatBuffers (updates in the form of the
-params), and runs a fresh-stats update as one kernel wrapper call through
+gradient's device at ``update``.  A gradient, params or GradStats in the
+other form cross the flat boundary on entry, as in the reference (its
+``_unpacked`` and ``as_flat``), so the stats and optimizer subsystems may
+resolve differently: a FlatBuffer is unpacked to the stacked tree (views)
+for the reference math, a tree is packed into the layout (of the state or
+the params where they are flat) for the fused update.  The state is never
+converted: ``update`` raises if its form disagrees with the plan.  Fused
+keeps the state as flat buffers (core/layout.py), returns FlatBuffers, and
+runs a fresh-stats update as one kernel wrapper call through
 kernels/ops.py: ``flat_vr_scale`` for VR-SGD/Momentum (the momentum sum and
 -lr are then plain torch, as in the reference), ``flat_vr_adam``,
 ``flat_vr_lamb``, ``flat_vr_lars``.  Reference runs the per-leaf tree math
@@ -53,8 +58,8 @@ import torch
 from repro_torch.backend import Backend
 from repro_torch.core import baselines as B
 from repro_torch.core.gsnr import GradStats, gsnr_scale
-from repro_torch.core.layout import (FlatBuffer, FlatParams, is_flat, shard_rows, tree_leaves,
-                                     tree_map)
+from repro_torch.core.layout import (FlatBuffer, FlatParams, ParamLayout, is_flat, shard_rows,
+                                     tree_leaves, tree_map, unpack_tree)
 
 
 def _require(stats: Optional[GradStats]) -> GradStats:
@@ -76,18 +81,40 @@ def _zeros(bk: Backend, params: FlatParams, dtype=torch.float32, spmd=None):
     return B.zeros_tree(params, dtype)
 
 
-def _fused(bk: Backend, name: str, grads, state) -> bool:
-    """The plan for the gradient's device; raises if the gradient or the
-    state (m) is in the other form."""
+def _crossed(bk: Backend, name: str, grads, state, params=None, stats=None,
+             reads_params: bool = True):
+    """(fused, grads, params, stats) in the form of the plan resolved for the
+    gradient's device: on the reference plan a FlatBuffer is unpacked to the
+    stacked tree (views, no copy), on the fused plan a tree is packed into
+    the layout of the flat state, params or moments (new buffers).  An
+    optimizer that does not read the params passes ``reads_params=False``:
+    they then only lend their layout, and None comes back in their place.
+    Raises if the state (m) is in the other form."""
     device = tree_leaves(grads)[0].device
     fused = bk.fused("optimizer", device)
-    for what, x in (("gradient", grads), ("state", state.get("m"))):
-        if x is not None and is_flat(x) != fused:
-            raise ValueError(
-                f"{name}: the {what} is {'flat' if is_flat(x) else 'a tree'} but the plan "
-                f"resolves optimizer={bk.resolve('optimizer', device)!r} on {device}; init the "
-                "state on the device the update runs on")
-    return fused
+    m = state.get("m")
+    if m is not None and is_flat(m) != fused:
+        raise ValueError(
+            f"{name}: the state is {'flat' if is_flat(m) else 'a tree'} but the plan resolves "
+            f"optimizer={bk.resolve('optimizer', device)!r} on {device}; init the state on the "
+            "device the update runs on")
+    means = None if stats is None else stats.mean
+    layout = next((x.layout for x in (m, params, grads, means) if is_flat(x)), None)
+    if fused and layout is None:
+        layout = ParamLayout.for_tree(grads)
+
+    crossed = {}  # VR-SGD's gradient is the moments' mean: packed once
+
+    def form(x):
+        if x is None or is_flat(x) == fused:
+            return x
+        if id(x) not in crossed:
+            crossed[id(x)] = FlatBuffer(layout.pack(x), layout) if fused else unpack_tree(x)
+        return crossed[id(x)]
+
+    if stats is not None:
+        stats = stats._replace(mean=form(stats.mean), sq_mean=form(stats.sq_mean))
+    return fused, form(grads), form(params) if reads_params else None, stats
 
 
 def _like(params, d):
@@ -129,8 +156,9 @@ def vr_sgd(lr_fn: Callable, gamma: float = 0.1, eps: float = 1e-12,
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
-        sg, _r = _scaled_grads(grads, stats, gamma, eps, _fused(bk, "vr_sgd", grads, state),
-                               spmd)
+        fused, grads, _, stats = _crossed(bk, "vr_sgd", grads, state, params, stats,
+                                          reads_params=False)
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, fused, spmd)
         return tree_map(lambda g: -lr * g, sg), {"step": state["step"] + 1}
 
     return B.Transform(init, update)
@@ -145,8 +173,9 @@ def vr_momentum(lr_fn: Callable, mu: float = 0.9, gamma: float = 0.1, eps: float
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
-        sg, _r = _scaled_grads(grads, stats, gamma, eps,
-                               _fused(bk, "vr_momentum", grads, state), spmd)
+        fused, grads, _, stats = _crossed(bk, "vr_momentum", grads, state, params, stats,
+                                          reads_params=False)
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, fused, spmd)
         m = tree_map(lambda m_, g: mu * m_ + g, state["m"], sg)
         return tree_map(lambda m_: -lr * m_, m), {"step": state["step"] + 1, "m": m}
 
@@ -200,7 +229,7 @@ def vr_adam(
 
     def update(grads, state, params=None, stats=None):
         lr = lr_fn(state["step"])
-        fused = _fused(bk, "vr_adam", grads, state)
+        fused, grads, params, stats = _crossed(bk, "vr_adam", grads, state, params, stats)
         if fused and stats is not None:
             from repro_torch.kernels import ops as kops
 
@@ -232,7 +261,8 @@ def vr_lars(
         return {"step": 0, "m": _zeros(bk, params, spmd=spmd)}
 
     def update(grads, state, params, stats=None):
-        if _fused(bk, "vr_lars", grads, state):
+        fused, grads, params, stats = _crossed(bk, "vr_lars", grads, state, params, stats)
+        if fused:
             from repro_torch.kernels import ops as kops
 
             return kops.vr_lars_update(grads, state, _require(stats), lr_fn(state["step"]), mu,
@@ -259,9 +289,10 @@ def vr_lamb(
     """VR-LAMB.  ``init`` takes the FlatParams and resolves the plan's
     ``optimizer`` subsystem for the device they live on: flat m/v/p when it
     is fused, stacked trees otherwise.  ``update(grads, state, params,
-    stats)`` takes the gradient to apply (FlatBuffer on the fused plan, the
-    stacked tree otherwise), the params in the same form and the GradStats
-    (None on a stale step), and returns (updates in that form, new state)."""
+    stats)`` takes the gradient to apply, the params and the GradStats (None
+    on a stale step), each a FlatBuffer or the stacked tree (crossed into the
+    plan's form on entry), and returns (updates in the plan's form: a
+    FlatBuffer on the fused plan, the stacked tree otherwise, new state)."""
     bk = backend if backend is not None else Backend()
 
     def init(params: FlatParams):
@@ -269,7 +300,7 @@ def vr_lamb(
 
     def update(grads, state, params, stats=None):
         lr = lr_fn(state["step"])
-        fused = _fused(bk, "vr_lamb", grads, state)
+        fused, grads, params, stats = _crossed(bk, "vr_lamb", grads, state, params, stats)
         from repro_torch.kernels import ops as kops
 
         if fused and stats is not None:

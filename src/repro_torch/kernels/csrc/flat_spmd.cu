@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernels of repro/kernels/flat_spmd.py, run by
 // repro/backend.py::FlatSpmd under shard_map:
-//   spmd_leaf_r_partials  K13  _r_partials_kernel:   racc[leaf] += sum r_raw
+//   spmd_leaf_r_partials  K13  _r_partials_kernel:   racc[leaf] = sum r_raw
 //   spmd_vr_scale_apply   K14  _scale_apply_kernel:  sg = r ga, r
 //   spmd_vr_adam_apply    K15  _adam_apply_kernel:   upd = -lr u, m', v', p'
 //   spmd_vr_lamb_compute  K16  _lamb_compute_kernel: u, m', v', p', and the
@@ -22,8 +22,10 @@
 // pointer is the shard's own slice of the block-leaf-id map (with leaf 0 for
 // the zero blocks that pad the last shard), and the per-leaf r sum, which
 // the single-card entries compute in their first pass, is an operand here:
-// the sum of every shard's K13 output, combined by an all-reduce.  The
-// accumulators are one f32 per leaf (not the reference's (leaf_slots, 128)
+// the sum of every shard's K13 output, combined by an all-reduce.  K13 runs
+// the single-card entries' two-level sum (an f64 partial per block, added
+// in block order by the last block), whose sorted search leaves the padding
+// blocks out.  The accumulators are one f32 per leaf (not the reference's (leaf_slots, 128)
 // lane rows): a (leaf_slots,) racc, and a (2, leaf_slots) acc of the u^2
 // and w^2 sums, zeroed by the entry that adds into them.  Zero rows (a
 // leaf's tail, the padding blocks) add exact zeros to every sum; in them
@@ -90,18 +92,22 @@ int adam_pass(const void* g, const void* ga, const void* g2, void* m, void* v, v
 // inv_sizes: (leaf_slots,) f32; racc: (leaf_slots,) f32; acc: (2,
 // leaf_slots) f32, the u^2 sums then the w^2 sums.
 
-// K13: racc = per-leaf sums of r_raw over the shard (racc zeroed first).
+// K13: racc = per-leaf sums of r_raw over the shard, two-level as K5-K8's
+// (flat_update.cuh::r_sums_kernel); partials: n_blocks f64, then the u32
+// ticket, zeroed here.
 extern "C" int spmd_leaf_r_partials(const void* g, const void* g2, const void* leaf_ids,
-                                    void* racc, int leaf_slots, int n_blocks, float gsnr_eps,
-                                    void* stream) {
+                                    void* racc, void* partials, int leaf_slots, int n_blocks,
+                                    float gsnr_eps, void* stream) {
   if (bad_shape(n_blocks, leaf_slots)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(racc, 0, (size_t)leaf_slots * sizeof(float), s);
+  double* part = static_cast<double*>(partials);
+  unsigned* ticket = reinterpret_cast<unsigned*>(part + n_blocks);
+  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
-  r_partials_kernel<<<n_blocks, NT, 0, s>>>(static_cast<const float*>(g),
-                                            static_cast<const float*>(g2),
-                                            static_cast<const int*>(leaf_ids),
-                                            static_cast<float*>(racc), gsnr_eps);
+  r_sums_kernel<<<n_blocks, NT, 0, s>>>(static_cast<const float*>(g),
+                                        static_cast<const float*>(g2),
+                                        static_cast<const int*>(leaf_ids), part, ticket,
+                                        static_cast<float*>(racc), leaf_slots, 1, gsnr_eps);
   return cudaGetLastError();
 }
 

@@ -31,8 +31,18 @@
 //      lars stash u in ``upd`` and add per-leaf sums of u^2 and w^2;
 //   3. (lamb, lars) the trust-ratio apply over the stashed u.
 // One block of 256 threads handles one 64-row block of the layout, which
-// lies in exactly one leaf (block_leaf_ids); its partial sum goes to the
-// leaf's f32 accumulator with one atomicAdd.  The zero tail of every leaf
+// lies in exactly one leaf (block_leaf_ids).  The per-leaf sum of r_raw is
+// two-level: each block writes its sum (f32 over a thread's 32 elements,
+// f64 across the block) to its own f64 slot, and the last block to finish
+// (a __threadfence and a ticket counter) adds every leaf's slots in block
+// order in f64 and writes the leaf's sum, rounded once, to the f32 racc
+// row.  An f32 atomicAdd of each block's partial into one slot, the first
+// design, rounds each addition to the growing sum's ulp: over a leaf of
+// 212,992 blocks (DLRM's (26, 2^19, 128) tables) partials of ~7.5e3 went
+// into a sum of ~1.6e9 (ulp 128), an error of up to 1e-3 of the mean
+// (PERF.md).  The block order makes the sums the same bits on every run.
+// The sums of u^2 and w^2 (lamb, lars) are still one f32 atomicAdd per
+// block into the leaf's accumulator.  The zero tail of every leaf
 // (g = g2 = ga = w = 0, so r_raw = u = 0) keeps the sums exact; 1/size is
 // over the TRUE leaf sizes.  In the tail r is clipped up to gamma, so
 // sg = 0 and p' = b3 p + (1 - b3) gamma there, as in the reference.  The
@@ -55,16 +65,21 @@ namespace {
 struct Flat {
   const int* leaf_ids;
   const float* inv_sizes;
-  float* acc;  // (n_acc, leaf_slots) f32
+  float* acc;         // (n_acc, leaf_slots) f32
+  double* partials;   // n_blocks f64, then the u32 ticket
   int leaf_slots, n_blocks;
 };
 
-// Zeroes n_acc accumulator rows, then sums r_raw per leaf into row 0.
+// Zeroes n_acc accumulator rows and the ticket, then writes the per-leaf
+// sums of r_raw into row 0.
 cudaError_t r_partials(const Flat& f, int n_acc, const float* g, const float* g2, float gsnr_eps,
                        cudaStream_t s) {
+  unsigned* ticket = reinterpret_cast<unsigned*>(f.partials + f.n_blocks);
   cudaError_t err = cudaMemsetAsync(f.acc, 0, (size_t)n_acc * f.leaf_slots * sizeof(float), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
-  r_partials_kernel<<<f.n_blocks, NT, 0, s>>>(g, g2, f.leaf_ids, f.acc, gsnr_eps);
+  r_sums_kernel<<<f.n_blocks, NT, 0, s>>>(g, g2, f.leaf_ids, f.partials, ticket, f.acc,
+                                          f.leaf_slots, 0, gsnr_eps);
   return cudaGetLastError();
 }
 
@@ -88,13 +103,13 @@ cudaError_t run_adam(const Flat& f, const float* g, const float* ga, const float
 template <bool TRUST>
 int adam_entry(const void* g, const void* ga, const void* g2, void* m, void* v, void* p,
                const void* w, void* upd, const void* leaf_ids, const void* inv_sizes, void* acc,
-               int leaf_slots, int n_blocks, int state_is_bf16, float lr, float bc1, float bc2,
-               float bc3, float b1, float b2, float b3, float eps, float wd, float gamma,
-               float gsnr_eps, void* stream) {
+               void* partials, int leaf_slots, int n_blocks, int state_is_bf16, float lr,
+               float bc1, float bc2, float bc3, float b1, float b2, float b3, float eps, float wd,
+               float gamma, float gsnr_eps, void* stream) {
   if (n_blocks <= 0 || leaf_slots <= 0) return cudaErrorInvalidValue;
   const Hyper hp{b1, b2, b3, eps, wd, gamma, gsnr_eps, lr, bc1, bc2, bc3};
   const Flat f{static_cast<const int*>(leaf_ids), static_cast<const float*>(inv_sizes),
-               static_cast<float*>(acc), leaf_slots, n_blocks};
+               static_cast<float*>(acc), static_cast<double*>(partials), leaf_slots, n_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   const float* gaf = static_cast<const float*>(ga);
@@ -109,41 +124,42 @@ int adam_entry(const void* g, const void* ga, const void* g2, void* m, void* v, 
 }  // namespace
 
 // Shapes of every entry: g, ga, g2, w, upd, sg, r: (n_blocks * 64, 128) f32;
-// leaf_ids: (n_blocks,) int32; inv_sizes: (leaf_slots,) f32; acc: f32
-// scratch of (1 or 3, leaf_slots).  The state m, v, p is updated in place.
+// leaf_ids: (n_blocks,) int32, sorted; inv_sizes: (leaf_slots,) f32; acc:
+// f32 scratch of (1 or 3, leaf_slots); partials: f64 scratch of n_blocks + 1
+// (the last slot holds the ticket).  The state m, v, p is updated in place.
 
 // VR-LAMB.  m, v, p: f32 (state_is_bf16=0) or bf16; acc (3, leaf_slots).
 extern "C" int flat_vr_lamb(const void* g, const void* ga, const void* g2, void* m, void* v,
                             void* p, const void* w, void* upd, const void* leaf_ids,
-                            const void* inv_sizes, void* acc, int leaf_slots, int n_blocks,
-                            int state_is_bf16, float lr, float bc1, float bc2, float bc3,
-                            float b1, float b2, float b3, float eps, float wd, float gamma,
-                            float gsnr_eps, void* stream) {
-  return adam_entry<true>(g, ga, g2, m, v, p, w, upd, leaf_ids, inv_sizes, acc, leaf_slots,
-                          n_blocks, state_is_bf16, lr, bc1, bc2, bc3, b1, b2, b3, eps, wd, gamma,
-                          gsnr_eps, stream);
+                            const void* inv_sizes, void* acc, void* partials, int leaf_slots,
+                            int n_blocks, int state_is_bf16, float lr, float bc1, float bc2,
+                            float bc3, float b1, float b2, float b3, float eps, float wd,
+                            float gamma, float gsnr_eps, void* stream) {
+  return adam_entry<true>(g, ga, g2, m, v, p, w, upd, leaf_ids, inv_sizes, acc, partials,
+                          leaf_slots, n_blocks, state_is_bf16, lr, bc1, bc2, bc3, b1, b2, b3, eps,
+                          wd, gamma, gsnr_eps, stream);
 }
 
 // VR-Adam.  m, v, p: f32 (state_is_bf16=0) or bf16; acc (1, leaf_slots).
 extern "C" int flat_vr_adam(const void* g, const void* ga, const void* g2, void* m, void* v,
                             void* p, const void* w, void* upd, const void* leaf_ids,
-                            const void* inv_sizes, void* acc, int leaf_slots, int n_blocks,
-                            int state_is_bf16, float lr, float bc1, float bc2, float bc3,
-                            float b1, float b2, float b3, float eps, float wd, float gamma,
-                            float gsnr_eps, void* stream) {
-  return adam_entry<false>(g, ga, g2, m, v, p, w, upd, leaf_ids, inv_sizes, acc, leaf_slots,
-                           n_blocks, state_is_bf16, lr, bc1, bc2, bc3, b1, b2, b3, eps, wd, gamma,
-                           gsnr_eps, stream);
+                            const void* inv_sizes, void* acc, void* partials, int leaf_slots,
+                            int n_blocks, int state_is_bf16, float lr, float bc1, float bc2,
+                            float bc3, float b1, float b2, float b3, float eps, float wd,
+                            float gamma, float gsnr_eps, void* stream) {
+  return adam_entry<false>(g, ga, g2, m, v, p, w, upd, leaf_ids, inv_sizes, acc, partials,
+                           leaf_slots, n_blocks, state_is_bf16, lr, bc1, bc2, bc3, b1, b2, b3, eps,
+                           wd, gamma, gsnr_eps, stream);
 }
 
 // VR scale (VR-SGD / VR-Momentum): sg = r ga and r; acc (1, leaf_slots).
 extern "C" int flat_vr_scale(const void* g, const void* ga, const void* g2, void* sg, void* r,
                              const void* leaf_ids, const void* inv_sizes, void* acc,
-                             int leaf_slots, int n_blocks, float gamma, float gsnr_eps,
-                             void* stream) {
+                             void* partials, int leaf_slots, int n_blocks, float gamma,
+                             float gsnr_eps, void* stream) {
   if (n_blocks <= 0 || leaf_slots <= 0) return cudaErrorInvalidValue;
   const Flat f{static_cast<const int*>(leaf_ids), static_cast<const float*>(inv_sizes),
-               static_cast<float*>(acc), leaf_slots, n_blocks};
+               static_cast<float*>(acc), static_cast<double*>(partials), leaf_slots, n_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   const float* g2f = static_cast<const float*>(g2);
@@ -158,11 +174,11 @@ extern "C" int flat_vr_scale(const void* g, const void* ga, const void* g2, void
 // VR-LARS.  m: f32, updated in place; acc (3, leaf_slots).
 extern "C" int flat_vr_lars(const void* g, const void* ga, const void* g2, void* m, const void* w,
                             void* upd, const void* leaf_ids, const void* inv_sizes, void* acc,
-                            int leaf_slots, int n_blocks, float lr, float gamma, float mu,
-                            float wd, float trust, float gsnr_eps, void* stream) {
+                            void* partials, int leaf_slots, int n_blocks, float lr, float gamma,
+                            float mu, float wd, float trust, float gsnr_eps, void* stream) {
   if (n_blocks <= 0 || leaf_slots <= 0) return cudaErrorInvalidValue;
   const Flat f{static_cast<const int*>(leaf_ids), static_cast<const float*>(inv_sizes),
-               static_cast<float*>(acc), leaf_slots, n_blocks};
+               static_cast<float*>(acc), static_cast<double*>(partials), leaf_slots, n_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   const float* g2f = static_cast<const float*>(g2);

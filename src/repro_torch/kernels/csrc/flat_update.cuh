@@ -1,7 +1,7 @@
 // Device code of the flat VR optimizer updates, shared by flat_update.cu
 // (the single-card entries K5-K8) and flat_spmd.cu (the per-row-shard
 // entries K13-K17), so the two paths run the same element-wise math and the
-// same per-leaf atomics.  flat_update.cu's note gives the formulas and the
+// same per-leaf sums.  flat_update.cu's note gives the formulas and the
 // design.  Everything here has internal linkage: each library that includes
 // it gets its own copy, compiled from this one source.
 #pragma once
@@ -99,11 +99,54 @@ __device__ __forceinline__ float4 f4(const float x[4]) { return make_float4(x[0]
 
 #define UNPACK(name, v4) const float name[4] = {v4.x, v4.y, v4.z, v4.w}
 
-__global__ void __launch_bounds__(NT) r_partials_kernel(const float* __restrict__ g,
-                                                        const float* __restrict__ g2,
-                                                        const int* __restrict__ leaf_ids,
-                                                        float* __restrict__ racc, float gsnr_eps) {
-  __shared__ float red[NT / 32];
+// Sum over the block's NT threads in f64; the result is valid in thread 0.
+__device__ __forceinline__ double block_sum_d(double x, double* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = lane < NT / 32 ? red[lane] : 0.0;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// One past the last block with a nonzero leaf id, or n_blocks when every id
+// is 0.  A row shard's padding blocks carry leaf id 0 after the blocks of
+// later leaves; they hold zeros, so the combine leaves them out.
+__device__ __forceinline__ int live_end(const int* __restrict__ leaf_ids, int n_blocks) {
+  __shared__ int end;
+  if (threadIdx.x == 0) end = 0;
+  for (int hi = n_blocks; hi > 0; hi -= NT) {
+    const int b = hi - NT + (int)threadIdx.x;
+    const bool hit = b >= 0 && leaf_ids[b] != 0;
+    if (__syncthreads_or(hit)) {  // the same on every thread; orders end = 0 first
+      if (hit) atomicMax(&end, b + 1);
+      __syncthreads();
+      return end;
+    }
+  }
+  return n_blocks;
+}
+
+// racc[leaf] = sum of r_raw over the leaf, two-level (flat_update.cu's
+// note): each block writes its f64 partial, and the last block to finish
+// adds each leaf's partials in block order.  partials: n_blocks f64; ticket:
+// one u32, 0 at launch; leaf_ids sorted (a leaf's blocks are contiguous),
+// but for trailing padding blocks of id 0 when ``padded`` (a row shard's);
+// every leaf slot past the last leaf gets 0.
+__global__ void __launch_bounds__(NT) r_sums_kernel(const float* __restrict__ g,
+                                                    const float* __restrict__ g2,
+                                                    const int* __restrict__ leaf_ids,
+                                                    double* __restrict__ partials,
+                                                    unsigned* __restrict__ ticket,
+                                                    float* __restrict__ racc, int leaf_slots,
+                                                    int padded, float gsnr_eps) {
+  __shared__ double red[NT / 32];
+  __shared__ bool last;
   const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
   float acc = 0.f;
 #pragma unroll
@@ -113,8 +156,30 @@ __global__ void __launch_bounds__(NT) r_partials_kernel(const float* __restrict_
     acc += raw_r(a.x, b.x, gsnr_eps) + raw_r(a.y, b.y, gsnr_eps) + raw_r(a.z, b.z, gsnr_eps) +
            raw_r(a.w, b.w, gsnr_eps);
   }
-  acc = block_sum(acc, red);
-  if (threadIdx.x == 0) atomicAdd(racc + leaf_ids[blockIdx.x], acc);
+  const double total = block_sum_d((double)acc, red);
+  const int n_blocks = (int)gridDim.x;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = total;
+    __threadfence();  // the partial is visible before the ticket says so
+    last = atomicAdd(ticket, 1u) == (unsigned)(n_blocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  const int n_live = padded ? live_end(leaf_ids, n_blocks) : n_blocks;
+  int start = 0;  // the last block: each leaf's partials, in block order
+  for (int leaf = 0; leaf < leaf_slots; ++leaf) {
+    int lo = start, hi = n_live;  // end: the first block of a later leaf
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (leaf_ids[mid] <= leaf) lo = mid + 1; else hi = mid;
+    }
+    double x = 0.0;
+    for (int b = start + threadIdx.x; b < lo; b += NT) x += __ldcg(partials + b);
+    __syncthreads();  // red is reused
+    x = block_sum_d(x, red);
+    if (threadIdx.x == 0) racc[leaf] = (float)x;
+    start = lo;
+  }
 }
 
 // ---- VR scale: sg = r ga, r -------------------------------------------------

@@ -45,7 +45,7 @@ from repro_torch.kernels.flat_update import STATE_DTYPES, _device, _stream, adam
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "spmd_leaf_r_partials": [_P] * 4 + [_I, _I, _F, _P],
+    "spmd_leaf_r_partials": [_P] * 5 + [_I, _I, _F, _P],
     "spmd_vr_scale_apply": [_P] * 8 + [_I, _I, _F, _F, _P],
     "spmd_vr_adam_apply": [_P] * 11 + [_I, _I, _I] + [_F] * 11 + [_P],
     "spmd_vr_lamb_compute": [_P] * 12 + [_I, _I, _I] + [_F] * 10 + [_P],
@@ -66,9 +66,10 @@ def _row_ids(lids: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def shard_sums(x: torch.Tensor, lids: torch.Tensor, leaf_slots: int) -> torch.Tensor:
-    """(leaf_slots,) f32 per-leaf sums of the shard's rows of x."""
-    out = torch.zeros(leaf_slots, dtype=torch.float32, device=x.device)
-    return out.index_add_(0, _row_ids(lids, x.shape[0]), x.float().sum(dim=1))
+    """(leaf_slots,) f32 per-leaf sums of the shard's rows of x: the row sums
+    added up in f64 and rounded once, as core/layout.py::leaf_sums does."""
+    out = torch.zeros(leaf_slots, dtype=torch.float64, device=x.device)
+    return out.index_add_(0, _row_ids(lids, x.shape[0]), x.float().sum(dim=1).double()).float()
 
 
 def _ratio(g, g2, racc, lids, inv, gamma, gsnr_eps) -> torch.Tensor:
@@ -177,15 +178,18 @@ def _lib():
 
 def leaf_r_partials(g, g2, lids, leaf_slots: int, *, gsnr_eps):
     """K13: the shard's per-leaf sums of r_raw = g^2 / (max(g2 - g^2, 0) +
-    eps), a new (leaf_slots,) f32 tensor; all-reduced across the shards it
-    is the single-card update's first pass."""
+    eps), a new (leaf_slots,) f32 tensor, each added up in f64 and rounded
+    once, as K5-K8's first pass does; all-reduced across the shards it is
+    that pass."""
     if not _device("leaf_r_partials", g):
         return leaf_r_partials_ref(g, g2, lids, leaf_slots, gsnr_eps=gsnr_eps)
     _check("leaf_r_partials", lids, (g, g2))
     racc = torch.empty(leaf_slots, dtype=torch.float32, device=g.device)
+    # the blocks' f64 partial sums, then the last-block combine's ticket
+    partials = torch.empty(lids.numel() + 1, dtype=torch.float64, device=g.device)
     err = _lib().spmd_leaf_r_partials(g.data_ptr(), g2.data_ptr(), lids.data_ptr(),
-                                      racc.data_ptr(), leaf_slots, lids.numel(), gsnr_eps,
-                                      _stream(g.device))
+                                      racc.data_ptr(), partials.data_ptr(), leaf_slots,
+                                      lids.numel(), gsnr_eps, _stream(g.device))
     _build.check(err, "leaf_r_partials")
     leaf_r_partials.launches += 1
     return racc

@@ -34,12 +34,12 @@ from repro_torch.core.layout import LANE, ParamLayout, leaf_sums, rows_of
 from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ADAM_ARGS = [_P] * 11 + [_I, _I, _I] + [_F] * 11 + [_P]
+_ADAM_ARGS = [_P] * 12 + [_I, _I, _I] + [_F] * 11 + [_P]
 _SIGNATURES = {
     "flat_vr_lamb": _ADAM_ARGS,
     "flat_vr_adam": _ADAM_ARGS,
-    "flat_vr_scale": [_P] * 8 + [_I, _I] + [_F, _F] + [_P],
-    "flat_vr_lars": [_P] * 9 + [_I, _I] + [_F] * 6 + [_P],
+    "flat_vr_scale": [_P] * 9 + [_I, _I] + [_F, _F] + [_P],
+    "flat_vr_lars": [_P] * 10 + [_I, _I] + [_F] * 6 + [_P],
 }
 STATE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -161,11 +161,14 @@ def _device(name, t: torch.Tensor) -> bool:
 
 
 def _meta(layout: ParamLayout, dev, n_acc: int):
-    """The layout's block_leaf_ids and inv_sizes on ``dev``, and a new f32
-    (n_acc, leaf_slots) scratch for the per-leaf sums."""
+    """The layout's block_leaf_ids and inv_sizes on ``dev``, a new f32
+    (n_acc, leaf_slots) scratch for the per-leaf sums, and a new f64 scratch
+    of n_blocks + 1 for the blocks' partial sums of r and the ticket of the
+    last-block combine (the entry zeroes what it reads)."""
     meta = layout.device_meta(dev)
     acc = torch.empty((n_acc, layout.leaf_slots), dtype=torch.float32, device=dev)
-    return meta["block_leaf_ids"], meta["inv_sizes"], acc
+    partials = torch.empty(layout.n_blocks + 1, dtype=torch.float64, device=dev)
+    return meta["block_leaf_ids"], meta["inv_sizes"], acc, partials
 
 
 def _stream(dev) -> int:
@@ -176,14 +179,14 @@ def _adam_call(name, g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, n_
     sd = getattr(torch, state_dtype)
     _check(name, layout, (g, ga, g2, w), (m, v, p), sd)
     lr, bc1, bc2, bc3 = (float(x) for x in scal[:4])
-    ids, inv, acc = _meta(layout, g.device, n_acc)
+    ids, inv, acc, partials = _meta(layout, g.device, n_acc)
     upd = torch.empty_like(g)
     h = hyper
     err = getattr(_build.library("flat_update", _SIGNATURES), name)(
         g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), v.data_ptr(), p.data_ptr(),
         w.data_ptr(), upd.data_ptr(), ids.data_ptr(), inv.data_ptr(), acc.data_ptr(),
-        layout.leaf_slots, layout.n_blocks, int(sd == torch.bfloat16), lr, bc1, bc2, bc3,
-        h["b1"], h["b2"], h["b3"], h["eps"], h["wd"], h["gamma"], h["gsnr_eps"],
+        partials.data_ptr(), layout.leaf_slots, layout.n_blocks, int(sd == torch.bfloat16), lr,
+        bc1, bc2, bc3, h["b1"], h["b2"], h["b3"], h["eps"], h["wd"], h["gamma"], h["gsnr_eps"],
         _stream(g.device),
     )
     _build.check(err, name)
@@ -197,12 +200,12 @@ def flat_vr_scale(g, ga, g2, layout: ParamLayout, *, gamma, eps):
     if not _device("flat_vr_scale", g):
         return flat_vr_scale_ref(g, ga, g2, layout, gamma=gamma, eps=eps)
     _check("flat_vr_scale", layout, (g, ga, g2))
-    ids, inv, acc = _meta(layout, g.device, 1)
+    ids, inv, acc, partials = _meta(layout, g.device, 1)
     sg, r = torch.empty_like(g), torch.empty_like(g)
     err = _build.library("flat_update", _SIGNATURES).flat_vr_scale(
         g.data_ptr(), ga.data_ptr(), g2.data_ptr(), sg.data_ptr(), r.data_ptr(), ids.data_ptr(),
-        inv.data_ptr(), acc.data_ptr(), layout.leaf_slots, layout.n_blocks, gamma, eps,
-        _stream(g.device),
+        inv.data_ptr(), acc.data_ptr(), partials.data_ptr(), layout.leaf_slots, layout.n_blocks,
+        gamma, eps, _stream(g.device),
     )
     _build.check(err, "flat_vr_scale")
     flat_vr_scale.launches += 1
@@ -247,12 +250,12 @@ def flat_vr_lars(g, ga, g2, m, w, scal: Sequence[float], layout: ParamLayout, *,
                                 eps=eps)
     _check("flat_vr_lars", layout, (g, ga, g2, m, w))
     lr, gamma = (float(x) for x in scal[:2])
-    ids, inv, acc = _meta(layout, g.device, 3)
+    ids, inv, acc, partials = _meta(layout, g.device, 3)
     upd = torch.empty_like(g)
     err = _build.library("flat_update", _SIGNATURES).flat_vr_lars(
         g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), w.data_ptr(), upd.data_ptr(),
-        ids.data_ptr(), inv.data_ptr(), acc.data_ptr(), layout.leaf_slots, layout.n_blocks,
-        lr, gamma, mu, wd, trust, eps, _stream(g.device),
+        ids.data_ptr(), inv.data_ptr(), acc.data_ptr(), partials.data_ptr(), layout.leaf_slots,
+        layout.n_blocks, lr, gamma, mu, wd, trust, eps, _stream(g.device),
     )
     _build.check(err, "flat_vr_lars")
     flat_vr_lars.launches += 1

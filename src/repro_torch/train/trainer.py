@@ -25,8 +25,11 @@ forward, K2 backward, K3 per microbatch and K4, or K9 per microbatch on a
 stale step; under "vmap" K1 twice and K2 once per layer for all k groups,
 then K10, or a plain mean on a stale step; K5, K6, K7 or K8 for the
 update); on the reference plan their
-plain PyTorch versions.  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+plain PyTorch versions.  The stats and optimizer subsystems may resolve
+differently (a mixed plan, single-device only, as in the reference): the
+moments cross the flat boundary at the optimizer (core/vrgd.py), and the
+update is added in the optimizer's form.  Entry points run on the CUDA
+card unless the caller passes ``device="cpu"``.
 
 Data parallelism (``mesh=``, a launch/mesh.py::DataMesh; the reference's
 ``pjit`` step with its ``_shard_plan``): every rank holds the same params
@@ -138,11 +141,12 @@ def make_train_step(
     opt_cfg = cfg.optimizer
     device = _device_of(device, mesh)
     bk = cfg.parallel.backend
-    if bk.resolve("stats", device) != bk.resolve("optimizer", device):
+    if mesh is not None and bk.resolve("stats", device) != bk.resolve("optimizer", device):
         raise NotImplementedError(
             "a plan whose stats and optimizer subsystems resolve to different modes "
-            f"({bk.resolve('stats', device)} / {bk.resolve('optimizer', device)}) is not yet "
-            "ported: the flat carry feeds only the flat update")
+            f"({bk.resolve('stats', device)} / {bk.resolve('optimizer', device)}) runs on one "
+            "device only: under a mesh the flat carry and update hold a rank's rows, which "
+            "do not cross into the tree form (the reference's mixed plans are single-device)")
     spmd = _shard_plan(bk, mesh)
     opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch, spmd=spmd)
     loss_fn = loss_fn or make_loss_fn(cfg)
@@ -154,8 +158,10 @@ def make_train_step(
         device_stats = device_grad_stats_fn(loss_fn, mesh, backend=bk,
                                             with_noise_terms=noise_scale, spmd=spmd)
     lr_fn = make_schedule(opt_cfg, effective_batch=cfg.global_batch) if noise_scale else None
-    # the VR optimizers take and return FlatBuffers on the fused plan; the
-    # baselines are tree math on either plan (core/baselines.py)
+    # the VR optimizers return FlatBuffers on the fused optimizer plan (a tree
+    # gradient from the reference stats plan is packed on entry) and trees on
+    # the reference plan (a flat gradient unpacked on entry); the baselines are
+    # tree math on either plan (core/baselines.py)
     flat_form = is_vr and bk.fused("optimizer", device)
 
     def train_step(state: TrainState, batch, with_stats: bool = True

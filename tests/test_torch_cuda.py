@@ -16,7 +16,8 @@ largest magnitude); f32 results 1e-4
 exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
 (its per-leaf sums are f32 atomics in another order), bf16 state one bf16
 ulp (rtol 2^-7); the VR-Adam, VR-LARS and VR-scale updates likewise (rtol
-1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp), and the
+1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp; the leaf mean
+of r their f64 combine gives within 1e-6 of an f64 sum), and the
 g-only carry exactly (the same f32 additions).  The data-parallel pieces:
 the [g; g^2] payload exactly (one f32 product per element), the per-shard
 update kernels K13-K17 and the trust epilogue as the single-card updates
@@ -366,6 +367,32 @@ def test_flat_optimizer_kernels_match_plain(dev, kernel):
         got = fs.flat_g_accum(gs.clone(), gg)
         torch.testing.assert_close(got, fs.g_accum_ref(gs.clone(), gg), rtol=0, atol=0)
     assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flat_vr_scale_leaf_mean_over_many_blocks(dev):
+    """K8's per-leaf sum of r over a leaf of 16,384 blocks (2^27 elements,
+    beside two small leaves), with r mostly unclipped (g2 = g^2 (1 + u),
+    u ~ U(0.5, 2)): the leaf mean its r implies within 1e-6 of an f64 sum,
+    r within 1e-4 of the plain version's, and the same bits on a repeat
+    (the blocks' f64 partials are added in block order)."""
+    layout = ParamLayout(("a", "big", "c"), ((3, 70), (1024, 1024, 128), (5,)))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.empty((layout.n_rows, 128), device=dev).normal_(generator=gen)
+    g.mul_(pad_mask(layout, dev))
+    g2 = torch.empty_like(g).uniform_(1.5, 3.0, generator=gen).mul_(g).mul_(g)
+    _, r = fu.flat_vr_scale(g, g, g2, layout, gamma=0.1, eps=1e-12)
+    _, r_again = fu.flat_vr_scale(g, g, g2, layout, gamma=0.1, eps=1e-12)
+    assert torch.equal(r, r_again)
+    big = layout.leaf_views(r)[1].reshape(-1)
+    raw = fu.raw_r(*(layout.leaf_views(x)[1].reshape(-1) for x in (g, g2)), 1e-12)
+    inv64 = raw.numel() / float(raw.double().sum())
+    free = (big > 0.1) & (big < 1.0)
+    assert int(free.sum()) > raw.numel() // 4
+    inv = float((big[free] / raw[free]).double().median())
+    assert abs(inv - inv64) <= 1e-6 * inv64, (inv, inv64)
+    torch.testing.assert_close(r, fu.flat_vr_scale_ref(g, g, g2, layout, gamma=0.1,
+                                                       eps=1e-12)[1], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

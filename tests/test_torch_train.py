@@ -232,14 +232,6 @@ def test_default_optimizer_resolves_from_the_params_device():
         opt.update(w, fused_state, w)
 
 
-def test_mixed_stats_and_optimizer_plans_raise():
-    cfg = get_smoke("bert-large")
-    cfg = cfg.replace(parallel=dataclasses.replace(
-        cfg.parallel, backend=Backend(stats="fused", optimizer="reference")))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(cfg, device="cpu")
-
-
 def test_transformer_module_parameters_take_gradients():
     """The serving module's parameters require grad (its compute-dtype
     cache is detached, so serving builds no graph)."""
