@@ -88,6 +88,16 @@ class Backend:
     def fused(self, subsystem: str, device) -> bool:
         return self.resolve(subsystem, device) == FUSED
 
+    def describe(self, device) -> dict:
+        """The plan resolved for tensors on ``device`` as a plain dict, the
+        benchmark records' marker (benchmarks/common.py refuses records
+        whose plans differ): each subsystem's mode and the device's name."""
+        device = torch.device(device)
+        plan = {sub: self.resolve(sub, device) for sub in SUBSYSTEMS}
+        plan["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else \
+            device.type
+        return plan
+
     @classmethod
     def all_fused(cls) -> "Backend":
         return cls(attention=FUSED, optimizer=FUSED, stats=FUSED)

@@ -20,6 +20,8 @@ ARCH_MODULES: Dict[str, str] = {
     "bert-large": "bert_large",
     "internlm2-1.8b": "internlm2_1_8b",
     "granite-3-2b": "granite_3_2b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "granite-20b": "granite_20b",
 }
 
 

@@ -33,10 +33,11 @@
 // (no overlap of softmax and products inside the block; two blocks per SM
 // overlap each other): that, and the single consumer warpgroup, bound it.
 //
-// f32 (the f32 cases of the checks): the first version, on the CUDA cores.
-// One block of 128 threads per (q tile, head, batch row) walks the live key
-// tiles; q (pre-scaled), K, then V are staged in shared memory as f32 and
-// the products are f32 FMAs.
+// f32 (the f32 cases of the checks), and bf16 at D = 32 (the gengap
+// bench's smoke model), which the wgmma tiles do not take: the first
+// version, on the CUDA cores.  One block of 128 threads per (q tile, head,
+// batch row) walks the live key tiles; q (pre-scaled), K, then V are staged
+// in shared memory as f32 and the products are f32 FMAs.
 #include "attention_common.cuh"
 #include "attention_sm90.cuh"
 
@@ -465,7 +466,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Skv,KV,D) contiguous in bf16 (is_bf16=1: the
-// tensor-core kernel; 16-byte aligned) or f32 (the CUDA-core kernel);
+// tensor-core kernel at D = 64, 128, 16-byte aligned; the CUDA-core kernel
+// at D = 32) or f32 (the CUDA-core kernel); D one of 32, 64, 128;
 // positions/segments (B,S) int32; out like q; lse (B,H,Sq) f32 or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* k_pos, const void* q_seg,
@@ -481,12 +483,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 64)
       return launch_wgmma<64>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
                               causal, window, scale, s);
+    if (D == 32)  // too narrow for the wgmma tiles: the CUDA-core kernel
+      return launch<__nv_bfloat16, 32>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv,
+                                       H, KV, causal, window, scale, s);
   } else {
     if (D == 128)
       return launch<float, 128>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
                                 causal, window, scale, s);
     if (D == 64)
       return launch<float, 64>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
+                               causal, window, scale, s);
+    if (D == 32)
+      return launch<float, 32>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
                                causal, window, scale, s);
   }
   return cudaErrorInvalidValue;

@@ -45,7 +45,9 @@
 // block (two blocks per SM by shared memory, 106 KiB each) and dQ in two
 // 64-wide halves (32 registers) keep it under 255 without a producer warp.
 //
-// f32 (the f32 cases of the checks): the first version, on the CUDA cores.
+// f32 (the f32 cases of the checks), and bf16 at D = 32 (the gengap
+// bench's smoke model), which the wgmma tiles do not take: the first
+// version, on the CUDA cores.
 // One block of 256 threads per (key tile of 64, kv head, batch row): K and
 // V staged once as f32, then per pair Q, dO, lse and delta; S and dP, then
 // dK and dV in registers and dQ with atomicAdd, all f32 FMAs.
@@ -90,7 +92,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
     float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     int Sq, int Skv, int H, int KV, int causal, int window, float scale) {
   constexpr int DP = D + 4;
-  constexpr int CW = D / 64;  // float4 column groups per thread in the (64 x D) products
+  // float4 column groups per thread in the (64 x D) products; at D = 32 the
+  // 16 column threads cover 64 columns, and those past D sit out (col_ok)
+  constexpr int CW = (D + 63) / 64;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + BK * DP;
@@ -106,6 +110,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
   const int ik = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const auto col_ok = [&](int cw) { return D % 64 == 0 || tc * 4 + 64 * cw < D; };
   const int k0 = ik * BK;
   const int k_valid = min(BK, Skv - k0);
 
@@ -212,6 +217,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
         const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
         for (int cw = 0; cw < CW; ++cw) {
+          if (!col_ok(cw)) continue;
           const float4 o = *reinterpret_cast<const float4*>(dOs + qq * DP + tc * 4 + 64 * cw);
           const float4 x = *reinterpret_cast<const float4*>(Qs + qq * DP + tc * 4 + 64 * cw);
 #pragma unroll
@@ -241,6 +247,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
         for (int i = 0; i < 4; ++i) sr[i] = dSs[(tr * 4 + i) * BP + kk];
 #pragma unroll
         for (int cw = 0; cw < CW; ++cw) {
+          if (!col_ok(cw)) continue;
           const float4 x = *reinterpret_cast<const float4*>(Ks + kk * DP + tc * 4 + 64 * cw);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -259,7 +266,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
 #pragma unroll
         for (int cw = 0; cw < CW; ++cw)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) atomicAdd(row + tc * 4 + 64 * cw + e, dq_acc[i][cw * 4 + e]);
+          for (int e = 0; e < 4; ++e)
+            if (col_ok(cw)) atomicAdd(row + tc * 4 + 64 * cw + e, dq_acc[i][cw * 4 + e]);
       }
     }
   }
@@ -272,7 +280,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_kernel(
 #pragma unroll
     for (int cw = 0; cw < CW; ++cw)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 4 && col_ok(cw); ++e) {
         store1(dk + off + tc * 4 + 64 * cw + e, dk_acc[i][cw * 4 + e]);
         store1(dv + off + tc * 4 + 64 * cw + e, dv_acc[i][cw * 4 + e]);
       }
@@ -606,12 +614,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     if (D == 64)
       return launch_wgmma<64>(q, k, v, lse, delta, dout, q_pos, k_pos, q_seg, k_seg, dq, dk, dv,
                               B, Sq, Skv, H, KV, causal, window, scale, s);
+    if (D == 32)  // too narrow for the wgmma tiles: the CUDA-core kernel
+      return launch<__nv_bfloat16, 32>(q, k, v, lse, delta, dout, q_pos, k_pos, q_seg, k_seg, dq,
+                                       dk, dv, B, Sq, Skv, H, KV, causal, window, scale, s);
   } else {
     if (D == 128)
       return launch<float, 128>(q, k, v, lse, delta, dout, q_pos, k_pos, q_seg, k_seg, dq, dk,
                                 dv, B, Sq, Skv, H, KV, causal, window, scale, s);
     if (D == 64)
       return launch<float, 64>(q, k, v, lse, delta, dout, q_pos, k_pos, q_seg, k_seg, dq, dk,
+                               dv, B, Sq, Skv, H, KV, causal, window, scale, s);
+    if (D == 32)
+      return launch<float, 32>(q, k, v, lse, delta, dout, q_pos, k_pos, q_seg, k_seg, dq, dk,
                                dv, B, Sq, Skv, H, KV, causal, window, scale, s);
   }
   return cudaErrorInvalidValue;

@@ -25,9 +25,11 @@
 // the sum of every shard's K13 output, combined by an all-reduce.  K13 runs
 // the single-card entries' two-level sum (an f64 partial per block, added
 // in block order by the last block), whose sorted search leaves the padding
-// blocks out.  The accumulators are one f32 per leaf (not the reference's (leaf_slots, 128)
+// blocks out; K16 and K17 sum u^2 and w^2 the same way (flat_update.cuh::
+// norm_sums), so the shard's sums are f64 sums rounded once.  The
+// accumulators are one f32 per leaf (not the reference's (leaf_slots, 128)
 // lane rows): a (leaf_slots,) racc, and a (2, leaf_slots) acc of the u^2
-// and w^2 sums, zeroed by the entry that adds into them.  Zero rows (a
+// and w^2 sums, every slot written by the kernel's last block.  Zero rows (a
 // leaf's tail, the padding blocks) add exact zeros to every sum; in them
 // r = gamma, sg = 0, u = 0 and p' = b3 p + (1 - b3) gamma, as in the
 // reference.
@@ -49,20 +51,31 @@ Hyper hyper(float lr, float bc1, float bc2, float bc3, float b1, float b2, float
   return Hyper{b1, b2, b3, eps, wd, gamma, gsnr_eps, lr, bc1, bc2, bc3};
 }
 
+// The two-level u^2 and w^2 sums of K16 and K17 over the shard's blocks:
+// acc (2, leaf_slots) f32; partials 2 n_blocks f64, then the u32 ticket,
+// which this zeroes.
+cudaError_t shard_norms(void* acc, void* partials, int leaf_slots, int n_blocks, cudaStream_t s,
+                        Norms* nm) {
+  double* part = static_cast<double*>(partials);
+  unsigned* ticket = reinterpret_cast<unsigned*>(part + 2 * (int64_t)n_blocks);
+  float* uacc = static_cast<float*>(acc);
+  *nm = Norms{part, ticket, uacc, uacc + leaf_slots, leaf_slots, 1};
+  return cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+}
+
 // The VR-Adam element-wise pass over the shard: TRUST false writes upd =
-// -lr u (K15), true stashes u in upd and adds the per-leaf sums into acc
-// (K16), which it zeroes first.
+// -lr u (K15), true stashes u in upd and writes the per-leaf sums to acc
+// (K16).
 template <bool TRUST>
 int adam_pass(const void* g, const void* ga, const void* g2, void* m, void* v, void* p,
               const void* w, void* upd, const void* leaf_ids, const void* inv_sizes,
-              const void* racc, void* acc, int leaf_slots, int n_blocks, int state_is_bf16,
-              const Hyper& hp, void* stream) {
+              const void* racc, void* acc, void* partials, int leaf_slots, int n_blocks,
+              int state_is_bf16, const Hyper& hp, void* stream) {
   if (bad_shape(n_blocks, leaf_slots)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* uacc = static_cast<float*>(acc);
-  float* wacc = TRUST ? uacc + leaf_slots : nullptr;
+  Norms nm{};
   if (TRUST) {
-    cudaError_t err = cudaMemsetAsync(acc, 0, 2 * (size_t)leaf_slots * sizeof(float), s);
+    cudaError_t err = shard_norms(acc, partials, leaf_slots, n_blocks, s, &nm);
     if (err != cudaSuccess) return err;
   }
   const float* gf = static_cast<const float*>(g);
@@ -76,11 +89,11 @@ int adam_pass(const void* g, const void* ga, const void* g2, void* m, void* v, v
   if (state_is_bf16)
     adam_kernel<__nv_bfloat16, TRUST><<<n_blocks, NT, 0, s>>>(
         gf, gaf, g2f, static_cast<__nv_bfloat16*>(m), static_cast<__nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(p), wf, uf, ids, inv, ra, uacc, wacc, hp);
+        static_cast<__nv_bfloat16*>(p), wf, uf, ids, inv, ra, nm, hp);
   else
     adam_kernel<float, TRUST><<<n_blocks, NT, 0, s>>>(
         gf, gaf, g2f, static_cast<float*>(m), static_cast<float*>(v), static_cast<float*>(p),
-        wf, uf, ids, inv, ra, uacc, wacc, hp);
+        wf, uf, ids, inv, ra, nm, hp);
   return cudaGetLastError();
 }
 
@@ -90,7 +103,9 @@ int adam_pass(const void* g, const void* ga, const void* g2, void* m, void* v, v
 // (n_blocks * 64, 128) f32; m, v, p: the same in the state dtype (f32 for
 // LARS's m); leaf_ids: (n_blocks,) int32, the shard's slice of the map;
 // inv_sizes: (leaf_slots,) f32; racc: (leaf_slots,) f32; acc: (2,
-// leaf_slots) f32, the u^2 sums then the w^2 sums.
+// leaf_slots) f32, the u^2 sums then the w^2 sums; partials (K13: n_blocks
+// + 1, K16 and K17: 2 n_blocks + 1 f64): the blocks' partial sums, then the
+// ticket of the last-block combine.
 
 // K13: racc = per-leaf sums of r_raw over the shard, two-level as K5-K8's
 // (flat_update.cuh::r_sums_kernel); partials: n_blocks f64, then the u32
@@ -133,7 +148,7 @@ extern "C" int spmd_vr_adam_apply(const void* g, const void* ga, const void* g2,
                                   float eps, float wd, float gamma, float gsnr_eps,
                                   void* stream) {
   return adam_pass<false>(g, ga, g2, m, v, p, w, upd, leaf_ids, inv_sizes, racc, nullptr,
-                          leaf_slots, n_blocks, state_is_bf16,
+                          nullptr, leaf_slots, n_blocks, state_is_bf16,
                           hyper(lr, bc1, bc2, bc3, b1, b2, b3, eps, wd, gamma, gsnr_eps), stream);
 }
 
@@ -142,31 +157,33 @@ extern "C" int spmd_vr_adam_apply(const void* g, const void* ga, const void* g2,
 extern "C" int spmd_vr_lamb_compute(const void* g, const void* ga, const void* g2, void* m,
                                     void* v, void* p, const void* w, void* u,
                                     const void* leaf_ids, const void* inv_sizes,
-                                    const void* racc, void* acc, int leaf_slots, int n_blocks,
+                                    const void* racc, void* acc, void* partials, int leaf_slots,
+                                    int n_blocks,
                                     int state_is_bf16, float bc1, float bc2, float bc3, float b1,
                                     float b2, float b3, float eps, float wd, float gamma,
                                     float gsnr_eps, void* stream) {
-  return adam_pass<true>(g, ga, g2, m, v, p, w, u, leaf_ids, inv_sizes, racc, acc, leaf_slots,
-                         n_blocks, state_is_bf16,
+  return adam_pass<true>(g, ga, g2, m, v, p, w, u, leaf_ids, inv_sizes, racc, acc, partials,
+                         leaf_slots, n_blocks, state_is_bf16,
                          hyper(0.f, bc1, bc2, bc3, b1, b2, b3, eps, wd, gamma, gsnr_eps), stream);
 }
 
 // K17: VR-LARS before the trust ratio: u = r ga + wd w, and the per-leaf
-// sums of u^2 and w^2 into acc (zeroed first).
+// sums of u^2 and w^2 into acc.
 extern "C" int spmd_vr_lars_compute(const void* g, const void* ga, const void* g2, const void* w,
                                     void* u, const void* leaf_ids, const void* inv_sizes,
-                                    const void* racc, void* acc, int leaf_slots, int n_blocks,
-                                    float gamma, float wd, float gsnr_eps, void* stream) {
+                                    const void* racc, void* acc, void* partials, int leaf_slots,
+                                    int n_blocks, float gamma, float wd, float gsnr_eps,
+                                    void* stream) {
   if (bad_shape(n_blocks, leaf_slots)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(acc, 0, 2 * (size_t)leaf_slots * sizeof(float), s);
+  Norms nm;
+  cudaError_t err = shard_norms(acc, partials, leaf_slots, n_blocks, s, &nm);
   if (err != cudaSuccess) return err;
-  float* uacc = static_cast<float*>(acc);
   lars_compute_kernel<<<n_blocks, NT, 0, s>>>(
       static_cast<const float*>(g), static_cast<const float*>(ga), static_cast<const float*>(g2),
       static_cast<const float*>(w), static_cast<float*>(u), static_cast<const int*>(leaf_ids),
-      static_cast<const float*>(inv_sizes), static_cast<const float*>(racc), uacc,
-      uacc + leaf_slots, gamma, wd, gsnr_eps);
+      static_cast<const float*>(inv_sizes), static_cast<const float*>(racc), nm, gamma, wd,
+      gsnr_eps);
   return cudaGetLastError();
 }
 

@@ -41,12 +41,14 @@
 // 212,992 blocks (DLRM's (26, 2^19, 128) tables) partials of ~7.5e3 went
 // into a sum of ~1.6e9 (ulp 128), an error of up to 1e-3 of the mean
 // (PERF.md).  The block order makes the sums the same bits on every run.
-// The sums of u^2 and w^2 (lamb, lars) are still one f32 atomicAdd per
-// block into the leaf's accumulator.  The zero tail of every leaf
-// (g = g2 = ga = w = 0, so r_raw = u = 0) keeps the sums exact; 1/size is
-// over the TRUE leaf sizes.  In the tail r is clipped up to gamma, so
-// sg = 0 and p' = b3 p + (1 - b3) gamma there, as in the reference.  The
-// accumulators are zeroed by the entry (cudaMemsetAsync).
+// The sums of u^2 and w^2 (lamb, lars) are two-level in the same way: the
+// element-wise pass writes each block's two sums to f64 slots and its last
+// block writes the leaf's sums to uacc and wacc, which the trust-ratio apply
+// reads.  The zero tail of every leaf (g = g2 = ga = w = 0, so r_raw = u =
+// 0) keeps the sums exact; 1/size is over the TRUE leaf sizes.  In the tail
+// r is clipped up to gamma, so sg = 0 and p' = b3 p + (1 - b3) gamma there,
+// as in the reference.  Every leaf slot of the accumulators is written by a
+// last block, so the entry zeroes only the tickets (cudaMemsetAsync).
 //
 // Bound on the card: bytes (each does < 50 flops per element).  At
 // bert-large's flat layout (2.85 M rows, 1.46 GB per f32 buffer) the
@@ -65,38 +67,46 @@ namespace {
 struct Flat {
   const int* leaf_ids;
   const float* inv_sizes;
-  float* acc;         // (n_acc, leaf_slots) f32
-  double* partials;   // n_blocks f64, then the u32 ticket
+  float* acc;         // (1 or 3, leaf_slots) f32: racc, then uacc and wacc
+  double* partials;   // n_sums * n_blocks f64, then n_sums u32 tickets
   int leaf_slots, n_blocks;
 };
 
-// Zeroes n_acc accumulator rows and the ticket, then writes the per-leaf
-// sums of r_raw into row 0.
-cudaError_t r_partials(const Flat& f, int n_acc, const float* g, const float* g2, float gsnr_eps,
+unsigned* tickets(const Flat& f, int n_sums) {
+  return reinterpret_cast<unsigned*>(f.partials + (int64_t)n_sums * f.n_blocks);
+}
+
+// Zeroes the n_sums tickets, then writes the per-leaf sums of r_raw into
+// row 0 of acc (its slots: the first n_blocks partials and ticket 0).
+cudaError_t r_partials(const Flat& f, int n_sums, const float* g, const float* g2, float gsnr_eps,
                        cudaStream_t s) {
-  unsigned* ticket = reinterpret_cast<unsigned*>(f.partials + f.n_blocks);
-  cudaError_t err = cudaMemsetAsync(f.acc, 0, (size_t)n_acc * f.leaf_slots * sizeof(float), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+  unsigned* ticket = tickets(f, n_sums);
+  cudaError_t err = cudaMemsetAsync(ticket, 0, n_sums * sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
   r_sums_kernel<<<f.n_blocks, NT, 0, s>>>(g, g2, f.leaf_ids, f.partials, ticket, f.acc,
                                           f.leaf_slots, 0, gsnr_eps);
   return cudaGetLastError();
 }
 
+// The u^2 and w^2 sums of the trust pass: every partial slot (the r sums
+// are done with theirs) and ticket 1, into rows 1 and 2 of acc.
+Norms norms(const Flat& f) {
+  return Norms{f.partials, tickets(f, 2) + 1, f.acc + f.leaf_slots, f.acc + 2 * f.leaf_slots,
+               f.leaf_slots, 0};
+}
+
 template <typename S, bool TRUST>
 cudaError_t run_adam(const Flat& f, const float* g, const float* ga, const float* g2, void* m,
                      void* v, void* p, const float* w, float* upd, const Hyper& hp,
                      cudaStream_t s) {
-  float* racc = f.acc;
-  float* uacc = f.acc + f.leaf_slots;
-  float* wacc = f.acc + 2 * f.leaf_slots;
-  cudaError_t err = r_partials(f, TRUST ? 3 : 1, g, g2, hp.gsnr_eps, s);
+  const Norms nm = TRUST ? norms(f) : Norms{};
+  cudaError_t err = r_partials(f, TRUST ? 2 : 1, g, g2, hp.gsnr_eps, s);
   if (err != cudaSuccess) return err;
   adam_kernel<S, TRUST><<<f.n_blocks, NT, 0, s>>>(
       g, ga, g2, static_cast<S*>(m), static_cast<S*>(v), static_cast<S*>(p), w, upd, f.leaf_ids,
-      f.inv_sizes, racc, uacc, wacc, hp);
+      f.inv_sizes, f.acc, nm, hp);
   if ((err = cudaGetLastError()) != cudaSuccess || !TRUST) return err;
-  lamb_apply_kernel<<<f.n_blocks, NT, 0, s>>>(upd, f.leaf_ids, uacc, wacc, hp.lr);
+  lamb_apply_kernel<<<f.n_blocks, NT, 0, s>>>(upd, f.leaf_ids, nm.uacc, nm.wacc, hp.lr);
   return cudaGetLastError();
 }
 
@@ -126,7 +136,8 @@ int adam_entry(const void* g, const void* ga, const void* g2, void* m, void* v, 
 // Shapes of every entry: g, ga, g2, w, upd, sg, r: (n_blocks * 64, 128) f32;
 // leaf_ids: (n_blocks,) int32, sorted; inv_sizes: (leaf_slots,) f32; acc:
 // f32 scratch of (1 or 3, leaf_slots); partials: f64 scratch of n_blocks + 1
-// (the last slot holds the ticket).  The state m, v, p is updated in place.
+// (scale, adam) or 2 n_blocks + 1 (lamb, lars; the last slot holds the
+// tickets).  The state m, v, p is updated in place.
 
 // VR-LAMB.  m, v, p: f32 (state_is_bf16=0) or bf16; acc (3, leaf_slots).
 extern "C" int flat_vr_lamb(const void* g, const void* ga, const void* g2, void* m, void* v,
@@ -183,15 +194,14 @@ extern "C" int flat_vr_lars(const void* g, const void* ga, const void* g2, void*
   const float* gf = static_cast<const float*>(g);
   const float* g2f = static_cast<const float*>(g2);
   float* uf = static_cast<float*>(upd);
-  float* uacc = f.acc + leaf_slots;
-  float* wacc = f.acc + 2 * leaf_slots;
-  cudaError_t err = r_partials(f, 3, gf, g2f, gsnr_eps, s);
+  const Norms nm = norms(f);
+  cudaError_t err = r_partials(f, 2, gf, g2f, gsnr_eps, s);
   if (err != cudaSuccess) return err;
   lars_compute_kernel<<<n_blocks, NT, 0, s>>>(gf, static_cast<const float*>(ga), g2f,
                                               static_cast<const float*>(w), uf, f.leaf_ids,
-                                              f.inv_sizes, f.acc, uacc, wacc, gamma, wd, gsnr_eps);
+                                              f.inv_sizes, f.acc, nm, gamma, wd, gsnr_eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  lars_apply_kernel<<<n_blocks, NT, 0, s>>>(static_cast<float*>(m), uf, f.leaf_ids, uacc, wacc,
-                                            lr, mu, trust);
+  lars_apply_kernel<<<n_blocks, NT, 0, s>>>(static_cast<float*>(m), uf, f.leaf_ids, nm.uacc,
+                                            nm.wacc, lr, mu, trust);
   return cudaGetLastError();
 }

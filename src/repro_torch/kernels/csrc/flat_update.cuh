@@ -132,12 +132,60 @@ __device__ __forceinline__ int live_end(const int* __restrict__ leaf_ids, int n_
   return n_blocks;
 }
 
+// The first level of a two-level per-leaf sum: thread 0 writes the block's N
+// totals to its own f64 slots (sum s of block b at partials[s * n_blocks +
+// b]) and takes a ticket; true on every thread of the last block to finish,
+// which then sees every block's slots.  ticket: one u32, 0 at launch.
+template <int N>
+__device__ __forceinline__ bool block_done(const double (&totals)[N], double* __restrict__ partials,
+                                           unsigned* __restrict__ ticket) {
+  __shared__ bool last;
+  const int n_blocks = (int)gridDim.x;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < N; ++s) partials[(int64_t)s * n_blocks + blockIdx.x] = totals[s];
+    __threadfence();  // the partials are visible before the ticket says so
+    last = atomicAdd(ticket, 1u) == (unsigned)(n_blocks - 1);
+  }
+  __syncthreads();
+  return last;
+}
+
+// The second level, run by the last block: outs[s][leaf] = the leaf's slots
+// of sum s added in block order in f64, rounded once to f32, so the sums are
+// the same bits on every run.  leaf_ids sorted (a leaf's blocks are
+// contiguous), but for trailing padding blocks of id 0 when ``padded`` (a
+// row shard's); every leaf slot past the last leaf gets 0.
+template <int N>
+__device__ void combine_leaf_sums(const double* __restrict__ partials,
+                                  const int* __restrict__ leaf_ids, int padded,
+                                  float* const (&outs)[N], int leaf_slots, double* red) {
+  const int n_blocks = (int)gridDim.x;
+  const int n_live = padded ? live_end(leaf_ids, n_blocks) : n_blocks;
+  int start = 0;
+  for (int leaf = 0; leaf < leaf_slots; ++leaf) {
+    int lo = start, hi = n_live;  // end: the first block of a later leaf
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (leaf_ids[mid] <= leaf) lo = mid + 1; else hi = mid;
+    }
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const double* part = partials + (int64_t)s * n_blocks;
+      double x = 0.0;
+#pragma unroll 4
+      for (int b = start + threadIdx.x; b < lo; b += NT) x += __ldcg(part + b);
+      __syncthreads();  // red is reused
+      x = block_sum_d(x, red);
+      if (threadIdx.x == 0) outs[s][leaf] = (float)x;
+    }
+    start = lo;
+  }
+}
+
 // racc[leaf] = sum of r_raw over the leaf, two-level (flat_update.cu's
-// note): each block writes its f64 partial, and the last block to finish
-// adds each leaf's partials in block order.  partials: n_blocks f64; ticket:
-// one u32, 0 at launch; leaf_ids sorted (a leaf's blocks are contiguous),
-// but for trailing padding blocks of id 0 when ``padded`` (a row shard's);
-// every leaf slot past the last leaf gets 0.
+// note).  partials: n_blocks f64; ticket: one u32, 0 at launch; ``padded``
+// as in combine_leaf_sums.
 __global__ void __launch_bounds__(NT) r_sums_kernel(const float* __restrict__ g,
                                                     const float* __restrict__ g2,
                                                     const int* __restrict__ leaf_ids,
@@ -146,7 +194,6 @@ __global__ void __launch_bounds__(NT) r_sums_kernel(const float* __restrict__ g,
                                                     float* __restrict__ racc, int leaf_slots,
                                                     int padded, float gsnr_eps) {
   __shared__ double red[NT / 32];
-  __shared__ bool last;
   const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
   float acc = 0.f;
 #pragma unroll
@@ -156,30 +203,37 @@ __global__ void __launch_bounds__(NT) r_sums_kernel(const float* __restrict__ g,
     acc += raw_r(a.x, b.x, gsnr_eps) + raw_r(a.y, b.y, gsnr_eps) + raw_r(a.z, b.z, gsnr_eps) +
            raw_r(a.w, b.w, gsnr_eps);
   }
-  const double total = block_sum_d((double)acc, red);
-  const int n_blocks = (int)gridDim.x;
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = total;
-    __threadfence();  // the partial is visible before the ticket says so
-    last = atomicAdd(ticket, 1u) == (unsigned)(n_blocks - 1);
-  }
-  __syncthreads();
-  if (!last) return;
-  const int n_live = padded ? live_end(leaf_ids, n_blocks) : n_blocks;
-  int start = 0;  // the last block: each leaf's partials, in block order
-  for (int leaf = 0; leaf < leaf_slots; ++leaf) {
-    int lo = start, hi = n_live;  // end: the first block of a later leaf
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (leaf_ids[mid] <= leaf) lo = mid + 1; else hi = mid;
-    }
-    double x = 0.0;
-    for (int b = start + threadIdx.x; b < lo; b += NT) x += __ldcg(partials + b);
-    __syncthreads();  // red is reused
-    x = block_sum_d(x, red);
-    if (threadIdx.x == 0) racc[leaf] = (float)x;
-    start = lo;
-  }
+  const double totals[1] = {block_sum_d((double)acc, red)};
+  if (!block_done<1>(totals, partials, ticket)) return;
+  float* const outs[1] = {racc};
+  combine_leaf_sums<1>(partials, leaf_ids, padded, outs, leaf_slots, red);
+}
+
+// The operands of the u^2 and w^2 sums (norm_sums): ``partials`` 2 n_blocks
+// f64, ``ticket`` one u32 that is 0 at launch, ``padded`` as in
+// combine_leaf_sums; the sums land in uacc and wacc (leaf_slots f32 each).
+struct Norms {
+  double* partials;
+  unsigned* ticket;
+  float* uacc;
+  float* wacc;
+  int leaf_slots, padded;
+};
+
+// The per-leaf sums of u^2 and w^2 of the LAMB and LARS passes, two-level as
+// r_sums_kernel's: the block's sums (f32 over a thread's 32 elements, f64
+// across the block) go to its slots of nm.partials, and the last block
+// writes nm.uacc and nm.wacc.
+__device__ __forceinline__ void norm_sums(float uu, float ww, const int* __restrict__ leaf_ids,
+                                          const Norms& nm) {
+  __shared__ double red[NT / 32];
+  double totals[2];
+  totals[0] = block_sum_d((double)uu, red);
+  __syncthreads();  // red is reused
+  totals[1] = block_sum_d((double)ww, red);
+  if (!block_done<2>(totals, nm.partials, nm.ticket)) return;
+  float* const outs[2] = {nm.uacc, nm.wacc};
+  combine_leaf_sums<2>(nm.partials, leaf_ids, nm.padded, outs, nm.leaf_slots, red);
 }
 
 // ---- VR scale: sg = r ga, r -------------------------------------------------
@@ -212,14 +266,13 @@ __global__ void __launch_bounds__(NT) scale_kernel(
 // ---- VR-Adam / VR-LAMB element-wise pass -------------------------------------
 
 // VR-Adam: upd = -lr u, m'/v'/p' in place.  VR-LAMB (TRUST): u stashed in upd,
-// per-leaf sums of u^2 and w^2 into uacc / wacc.
+// per-leaf sums of u^2 and w^2 into nm.uacc / nm.wacc.
 template <typename S, bool TRUST>
 __global__ void __launch_bounds__(NT) adam_kernel(
     const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
     S* __restrict__ m, S* __restrict__ v, S* __restrict__ p, const float* __restrict__ w,
     float* __restrict__ upd, const int* __restrict__ leaf_ids, const float* __restrict__ inv_sizes,
-    const float* __restrict__ racc, float* __restrict__ uacc, float* __restrict__ wacc, Hyper hp) {
-  __shared__ float red[NT / 32];
+    const float* __restrict__ racc, Norms nm, Hyper hp) {
   const int leaf = leaf_ids[blockIdx.x];
   const float inv_mean = inv_mean_r(racc, inv_sizes, leaf);
   const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
@@ -254,15 +307,7 @@ __global__ void __launch_bounds__(NT) adam_kernel(
     st(v, i, f4(vo));
     st(p, i, f4(po));
   }
-  if (TRUST) {
-    uu = block_sum(uu, red);
-    __syncthreads();  // red is reused
-    ww = block_sum(ww, red);
-    if (threadIdx.x == 0) {
-      atomicAdd(uacc + leaf, uu);
-      atomicAdd(wacc + leaf, ww);
-    }
-  }
+  if (TRUST) norm_sums(uu, ww, leaf_ids, nm);
 }
 
 // The per-leaf trust ratio from the norm sums: LAMB clips |w| to [0, 10],
@@ -294,9 +339,8 @@ __global__ void __launch_bounds__(NT) lamb_apply_kernel(float* __restrict__ upd,
 __global__ void __launch_bounds__(NT) lars_compute_kernel(
     const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
     const float* __restrict__ w, float* __restrict__ upd, const int* __restrict__ leaf_ids,
-    const float* __restrict__ inv_sizes, const float* __restrict__ racc, float* __restrict__ uacc,
-    float* __restrict__ wacc, float gamma, float wd, float gsnr_eps) {
-  __shared__ float red[NT / 32];
+    const float* __restrict__ inv_sizes, const float* __restrict__ racc, Norms nm, float gamma,
+    float wd, float gsnr_eps) {
   const int leaf = leaf_ids[blockIdx.x];
   const float inv_mean = inv_mean_r(racc, inv_sizes, leaf);
   const int64_t base = (int64_t)blockIdx.x * BLOCK_VECS;
@@ -318,13 +362,7 @@ __global__ void __launch_bounds__(NT) lars_compute_kernel(
     }
     st(upd, i, f4(uo));
   }
-  uu = block_sum(uu, red);
-  __syncthreads();  // red is reused
-  ww = block_sum(ww, red);
-  if (threadIdx.x == 0) {
-    atomicAdd(uacc + leaf, uu);
-    atomicAdd(wacc + leaf, ww);
-  }
+  norm_sums(uu, ww, leaf_ids, nm);
 }
 
 __global__ void __launch_bounds__(NT) lars_apply_kernel(float* __restrict__ m,

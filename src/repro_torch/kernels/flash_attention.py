@@ -29,7 +29,7 @@ from repro_torch.backend import HOPPER, device_info
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)  # bf16 at 32: the CUDA-core kernel (the wgmma tiles take 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

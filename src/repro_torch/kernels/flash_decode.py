@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import (
 TILES = (64, 32)  # cache slots per kernel tile, in order of preference
 ROWS_PER_BLOCK = 16  # query rows (G * L of one kv head) per block
 MAX_SPLITS = 8  # blocks per cluster: the portable cluster size
+DECODE_DIMS = (64, 128)  # head dims the decode kernel is built for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -150,7 +151,7 @@ def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, wi
                                     causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no implementation for device {q.device}")
-    check_cuda_operands("flash_decode", q, k, v, (q_pos, k_pos, q_seg, k_seg))
+    check_cuda_operands("flash_decode", q, k, v, (q_pos, k_pos, q_seg, k_seg), dims=DECODE_DIMS)
     if k.shape[0] != b:
         raise ValueError(f"flash_decode: q has {b} rows, the cache {k.shape[0]}")
     tile, chunk, splits = split_plan(b, kvh, (h // kvh) * lanes, c, device_info(q.device.index)[1])

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "spmd_leaf_r_partials": [_P] * 5 + [_I, _I, _F, _P],
     "spmd_vr_scale_apply": [_P] * 8 + [_I, _I, _F, _F, _P],
     "spmd_vr_adam_apply": [_P] * 11 + [_I, _I, _I] + [_F] * 11 + [_P],
-    "spmd_vr_lamb_compute": [_P] * 12 + [_I, _I, _I] + [_F] * 10 + [_P],
-    "spmd_vr_lars_compute": [_P] * 9 + [_I, _I, _F, _F, _F, _P],
+    "spmd_vr_lamb_compute": [_P] * 13 + [_I, _I, _I] + [_F] * 10 + [_P],
+    "spmd_vr_lars_compute": [_P] * 10 + [_I, _I, _F, _F, _F, _P],
     "spmd_lamb_apply": [_P] * 3 + [_I, _I, _F, _P],
     "spmd_lars_apply": [_P] * 4 + [_I, _I, _F, _F, _F, _P],
 }
@@ -211,6 +211,14 @@ def vr_scale_apply(g, ga, g2, racc, lids, inv, *, gamma, eps):
     return sg, r
 
 
+def _norm_scratch(leaf_slots: int, n_blocks: int, dev):
+    """A new (2, leaf_slots) f32 accumulator of the Σu² and Σw² sums (K16,
+    K17), and the f64 scratch of their last-block combine: 2 n_blocks
+    partial sums, then the ticket (zeroed by the entry)."""
+    acc = torch.empty((2, leaf_slots), dtype=torch.float32, device=dev)
+    return acc, torch.empty(2 * n_blocks + 1, dtype=torch.float64, device=dev)
+
+
 def _adam_call(entry, name, g, ga, g2, m, v, p, w, scal, racc, lids, inv, h, state_dtype,
                with_lr):
     sd = getattr(torch, state_dtype)
@@ -222,8 +230,8 @@ def _adam_call(entry, name, g, ga, g2, m, v, p, w, scal, racc, lids, inv, h, sta
             racc.data_ptr())
     acc = None
     if not with_lr:
-        acc = torch.empty((2, racc.numel()), dtype=torch.float32, device=g.device)
-        head += (acc.data_ptr(),)
+        acc, partials = _norm_scratch(racc.numel(), lids.numel(), g.device)
+        head += (acc.data_ptr(), partials.data_ptr())
     tail = (racc.numel(), lids.numel(), int(sd == torch.bfloat16)) + ((lr,) if with_lr else ())
     err = getattr(_lib(), entry)(
         *head, *tail, bc1, bc2, bc3, h["b1"], h["b2"], h["b3"], h["eps"], h["wd"], h["gamma"],
@@ -268,11 +276,12 @@ def vr_lars_compute(g, ga, g2, w, scal: Sequence[float], racc, lids, inv, *, wd,
         return vr_lars_compute_ref(g, ga, g2, w, scal, racc, lids, inv, wd=wd, eps=eps)
     _check("vr_lars_compute", lids, (g, ga, g2, w), meta=(racc, inv))
     u = torch.empty_like(g)
-    acc = torch.empty((2, racc.numel()), dtype=torch.float32, device=g.device)
+    acc, partials = _norm_scratch(racc.numel(), lids.numel(), g.device)
     err = _lib().spmd_vr_lars_compute(g.data_ptr(), ga.data_ptr(), g2.data_ptr(), w.data_ptr(),
                                       u.data_ptr(), lids.data_ptr(), inv.data_ptr(),
-                                      racc.data_ptr(), acc.data_ptr(), racc.numel(),
-                                      lids.numel(), float(scal[1]), wd, eps, _stream(g.device))
+                                      racc.data_ptr(), acc.data_ptr(), partials.data_ptr(),
+                                      racc.numel(), lids.numel(), float(scal[1]), wd, eps,
+                                      _stream(g.device))
     _build.check(err, "vr_lars_compute")
     vr_lars_compute.launches += 1
     return u, acc

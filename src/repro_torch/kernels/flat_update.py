@@ -162,12 +162,15 @@ def _device(name, t: torch.Tensor) -> bool:
 
 def _meta(layout: ParamLayout, dev, n_acc: int):
     """The layout's block_leaf_ids and inv_sizes on ``dev``, a new f32
-    (n_acc, leaf_slots) scratch for the per-leaf sums, and a new f64 scratch
-    of n_blocks + 1 for the blocks' partial sums of r and the ticket of the
-    last-block combine (the entry zeroes what it reads)."""
+    (n_acc, leaf_slots) scratch for the per-leaf sums (Σr; with 3 rows also
+    Σu² and Σw²), and a new f64 scratch for the blocks' partial sums and the
+    tickets of the last-block combines: n_blocks + 1 for Σr alone, 2 n_blocks
+    + 1 with the norm sums (the entry zeroes the tickets; the combines write
+    every accumulator slot)."""
     meta = layout.device_meta(dev)
     acc = torch.empty((n_acc, layout.leaf_slots), dtype=torch.float32, device=dev)
-    partials = torch.empty(layout.n_blocks + 1, dtype=torch.float64, device=dev)
+    n_sums = 2 if n_acc == 3 else 1
+    partials = torch.empty(n_sums * layout.n_blocks + 1, dtype=torch.float64, device=dev)
     return meta["block_leaf_ids"], meta["inv_sizes"], acc, partials
 
 
@@ -176,6 +179,9 @@ def _stream(dev) -> int:
 
 
 def _adam_call(name, g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, n_acc):
+    """Launch K6 (``flat_vr_adam``, n_acc 1) or K5 (``flat_vr_lamb``, n_acc
+    3) uncounted: (upd, the (n_acc, leaf_slots) per-leaf sums of r_raw and,
+    for K5, u² and w² that the step used)."""
     sd = getattr(torch, state_dtype)
     _check(name, layout, (g, ga, g2, w), (m, v, p), sd)
     lr, bc1, bc2, bc3 = (float(x) for x in scal[:4])
@@ -190,7 +196,23 @@ def _adam_call(name, g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, n_
         _stream(g.device),
     )
     _build.check(err, name)
-    return upd
+    return upd, acc
+
+
+def _lars_call(g, ga, g2, m, w, scal, layout, mu, wd, trust, eps):
+    """Launch K7 uncounted: (upd, the (3, leaf_slots) per-leaf sums of
+    r_raw, u² and w² that the step used)."""
+    _check("flat_vr_lars", layout, (g, ga, g2, m, w))
+    lr, gamma = (float(x) for x in scal[:2])
+    ids, inv, acc, partials = _meta(layout, g.device, 3)
+    upd = torch.empty_like(g)
+    err = _build.library("flat_update", _SIGNATURES).flat_vr_lars(
+        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), w.data_ptr(), upd.data_ptr(),
+        ids.data_ptr(), inv.data_ptr(), acc.data_ptr(), partials.data_ptr(), layout.leaf_slots,
+        layout.n_blocks, lr, gamma, mu, wd, trust, eps, _stream(g.device),
+    )
+    _build.check(err, "flat_vr_lars")
+    return upd, acc
 
 
 def flat_vr_scale(g, ga, g2, layout: ParamLayout, *, gamma, eps):
@@ -221,7 +243,8 @@ def flat_vr_adam(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayo
     if not _device("flat_vr_adam", g):
         return flat_vr_adam_ref(g, ga, g2, m, v, p, w, scal, layout, state_dtype=state_dtype,
                                 **hyper)
-    upd = _adam_call("flat_vr_adam", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, 1)
+    upd, _ = _adam_call("flat_vr_adam", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype,
+                        1)
     flat_vr_adam.launches += 1
     return upd, m, v, p
 
@@ -235,7 +258,8 @@ def flat_vr_lamb(g, ga, g2, m, v, p, w, scal: Sequence[float], layout: ParamLayo
     if not _device("flat_vr_lamb", g):
         return flat_vr_lamb_ref(g, ga, g2, m, v, p, w, scal, layout, state_dtype=state_dtype,
                                 **hyper)
-    upd = _adam_call("flat_vr_lamb", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype, 3)
+    upd, _ = _adam_call("flat_vr_lamb", g, ga, g2, m, v, p, w, scal, layout, hyper, state_dtype,
+                        3)
     flat_vr_lamb.launches += 1
     return upd, m, v, p
 
@@ -248,16 +272,7 @@ def flat_vr_lars(g, ga, g2, m, w, scal: Sequence[float], layout: ParamLayout, *,
     if not _device("flat_vr_lars", g):
         return flat_vr_lars_ref(g, ga, g2, m, w, scal, layout, mu=mu, wd=wd, trust=trust,
                                 eps=eps)
-    _check("flat_vr_lars", layout, (g, ga, g2, m, w))
-    lr, gamma = (float(x) for x in scal[:2])
-    ids, inv, acc, partials = _meta(layout, g.device, 3)
-    upd = torch.empty_like(g)
-    err = _build.library("flat_update", _SIGNATURES).flat_vr_lars(
-        g.data_ptr(), ga.data_ptr(), g2.data_ptr(), m.data_ptr(), w.data_ptr(), upd.data_ptr(),
-        ids.data_ptr(), inv.data_ptr(), acc.data_ptr(), partials.data_ptr(), layout.leaf_slots,
-        layout.n_blocks, lr, gamma, mu, wd, trust, eps, _stream(g.device),
-    )
-    _build.check(err, "flat_vr_lars")
+    upd, _ = _lars_call(g, ga, g2, m, w, scal, layout, mu, wd, trust, eps)
     flat_vr_lars.launches += 1
     return upd, m
 

@@ -1,10 +1,14 @@
 """Serving launcher: batched decode of a seeded random-weight model.
 
   python -m repro_torch.launch.serve                       # internlm2-1.8b, full width, on the card
+  python -m repro_torch.launch.serve --arch granite-20b    # 20 B params, held in bf16
   python -m repro_torch.launch.serve --smoke --device cpu  # reduced config on the CPU
 
 Weights are random (normal, std 1/sqrt(fan_in), from a torch.Generator
 seeded with the config's seed), since no checkpoint ships with the repo.
+They are held in the config's ``parallel.param_dtype``, or in bf16 (rounded
+as drawn) where that would take more than half the card's memory
+(``weight_dtype``): granite-20b's f32 weights take 81 GB, its bf16 40.6 GB.
 """
 from __future__ import annotations
 
@@ -20,6 +24,18 @@ from repro_torch.serve import Engine
 from repro_torch.serve.engine import resolve_device
 
 
+def weight_dtype(cfg, device: torch.device) -> torch.dtype:
+    """The dtype the weights are held in: ``cfg.parallel.param_dtype``, or
+    bfloat16 on a card where those weights would take more than half its
+    memory."""
+    dtype = getattr(torch, cfg.parallel.param_dtype)
+    if device.type == "cuda":
+        size = cfg.model.param_count() * torch.finfo(dtype).bits // 8
+        if size > torch.cuda.get_device_properties(device).total_memory / 2:
+            return torch.bfloat16
+    return dtype
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b", choices=sorted(ARCH_MODULES))
@@ -33,8 +49,9 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    dtype = weight_dtype(cfg, device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    params = init_params(cfg.model, gen, device=device)
+    params = init_params(cfg.model, gen, device=device, dtype=dtype)
     eng = Engine(cfg, params, cache_len=args.prompt_len + args.new_tokens + 8, device=device)
     prompts = np.random.default_rng(cfg.seed).integers(
         0, cfg.model.vocab_size, size=(args.batch, args.prompt_len))
@@ -43,8 +60,8 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.model.name} device={device} generated {res.tokens.shape} in {dt:.2f}s "
-          f"({args.batch * res.steps / dt:.1f} tok/s)")
+    print(f"arch={cfg.model.name} device={device} weights={dtype} generated "
+          f"{res.tokens.shape} in {dt:.2f}s ({args.batch * res.steps / dt:.1f} tok/s)")
     for i in range(min(2, args.batch)):
         print(f"  req{i}: {res.tokens[i].tolist()}")
 

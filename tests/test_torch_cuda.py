@@ -14,15 +14,17 @@ are far smaller, one ulp of their own scale (rtol 2^-7, atol 2^-7 of the
 largest magnitude); f32 results 1e-4
 (summation order over at most a few hundred terms); the moment carry is
 exact up to one FMA rounding (rtol 1e-6); the VR-LAMB update rtol 1e-4
-(its per-leaf sums are f32 atomics in another order), bf16 state one bf16
+(its per-leaf sums are in another order), bf16 state one bf16
 ulp (rtol 2^-7); the VR-Adam, VR-LARS and VR-scale updates likewise (rtol
 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp; the leaf mean
 of r their f64 combine gives within 1e-6 of an f64 sum), and the
 g-only carry exactly (the same f32 additions).  The data-parallel pieces:
 the [g; g^2] payload exactly (one f32 product per element), the per-shard
 update kernels K13-K17 and the trust epilogue as the single-card updates
-(rtol 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp).  The
-vmap stats method: K10's mean exactly (the same f32 additions in order),
+(rtol 1e-4, atol 1e-4 of the largest magnitude; bf16 state one ulp); the
+norm sums of K5, K7, K16 and K17 over a leaf of 16,384 blocks within 1e-7
+of an f64 sum of the same u and w (f64 block partials added in block
+order, rounded once).  The vmap stats method: K10's mean exactly (the same f32 additions in order),
 its sq_mean within one FMA rounding (rtol 1e-6); the vmap train step against
 the scan step as the fused plan against the reference plan (rtol 1e-3).
 The per-leaf kernels K18-K21 rtol 1e-4 with atol 1e-4 of the largest
@@ -79,7 +81,8 @@ def _packed(b, s, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128), (torch.bfloat16, 32),
+                                     (torch.float32, 32)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, d):
     rng = np.random.default_rng(0)
     b, s, h, kvh = 2, 160, 4, 2
@@ -96,7 +99,7 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, d):
 
 @pytest.mark.cuda
 def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
-    q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, causal=True)
     with pytest.raises(TypeError, match="dtype"):
@@ -161,7 +164,8 @@ def test_engine_fused_plan_matches_reference_plan(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,causal", [(torch.bfloat16, 64, False), (torch.bfloat16, 128, True),
-                                            (torch.float32, 128, True)])
+                                            (torch.float32, 128, True), (torch.bfloat16, 32, True),
+                                            (torch.float32, 32, False)])
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, d, causal):
     rng = np.random.default_rng(7)
     b, s, h, kvh = 2, 160, 4, 2
@@ -393,6 +397,77 @@ def test_flat_vr_scale_leaf_mean_over_many_blocks(dev):
     assert abs(inv - inv64) <= 1e-6 * inv64, (inv, inv64)
     torch.testing.assert_close(r, fu.flat_vr_scale_ref(g, g, g2, layout, gamma=0.1,
                                                        eps=1e-12)[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K5", "K7", "K16", "K17"])
+def test_norm_sums_over_many_blocks(dev, kernel):
+    """The per-leaf sums of u^2 and w^2 (the LAMB/LARS trust ratio) of K5
+    and K7 over a leaf of 16,384 blocks (2^27 elements, between two small
+    leaves), and of K16 and K17 on a row shard of the big and the last leaf
+    followed by two zero pad blocks of leaf id 0: within 1e-7 relative of an
+    f64 sum of the same u and w on the big leaf, and the same bits on a
+    repeat from the same state (the blocks' f64 partials are added in block
+    order).  K5's u is rebuilt in f64 from its m', v' and w; K7 runs at
+    gamma 1, where r = 1 and u = ga + wd w; K16 and K17 return their u."""
+    layout = ParamLayout(("a", "big", "c"), ((3, 70), (1024, 1024, 128), (5,)))
+    n, big = layout.n_rows, 1
+    first, pad = layout.row_offsets[big], 128
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mask = pad_mask(layout, dev)
+
+    def buf(fill, g=gen):
+        x = fill(torch.empty((n + pad, 128), device=dev), g)
+        x[:n].mul_(mask)
+        x[n:].zero_()
+        return x
+
+    g = buf(lambda x, g_: x.normal_(generator=g_))
+    g2 = buf(lambda x, g_: x.uniform_(1.5, 3.0, generator=g_).mul_(g).mul_(g))
+    w = buf(lambda x, g_: x.normal_(0.0, 0.02, generator=g_))
+    hyper = dict(b1=0.9, b2=0.999, b3=0.9, eps=1e-6, wd=0.01, gamma=0.1, gsnr_eps=1e-12)
+    bc1, bc2 = 0.19, 0.001999
+    meta = layout.device_meta(dev)
+    lids = torch.cat((meta["block_leaf_ids"][first // 64:],
+                      torch.zeros(2, dtype=torch.int32, device=dev)))
+    ids = torch.cat((meta["row_ids"][first:], torch.zeros(pad, dtype=torch.long, device=dev)))
+    sh = slice(first, n + pad)
+    inv, slots = meta["inv_sizes"], layout.leaf_slots
+
+    def run():
+        st = torch.Generator(device=dev).manual_seed(5)
+        m = buf(lambda x, g_: x.normal_(0.0, 1e-3, generator=g_), st)
+        v = buf(lambda x, g_: x.uniform_(1e-7, 1e-6, generator=g_), st)
+        p = buf(lambda x, g_: x.uniform_(0.1, 1.0, generator=g_), st)
+        if kernel in ("K5", "K7"):
+            if kernel == "K5":
+                _, acc = fu._adam_call("flat_vr_lamb", g[:n], g[:n], g2[:n], m[:n], v[:n], p[:n],
+                                       w[:n], (1e-3, bc1, bc2, 0.19), layout, hyper, "float32", 3)
+                # the constants as the kernel holds them, in f32
+                c1, c2, eps, wd = (float(np.float32(x)) for x in (bc1, bc2, 1e-6, 0.01))
+                u = (m[:n].double() / c1) / ((v[:n].double() / c2).sqrt() + eps) \
+                    + wd * w[:n].double()
+            else:
+                _, acc = fu._lars_call(g[:n], g[:n], g2[:n], m[:n], w[:n], (1e-3, 1.0), layout,
+                                       0.9, 0.01, 0.001, 1e-12)
+                u = g[:n].double() + float(np.float32(0.01)) * w[:n].double()
+            return acc[1:], u, meta["row_ids"], w[:n]
+        racc = fsp.leaf_r_partials(g[sh], g2[sh], lids, slots, gsnr_eps=1e-12)
+        if kernel == "K16":
+            u, *_, acc = fsp.vr_lamb_compute(g[sh], g[sh], g2[sh], m[sh], v[sh], p[sh], w[sh],
+                                             (1e-3, bc1, bc2, 0.19), racc, lids, inv, **hyper)
+        else:
+            u, acc = fsp.vr_lars_compute(g[sh], g[sh], g2[sh], w[sh], (1e-3, 1.0), racc, lids,
+                                         inv, wd=0.01, eps=1e-12)
+        return acc, u.double(), ids, w[sh]
+
+    acc, u, row_ids, ww = run()
+    want = torch.zeros((2, slots), dtype=torch.float64, device=dev)
+    want[0].index_add_(0, row_ids, u.square().sum(dim=1))
+    want[1].index_add_(0, row_ids, ww.double().square().sum(dim=1))
+    gap = ((acc[:, big].double() - want[:, big]).abs() / want[:, big]).max()
+    assert float(gap) <= 1e-7, (acc[:, big], want[:, big])
+    assert torch.equal(acc, run()[0])
 
 
 @pytest.mark.cuda

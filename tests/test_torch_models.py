@@ -428,4 +428,5 @@ def test_port_imports_neither_jax_nor_repro(path):
             names = [node.module or ""]
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), f"{path}: imports {n}"
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax", "benchmarks"), \
+                f"{path}: imports {n}"

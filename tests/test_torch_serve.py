@@ -6,6 +6,7 @@ identical and logprobs agree to ``oracle.tol_for(float32)``'s atol scaled
 to log-softmax values (1e-4: f32 logits over a 512-way softmax).
 """
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -13,17 +14,18 @@ import pytest
 import torch
 
 from repro.backend import Backend as JBackend
+from repro.configs import get_config as j_get_config
 from repro.configs import get_smoke as j_get_smoke
 from repro.models import init_params as j_init_params
 from repro.serve import ContinuousEngine as JContinuousEngine
 from repro.serve import Engine as JEngine
 from repro_torch.backend import Backend
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.serve import ContinuousEngine, Engine
 from repro_torch.train.checkpoint import params_from_numpy
 
 LP_ATOL = 1e-4
-ARCHS = ["internlm2-1.8b", "granite-3-2b"]
+ARCHS = ["internlm2-1.8b", "granite-3-2b", "phi4-mini-3.8b", "granite-20b"]
 
 
 def _cfgs(arch, plan="reference"):
@@ -179,3 +181,67 @@ def test_serve_launcher_runs_the_smoke_config_on_cpu(capsys):
                 "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "internlm2-1.8b-smoke" in out and "(2, 3)" in out
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-20b"])
+@pytest.mark.parametrize("which", ["config", "smoke"])
+def test_dense_configs_match_the_reference_field_for_field(arch, which):
+    """The port's copies of the two dense configs: every field of the
+    model and optimizer configs and the top-level scalars equal the
+    reference's; a field the port lacks (MoE, encoder, the xLSTM dims) is at
+    its default there."""
+    want = (j_get_config if which == "config" else j_get_smoke)(arch)
+    got = (get_config if which == "config" else get_smoke)(arch)
+    for part in ("model", "optimizer"):
+        g, w = getattr(got, part), getattr(want, part)
+        names = {f.name for f in dataclasses.fields(g)}
+        for name in names:
+            assert getattr(g, name) == getattr(w, name), (part, name)
+        for f in dataclasses.fields(w):
+            if f.name not in names:
+                assert getattr(w, f.name) == f.default, (part, f.name)
+    for name in ("seed", "global_batch", "seq_len"):
+        assert getattr(got, name) == getattr(want, name)
+    assert got.parallel.compute_dtype == want.parallel.compute_dtype
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-20b"])
+def test_bf16_held_weights_are_the_f32_draws_rounded(arch, capsys):
+    """init_params(dtype=bf16) rounds each block as it is drawn: the same
+    draws as the f32 tree, so every leaf is that tree's leaf in bf16; an
+    engine on bf16 weights keeps them as its compute tree (no copy); the
+    launcher takes both ids and holds the smoke weights in the config's
+    f32."""
+    from repro_torch.core.layout import tree_paths
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    m = get_smoke(arch).model
+    p32 = init_params(m, torch.Generator().manual_seed(0))
+    p16 = init_params(m, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    for (path, a), (_, b) in zip(tree_paths(p32), tree_paths(p16)):
+        assert b.dtype == torch.bfloat16 and torch.equal(a.to(torch.bfloat16), b), path
+    eng = Engine(get_smoke(arch), p16, cache_len=16, device="cpu")
+    ptrs = {t.data_ptr() for _, t in tree_paths(p16)}
+    assert all(t.data_ptr() in ptrs for _, t in tree_paths(eng.model.params))
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "5",
+                "--new-tokens", "2"])
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke" in out and "weights=torch.float32" in out and "(2, 2)" in out
+
+
+@pytest.mark.parametrize("arch, total_gb, want", [
+    ("phi4-mini-3.8b", 80, torch.float32), ("granite-20b", 80, torch.bfloat16),
+    ("granite-20b", 192, torch.float32)])
+def test_launcher_holds_weights_in_bf16_where_the_configs_dtype_fills_half_the_card(
+        arch, total_gb, want, monkeypatch):
+    """weight_dtype: the config's param_dtype (f32), or bf16 on a card where
+    those weights take more than half its memory (granite-20b's 81 GB of f32
+    on an 80 GB card); on the CPU always the config's."""
+    from repro_torch.launch.serve import weight_dtype
+
+    cfg = get_config(arch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(total_memory=total_gb * 10 ** 9))
+    assert weight_dtype(cfg, torch.device("cuda")) == want
+    assert weight_dtype(cfg, torch.device("cpu")) == torch.float32
