@@ -66,7 +66,8 @@ Phases, in order; any failure exits non-zero:
                 torch.profiler breakdown of one more fused step, which must
                 run 4,440 GEMMs (the remat recompute stops before each
                 group's last projection).
-  9. train optimizers — the same model and cut: two fresh steps of each of
+  9. train optimizers — bert-large at full width, depth cut to 2 layers
+                (CUT_LAYERS), phase 8's batch: two fresh steps of each of
                 VR-Adam, VR-LARS, VR-SGD and VR-Momentum on each plan; a
                 fresh then a stale step (gsnr_refresh 2) of VR-Adam and
                 VR-LAMB, the reference plan through train_loop; one LAMB
@@ -80,7 +81,7 @@ Phases, in order; any failure exits non-zero:
                 this process (the partials added in place of the all-reduce),
                 each against its plain version and, put together, against
                 the single-card K5-K8; times beside bounds.  (b) bert-large
-                at full width, depth cut to 6 layers (DP_LAYERS), trained by
+                at full width, depth cut to 2 layers (CUT_LAYERS), trained by
                 ranks that share the card over gloo
                 (one process per rank): two ranks at global batch 64 (three
                 VR-LAMB steps, one each of VR-Adam, VR-LARS and VR-SGD)
@@ -121,7 +122,9 @@ Phases, in order; any failure exits non-zero:
                 with its plain version; the per-leaf kernels K18-K23 against
                 their plain versions at bert-large's largest stacked leaf
                 (24, 1024, 4096), K18-K21 timed with their prepass kernel
-                and alone, times beside bounds; (b) the per-leaf path over
+                and alone, times beside bounds; K20/K21's norm sums over the
+                leaf's 2,112 blocks within 1e-7 of an f64 sum, the same bits
+                on a repeat; (b) the per-leaf path over
                 bert-large's layout: the k-microbatch carry leaf by leaf
                 (K22, K23) against the flat carry (K3, K4) and the per-leaf
                 VR-scale, VR-Adam, VR-LAMB and VR-LARS steps (K18-K21, each
@@ -145,7 +148,8 @@ Phases, in order; any failure exits non-zero:
                 DLRM's flat layout against their plain versions (K8 also on
                 mostly unclipped r, its tables-leaf mean against an f64
                 sum), timed beside their bounds.  Runs before phase 15.
- 13. autoscale — bert-large at published width and depth on packed rows
+ 13. autoscale — bert-large at full width, depth cut to 2 layers
+                (CUT_LAYERS), on packed rows
                 from a token cache (Markov documents over its vocabulary,
                 written under build/ before phase 7 and removed at the
                 end): (a) check_cache, the pack index, next_batch and the
@@ -170,7 +174,36 @@ Phases, in order; any failure exits non-zero:
                 bert_proxy with its autoscale A/B, gengap, dlrm_proxy) with
                 the reference's fast protocol; then one point of each on
                 the fused and the reference plan (BENCH_TOL), each fused
-                step's launches held.  Runs last.
+                step's launches held.
+ 16. other block kinds — (a) whisper-small at its published config (12
+                decoder + 12 encoder layers, d 768, 1,500 frames a row of
+                stub embeddings), global batch 32, seq 128, VR-Adam k = 8:
+                three steps on the reference plan, the fused plan (K1 480,
+                K2 288 a fused step: the encoder, the decoder's self- and
+                cross-attention and its recompute), the witness (the
+                reference plan with f32 attention, its weights one f32 ulp
+                apart after step 0) and the fused plan with the backward's
+                delta from an f32 forward, each gap held to TRAIN_TOL
+                wherever the witness's is within it, past it only through
+                the exact-delta run (hold_with_witness); warm step,
+                tokens/s and a profiled step's idle share; (b) xlstm-1.3b
+                at full width on two pattern groups (16 layers), the same
+                way; (c) mixtral-8x22b (8 of 56 layers, bf16),
+                recurrentgemma-9b and llama-3.2-vision-11b (1,601 image
+                tokens) at published width and depth through
+                Engine.generate (batch 4, prompt 256, 16 new tokens):
+                launches, prefill ms, decode tok/s, peak memory, the fused
+                plan held against the plain plan at every teacher-forced
+                step within SERVE_GATE; mixtral's routing flips held to
+                ROUTE_GATE against the witness's, SERVE_GATE then taken
+                against the plain plan routed as the fused run; (d) one
+                VR-LAMB step of the llama4-maverick and mixtral smokes
+                (bf16) held as (a), their routing flips counted; (e) K1 (and
+                K2) at whisper's encoder (S 1,500) and cross (Skv 1,500)
+                shapes, K1 at the vision model's cross prefill (Skv 1,601,
+                D 128) and K1/K12 at recurrentgemma's head dim 256, against
+                their plain versions, timed in turns with them and SDPA,
+                beside their bounds.  Runs last.
 
 The second-last lines are the kernel JSON record and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -178,6 +211,7 @@ the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -575,23 +609,33 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def device_profile(fn):
+def device_profile(fn, cpu=False):
     """(device-busy ms, kernel launches, per-kernel rows by device time) of
-    one fn() call, from torch.profiler's CUDA kernel events; busy is None if
-    the profiler saw no device time."""
+    one fn() call, from torch.profiler's CUDA events; busy is None if the
+    profiler saw no device time.  The device's activity alone is recorded
+    (``cpu=True`` adds the CPU's, and is the fallback where that shows no
+    device time), and its raw events are summed by name without building
+    the profiler's event tree: that tree took 40.6 s for xlstm-1.3b's step
+    of 145,806 launches, and 131.3 s with the CPU's events (H100 80GB
+    HBM3, 700 W; PERF.md)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        return None, 0, []
-    rows.sort(key=lambda r: -r[1])
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    if not by_name:
+        return (None, 0, []) if cpu else device_profile(fn, cpu=True)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
@@ -646,15 +690,18 @@ def category(key: str) -> str:
 
 
 def report_profile(name, fn, wall_ms, top: int = 6):
-    """Print the profile of one fn() call; returns {category: [ms, launches]}
-    (None if the profiler saw no device time)."""
+    """Print the profile of one fn() call and the seconds it took; returns
+    {category: [ms, launches]} (None if the profiler saw no device time)."""
+    t0 = time.perf_counter()
     busy, launches, rows = device_profile(fn)
+    took = time.perf_counter() - t0
     if busy is None:
-        print(f"  {name}: wall {wall_ms:.2f} ms; device time not measured (no CUDA events)",
-              flush=True)
+        print(f"  {name}: wall {wall_ms:.2f} ms; device time not measured (no CUDA events); "
+              f"profiled in {took:.1f} s", flush=True)
         return None
     print(f"  {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"(idle share {1 - busy / wall_ms:.3f}), {launches} kernel launches", flush=True)
+          f"(idle share {1 - busy / wall_ms:.3f}), {launches} kernel launches; profiled in "
+          f"{took:.1f} s", flush=True)
     cats = {}
     for key, ms, n in rows:
         c = cats.setdefault(category(key), [0.0, 0])
@@ -1709,6 +1756,7 @@ TRAIN_STEPS = 3
 def rel_diff(a, b) -> float:
     import torch
 
+    a, b = a.to("cuda"), b.to("cuda")  # host snapshots come back one pair at a time
     return float(torch.linalg.vector_norm((a.float() - b.float())) /
                  torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
 
@@ -1725,26 +1773,31 @@ def flat_state(state, name):
     return state.params.layout.pack(x, device=state.params.device)
 
 
-def run_plan(plan, state, step, batches, want_fused, label, fresh=None):
+def run_plan(plan, state, step, batches, want_fused, label, fresh=None, snapshots="cuda",
+             after=None, fused=None, w0_on=None, on_step0=None):
     """Steps ``state`` through ``batches`` on one plan, the counts set to 0
     before and read after each step and held against ``want_fused(i)`` on
-    the fused plan (0 everywhere on the reference plan).  Returns (state,
-    metrics per step, the first step's update and flat state buffers, step
-    walls, launches summed over the fused steps).  ``fresh[i]`` False makes
-    step i stale."""
+    the fused plan (``fused``, by default ``plan == "fused"``; 0 everywhere
+    on any other run).  Returns (state, metrics per step, the first step's
+    update and flat state buffers (on ``snapshots``; the weights before it
+    wait on ``w0_on``, by default the same), or what ``on_step0`` makes of
+    them, step walls, launches summed over the fused steps).  ``fresh[i]``
+    False makes step i stale; ``after(i, state)`` runs after step i and
+    its snapshots."""
     import torch
 
     hist, walls, path_counts, step1 = [], [], {}, {}
     for i, batch in enumerate(batches):
         with_stats = True if fresh is None else fresh[i]
-        w0 = state.params.data.clone() if i == 0 else None
+        w0 = state.params.data.to(w0_on or snapshots, copy=True) if i == 0 else None
         reset_counts()
         (state, metrics), ms = host_ms(lambda: step(state, batch, with_stats))
         counts = read_counts()
-        want = want_fused(i) if plan == "fused" else {n_: 0 for n_ in counts}
+        on_fused = plan == "fused" if fused is None else fused
+        want = want_fused(i) if on_fused else {n_: 0 for n_ in counts}
         if counts != want:
             fail(f"{label} {plan} step {i}: kernel launches {counts} != expected {want}")
-        if plan == "fused":
+        if on_fused:
             for name, c in counts.items():
                 path_counts[name] = path_counts.get(name, 0) + c
         walls.append(ms)
@@ -1759,9 +1812,14 @@ def run_plan(plan, state, step, batches, want_fused, label, fresh=None):
               f"|upd| {vals['update_norm']:.4e}{gsnr}; launches "
               f"{ {k: c for k, c in counts.items() if c} }", flush=True)
         if i == 0:
-            step1 = {"upd": state.params.data - w0,
-                     **{nm: flat_state(state, nm) for nm in "mvp" if nm in state.opt_state}}
+            step1 = {"upd": state.params.data.to(snapshots) - w0.to(snapshots),
+                     **{nm: flat_state(state, nm).to(snapshots)
+                        for nm in "mvp" if nm in state.opt_state}}
             del w0
+            if on_step0 is not None:
+                step1 = on_step0(step1)
+        if after is not None:
+            after(i, state)
     return state, hist, step1, walls, path_counts
 
 
@@ -1808,18 +1866,20 @@ def bert_train_config():
     return get_config("bert-large").replace(global_batch=256, seq_len=128)
 
 
-# Phases 10b and 10c train bert-large at full width with its depth cut to
-# DP_LAYERS, so that the script keeps inside its time limit: their ranks
-# share the card over gloo through host memory, and at 24 layers the two
-# phases took 492 s of the script's ~820 s on an H100 (PERF.md).  At 6
-# layers the layout has 16,854 blocks, which 4 row shards still pad.
-DP_LAYERS = 6
+# Phases 9, 10b, 10c and 13 train bert-large at full width with its depth
+# cut to CUT_LAYERS, so that the script keeps well inside its time limit
+# (phases 8 and 11 keep the published 24 layers).  At 24 layers 10b and 10c
+# took 492 s of the script's ~820 s, and at 6 the script took 958 s once
+# phase 16 came in, past 1,200 s on a slower host (H100 80GB HBM3, 700 W;
+# PERF.md).  At 2 layers the layout has 10,710 blocks, which 4 row shards
+# still pad.
+CUT_LAYERS = 2
 
 
-def dp_train_config(global_batch=256):
+def cut_train_config(global_batch=256):
     cfg = bert_train_config()
     return cfg.replace(global_batch=global_batch,
-                       model=dataclasses.replace(cfg.model, n_layers=DP_LAYERS))
+                       model=dataclasses.replace(cfg.model, n_layers=CUT_LAYERS))
 
 
 def plan_config(cfg, plan, **opt):
@@ -2044,11 +2104,11 @@ def phase_train_optimizers(records):
     from repro_torch.train import init_state, make_train_step, train_loop
 
     dev = torch.device("cuda")
-    cfg = bert_train_config()
+    cfg = cut_train_config()
     m, k = cfg.model, cfg.optimizer.k
     tokens = cfg.global_batch * cfg.seq_len
-    print(f"[train optimizers] {m.name} at full width, global batch {cfg.global_batch}, seq "
-          f"{cfg.seq_len}, k={k}: fresh VR-Adam/LARS/SGD/Momentum steps, stale VR-Adam/LAMB "
+    print(f"[train optimizers] {m.name} at full width, depth cut to {m.n_layers} layers, global "
+          f"batch {cfg.global_batch}, seq {cfg.seq_len}, k={k}: fresh VR-Adam/LARS/SGD/Momentum steps, stale VR-Adam/LAMB "
           "steps and a LAMB baseline step, each fused against the reference plan", flush=True)
     params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
     stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=1)
@@ -2594,7 +2654,7 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     mesh = TimedMesh(init_data_mesh("gloo", dev, init_method=init, world_size=world, rank=rank))
-    cfg = dp_train_config(global_batch)
+    cfg = cut_train_config(global_batch)
     m = cfg.model
     label = f"dp W={world} rank {rank}"
     stream = lm_batches(m.vocab_size, global_batch, cfg.seq_len, seed=2)
@@ -2737,13 +2797,13 @@ DP_DEADLINE_S = 600.0
 
 def phase_train_dp(records, groups, tag):
     """10b (``DP_GROUPS``): data-parallel bert-large at full width (depth
-    DP_LAYERS) on the
+    CUT_LAYERS) on the
     card, every rank a process sharing the card over gloo (NCCL refuses two
     ranks on one card), data-axis GSNR.  Two ranks at global batch 64 (32
     sequences per rank, phase 8's microbatch): three VR-LAMB steps, then one
     step each of VR-Adam, VR-LARS and VR-SGD, against single-card k=2
     microbatch steps.  Four ranks at global batch 128, whose row shards pad
-    the layout (16,854 blocks at 6 layers): three VR-LAMB steps against
+    the layout (10,710 blocks at 2 layers): three VR-LAMB steps against
     single-card k=4.
     10c (``DP_PATH_GROUPS``): two ranks at global batch 64 with the
     microbatch source at k = 4 (8 sequences per rank per microbatch): three
@@ -2755,7 +2815,7 @@ def phase_train_dp(records, groups, tag):
 
     from repro_torch.launch.mesh import local_init_method, run_ranks
 
-    cfg = dp_train_config()
+    cfg = cut_train_config()
     path_counts = {}
     for world, batch, source, runs in groups:
         print(f"[train dp {tag}] {cfg.model.name} at full width, depth cut to "
@@ -2972,6 +3032,24 @@ def phase_per_leaf(records, layout):
                              source="src/repro_torch/kernels/csrc/vr_leaf.cu", replaces=line,
                              max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None, kernel_alone_ms=t_alone, shape=list(shape))
+    # K20/K21's sums of u^2 and w^2 over the leaf's blocks (the grid's cap,
+    # 16 an SM): two-level f64, within NORM_RTOL of an f64 sum of the same u
+    # and w, the same bits on a repeat
+    for name in ("vr_lamb_inner", "vr_lars_inner"):
+        kernel, _, args, kw, *_ = cases[name]
+        out, again = kernel(*args, **kw), kernel(*args, **kw)
+        want = (out[0].double().square().sum(), x["w"].double().square().sum())
+        gaps = [abs(float(a) - float(b)) / float(b) for a, b in zip(out[-2:], want)]
+        same = all(torch.equal(a, b) for a, b in zip(out[-2:], again[-2:]))
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = min(-(-n // (4 * 128)), vu.STEP_BLOCKS_PER_SM * n_sm)
+        print(f"  {name} norm sums over {grid} blocks: sum(u^2) {gaps[0]:.3e}, sum(w^2) "
+              f"{gaps[1]:.3e} off an f64 sum (tol "
+              f"{NORM_RTOL}); repeat bit-identical: {same}", flush=True)
+        if max(gaps) > NORM_RTOL or not same:
+            fail(f"{name}: norm sums {gaps} off f64 (tol {NORM_RTOL}) or differ on a repeat")
+        records[name]["norm_sums_rel_gap"] = max(gaps)
+        del out, again
     del cases, inv
     carry = (gs.moments_init(x["g"]), gs.moments_init(x["g"]))
     plain = tuple(t.clone() for t in carry)
@@ -3287,7 +3365,7 @@ def counted_steps(n_layers, log):
 
 
 def phase_autoscale(records, data):
-    """13: bert-large at published width and depth on packed rows from a
+    """13: bert-large at full width (depth CUT_LAYERS) on packed rows from a
     token cache: (a) the data path, (b) one fresh k=8 step's noise readings,
     (c) autoscale_train_loop, (d) a whole-state checkpoint and its restore,
     (e) eval_loss over an eval cache on both plans."""
@@ -3305,7 +3383,7 @@ def phase_autoscale(records, data):
     from repro_torch.train.loss import make_loss_fn
 
     dev = torch.device("cuda")
-    base = plan_config(bert_train_config(), "fused", base_batch=256, lr_scale_rule="sqrt")
+    base = plan_config(cut_train_config(), "fused", base_batch=256, lr_scale_rule="sqrt")
     m, seq = base.model, base.seq_len
 
     def at_k(k, plan="fused"):
@@ -3318,7 +3396,7 @@ def phase_autoscale(records, data):
             path_counts[name] = path_counts.get(name, 0) + c
 
     # ---- (a) the data path ----------------------------------------------------
-    print(f"[autoscale] {m.name} at full width: {m.n_layers} layers, d_model {m.d_model}, vocab "
+    print(f"[autoscale] {m.name} at full width, depth cut to {m.n_layers} layers: d_model {m.d_model}, vocab "
           f"{m.vocab_size}; VR-LAMB, seq {seq}, {base.parallel.compute_dtype} compute, lr "
           f"{base.optimizer.lr} at base_batch 256 (sqrt rule), packed rows from a token cache",
           flush=True)
@@ -4059,6 +4137,722 @@ def phase_benches(records):
     print(f"  benches phase wall {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the other block kinds (MoE, RG-LRU, xLSTM, cross-attention)
+# ---------------------------------------------------------------------------
+
+# (a) whisper-small whole (12 + 12 layers, 1,500 frames a row) and (b)
+# xlstm-1.3b at full width on two of its six pattern groups (16 layers):
+# global batch, seq (k = 8 microbatches, the configs' VR-Adam at lr 1e-3
+# with no warm-up), OTHER_STEPS steps a run; (d) one VR step of each MoE
+# smoke in its own compute dtype (bf16).  Held by hold_with_witness.
+OTHER_STEPS = 3
+WHISPER_TRAIN = dict(global_batch=32, seq_len=128)
+XLSTM_TRAIN = dict(global_batch=16, seq_len=64, n_layers=16)
+MOE_SMOKES = ("llama4-maverick-400b-a17b", "mixtral-8x22b")
+MOE_SMOKE_STEPS = 1
+# (c) served at full width: (arch, layers kept or None) through
+# Engine.generate at batch, prompt, new tokens
+OTHER_SERVE = (("mixtral-8x22b", 8), ("recurrentgemma-9b", None), ("llama-3.2-vision-11b", None))
+OTHER_SERVE_SHAPE = (4, 256, 16)
+# The witness: the reference plan against itself under the two roundings in
+# which the plans differ, attention from f32 q, k, v (F32Attention, as the
+# kernels compute it) and, in training, one f32 ulp in every weight after
+# the first update (nudge_ulp, the size of the optimizer kernels' rounding).
+# A model with attention also trains on the fused plan with ExactDelta: the
+# kernels' one rounding that the witness lacks is the backward's
+# delta = <dO, O> taken from the bf16 output (the reference's design,
+# src/repro/kernels/flash_attention.py:503-507), which moved whisper's
+# gsnr/* at step 2 by 4.0e-3 to 5.8e-3, and by 1.2e-4 to 1.6e-4 with delta
+# from an f32 forward (H100 80GB HBM3, 700 W; PERF.md).
+WITNESS_SEED = 23
+# A served MoE model's routing, each plan its own, against the witness's:
+# the router inputs at the first MoE layer (which differ only by the first
+# attention's arithmetic) at most "first_layer" x the witness's apart, and
+# each flip there within the bound of its measured input difference; all
+# flips at most "flips" x the witness's (or "floor" of the decisions); the
+# mean logit gap at most "free_mean" x the witness's.
+ROUTE_GATE = {"first_layer": 2.0, "flips": 2.0, "floor": 0.01, "free_mean": 2.0}
+
+
+def kind_counts(m):
+    """(self-attention layers, cross-attention layers) of a model."""
+    kinds = m.pattern_layers()
+    self_attn = sum(k in ("attn", "swa", "local", "xattn") for k in kinds)
+    return self_attn, sum(k == "xattn" for k in kinds)
+
+
+def other_fused_counts(m, k, update):
+    """Launches of one fused VR step of model ``m`` (scan, remat, k
+    microbatches): per microbatch K1 once per encoder layer and twice per
+    decoder attention (its forward and the group's recompute), K2 once per
+    attention of either; the carry's K3 k times, K4 once, the update once."""
+    self_attn, cross = kind_counts(m)
+    enc = 0 if m.encoder is None else m.encoder.n_layers
+    want = {name: 0 for name in counters()}
+    want.update(flash_attention_fwd=k * (enc + 2 * (self_attn + cross)),
+                flash_attention_bwd=k * (enc + self_attn + cross),
+                flat_moments_accum=k, flat_moments_finalize=1, **{update: 1})
+    return want
+
+
+class F32Attention:
+    """Within it, the plain plan's attention (models/attention.py's ``_sdpa``
+    and ``_chunked_sdpa``) runs on f32 copies of q, k and v and rounds its
+    output to their dtype once, as the kernels do, where the plain plan
+    rounds its scores to the compute dtype: the witness's attention."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as at
+
+        self.saved = sdpa, chunked = at._sdpa, at._chunked_sdpa
+        at._sdpa = lambda q, k, v, mask: sdpa(q.float(), k.float(), v.float(),
+                                              mask).to(v.dtype)
+        at._chunked_sdpa = lambda q, k, v, *a, **kw: chunked(q.float(), k.float(), v.float(),
+                                                             *a, **kw).to(v.dtype)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as at
+
+        at._sdpa, at._chunked_sdpa = self.saved
+
+
+def nudge_ulp(state, seed):
+    """Moves every nonzero weight of a train state one f32 ulp up or down
+    (a seeded coin each), in place, in slices of 2^24."""
+    import torch
+
+    flat = state.params.data.view(-1)
+    gen = torch.Generator(device=flat.device).manual_seed(seed)
+    for i in range(0, flat.numel(), 1 << 24):
+        x = flat[i:i + (1 << 24)]
+        up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        far = torch.where(up, float("inf"), float("-inf")).to(x.dtype)
+        x.copy_(torch.where(x != 0, torch.nextafter(x, far), x))
+
+
+class ExactDelta:
+    """Within it, the fused plan's attention backward (FlashAttentionFn)
+    takes delta = <dO, O> from the plain forward in f32 (its kernel's plain
+    version) instead of the kernel's bf16 output; K1 and K2 run as ever."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fa
+
+        self.saved = fa.FlashAttentionFn.__dict__["backward"]
+
+        @torch.autograd.function.once_differentiable
+        def backward(ctx, do, _dlse):
+            q, k, v, out, lse, q_pos, k_pos, q_seg, k_seg = ctx.saved_tensors
+            do = do.contiguous()
+            exact = fa.attention_fwd_ref(q.float(), k.float(), v.float(), q_pos=q_pos,
+                                         k_pos=k_pos, q_seg=q_seg, k_seg=k_seg,
+                                         causal=ctx.causal, window=ctx.window)[0]
+            delta = (do.float() * exact).sum(dim=-1).transpose(1, 2).contiguous()
+            dq, dk, dv = fa.FlashAttentionBwdFn.apply(q, k, v, lse, delta, do, q_pos, k_pos,
+                                                      q_seg, k_seg, ctx.causal, ctx.window)
+            return dq, dk, dv, None, None, None, None, None, None
+
+        fa.FlashAttentionFn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+
+        fa.FlashAttentionFn.backward = self.saved
+
+
+def step_gaps(a, b):
+    """Relative loss and grad-norm gaps and the largest |gsnr/*| gap of two
+    runs' metrics at one step."""
+    keys = [k for k in ("gsnr/mean", "gsnr/min", "gsnr/frac_floor") if k in b]
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
+            "gsnr": max((abs(a[key] - b[key]) for key in keys), default=0.0)}
+
+
+def hold_with_witness(label, hist, bufs):
+    """The fused run against the reference run, each step's metrics and the
+    first step's buffers (``bufs``: each run's relative gaps to the
+    reference run's), beside the witness's gaps to the same reference run.
+    Where the witness is past TRAIN_TOL, the reference plan does not
+    reproduce its own reading to TRAIN_TOL under rounding, and the gap is
+    printed beside the witness's, not gated.  Elsewhere the fused gap is
+    held to TRAIN_TOL; past it, the run "exact delta" (where there is one)
+    must be within it: the gap is then the kernels' delta rounding, the
+    reference kernels' design.  Returns {what: gaps} of the readings not
+    gated and of those held through the exact-delta run."""
+    ref = hist["reference"]
+    runs = [r for r in ("fused", "witness", "exact delta") if r in hist]
+    rows = [(f"step {i}", *(step_gaps(hist[r][i], ref[i]) for r in runs))
+            for i in range(len(ref))]
+    rows.append(("after step 0", *(bufs[r] for r in runs)))
+    out = {}
+    for what, gf, gw, *gx in rows:
+        parts = []
+        for key, g in gf.items():
+            tol = TRAIN_TOL[{"m": "mv", "v": "mv"}.get(key, key)]
+            x = gx[0][key] if gx else None
+            note = f"{key} {g:.3e} (witness {gw[key]:.3e}"
+            if x is not None:
+                note += f", exact delta {x:.3e}"
+            if gw[key] > tol:
+                note += "; not gated: the witness is past TRAIN_TOL"
+                out[f"{what} {key}"] = dict(fused=g, witness=gw[key], exact_delta=x)
+            elif g > tol:
+                if x is None or x > tol:
+                    fail(f"{label} {what}: {key} of the fused and reference runs {g:.3e} apart "
+                         f"(TRAIN_TOL {tol}), the witness {gw[key]:.3e}, the exact-delta run "
+                         f"{x}")
+                note += "; held through the exact-delta run: the gap is delta's rounding"
+                out[f"{what} {key}"] = dict(fused=g, witness=gw[key], exact_delta=x)
+            parts.append(note + f", tol {tol})")
+        print(f"  {label} {what}, fused vs reference: " + "; ".join(parts), flush=True)
+    return out
+
+
+class RouteRecorder:
+    """Records every MoE routing decision while ``on`` (models/moe.py's
+    ``_route``, wrapped): each call's chosen experts, router logits, router
+    input and the router's largest column norm.  Given ``forced`` (an
+    earlier run's records, in call order) it routes each call's tokens to
+    those experts instead, weighting them by this run's own router
+    probabilities renormalised over them, its load-balance reading taken
+    over the forced choice as ``_route`` takes it over its own."""
+
+    def __init__(self):
+        self.calls, self.on, self.forced = [], False, None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.saved = moe._route
+
+        def route(p, xf, cfg):
+            if self.forced is None:
+                w, idx, sel, aux = self.saved(p, xf, cfg)
+                if self.on:
+                    with torch.no_grad():
+                        wr = p["router"].to(xf.dtype)
+                        self.calls.append(dict(idx=idx.detach(), logits=(xf @ wr).float(),
+                                               x=xf.detach(),
+                                               wmax=wr.float().norm(dim=0).max()))
+                return w, idx, sel, aux
+            if not self.forced or self.forced[0]["idx"].shape[0] != xf.shape[0]:
+                fail("a forced run's MoE calls do not follow the recorded run's")
+            idx = self.forced.pop(0)["idx"]
+            logits = (xf @ p["router"].to(xf.dtype)).float()
+            probs = torch.softmax(logits, dim=-1)
+            w = probs.gather(-1, idx)
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+            sel = moe._one_hot(idx, cfg.n_experts, torch.float32).sum(dim=1)
+            lb = cfg.n_experts * torch.sum(sel.mean(dim=0) / cfg.top_k * probs.mean(dim=0))
+            z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+            return w, idx, sel, {"moe_lb_loss": cfg.router_aux_weight * lb,
+                                 "moe_z_loss": cfg.router_z_weight * z}
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self.saved
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def route_gaps(calls_a, calls_b, top_k, n_moe=None):
+    """Run a's routing against run b's, call by call: the token decisions
+    and the flips (a token's top-k set differs) over every call; given
+    ``n_moe`` (MoE calls per forward, the first of them the first MoE
+    layer), also at that layer the router inputs' relative gap, the flips,
+    and how many flips have a margin (b's gap between its k-th and
+    (k+1)-th logit) past 2 (|dx| max_j |W_j| + 2^-8 max |logit|): the bound
+    within which the measured input difference dx, and the bf16 rounding
+    of the two router products, can close a margin."""
+    import torch
+
+    if len(calls_a) != len(calls_b):
+        fail(f"routing records of {len(calls_a)} and {len(calls_b)} MoE calls")
+    out = dict(flips=0, decisions=0, first_flips=0, first_unexplained=0, max_margin=0.0,
+               max_bound=0.0)
+    dx2 = x2 = 0.0
+    for i, (a, b) in enumerate(zip(calls_a, calls_b)):
+        flip = (a["idx"].sort(dim=-1).values != b["idx"].sort(dim=-1).values).any(dim=-1)
+        out["decisions"] += int(flip.numel())
+        out["flips"] += int(flip.sum())
+        if n_moe is None or i % n_moe:
+            continue
+        dx = a["x"].float() - b["x"].float()
+        dx2 += float(dx.square().sum())
+        x2 += float(b["x"].float().square().sum())
+        if flip.any():
+            top = torch.topk(b["logits"], top_k + 1, dim=-1).values
+            margin = (top[:, top_k - 1] - top[:, top_k])[flip]
+            bound = 2 * (dx.norm(dim=-1) * b["wmax"]
+                         + 2.0**-8 * b["logits"].abs().amax(dim=-1))[flip]
+            out["first_flips"] += int(flip.sum())
+            out["first_unexplained"] += int((margin > bound).sum())
+            out["max_margin"] = max(out["max_margin"], float(margin.max()))
+            out["max_bound"] = max(out["max_bound"], float(bound.max()))
+    out["first_gap"] = (dx2 / max(x2, 1e-30)) ** 0.5
+    return out
+
+
+def train_other(records, label, cfg, update, path, profile=True, steps=OTHER_STEPS):
+    """``steps`` VR steps of ``cfg`` through make_train_step on the
+    reference plan, the fused plan (launches asserted per step), the witness
+    and, for a model with attention, the fused plan under ExactDelta, each
+    from the same params and batches, held by hold_with_witness.  A MoE
+    model's routing is recorded and the flips of the fused run and of the
+    witness against the reference run counted.  Warm step wall, tokens/s,
+    peak memory and a profiled step's idle share of the fused run.  Returns
+    a summary."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.serve import stub_shapes
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    m, o = cfg.model, cfg.optimizer
+    moe = m.moe is not None
+    torch.cuda.empty_cache()
+
+    def draw():  # the same params for each run, drawn again (one copy held at a time)
+        return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    params = draw()
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    enc = f" + a {m.encoder.n_layers}-layer encoder over {m.encoder.n_frames} frames" \
+        if m.encoder is not None else ""
+    print(f"[other train] {label}: {m.n_layers} layers ({'/'.join(m.block_pattern)}){enc}, "
+          f"d_model {m.d_model}, heads {m.n_heads}/{m.n_kv_heads}, vocab {m.vocab_size}; "
+          f"{n_params / 1e9:.3f} B params (analytic {m.param_count() / 1e9:.3f} B); "
+          f"{o.name} k={o.k}, global batch {cfg.global_batch}, seq {cfg.seq_len}, "
+          f"{cfg.parallel.compute_dtype} compute", flush=True)
+    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=0,
+                        extra=stub_shapes(m) or None)
+    batches = [next(stream) for _ in range(steps + 1)]
+    want = other_fused_counts(m, o.k, update)
+    hist, bufs, calls, summary, snap0 = {}, {}, {}, {}, {}
+    runs = ("reference", "fused", "witness") + (("exact delta",) if sum(kind_counts(m)) else ())
+    with RouteRecorder() as rec:
+        for run in runs:
+            fused = run in ("fused", "exact delta")
+            pc = plan_config(cfg, "fused" if fused else "reference")
+            in_use = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            state = init_state(pc, params=draw(), device=dev)
+            step = make_train_step(pc, log_gsnr=True, device=dev)[0]
+            rec.on = moe
+            after = (lambda i, st: nudge_ulp(st, WITNESS_SEED) if i == 0 else None) \
+                if run == "witness" else None
+            ctx = {"witness": F32Attention, "exact delta": ExactDelta}.get(
+                run, contextlib.nullcontext)
+            t_run = time.perf_counter()
+            # the reference run's first-step buffers wait on the host; each
+            # other run's are compared with them on the card and let go
+            place = dict(snapshots="cpu") if run == "reference" else dict(
+                snapshots="cuda", w0_on="cuda" if fused else "cpu",
+                on_step0=lambda s1: {nm: rel_diff(s1[nm], snap0[nm]) for nm in snap0})
+            with ctx():
+                state, hist[run], snap, walls, path_counts = run_plan(
+                    run, state, step, batches[:steps], lambda i: want, label, after=after,
+                    fused=fused, **place)
+            calls[run] = rec.take()
+            if run == "reference":
+                snap0 = snap
+            else:
+                bufs[run] = snap
+            if run == "fused":
+                add_path(records, path, path_counts)
+                tokens = cfg.global_batch * cfg.seq_len
+                warm = float(np.mean(walls[1:] or walls))
+                summary = dict(step_ms=warm, tokens_s=tokens / warm * 1e3,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                print(f"  {label} fused step walls {', '.join(f'{w:.1f}' for w in walls)} ms; "
+                      f"warm mean {warm:.1f} ms = {summary['tokens_s']:.0f} tokens/s; peak "
+                      f"memory {summary['peak_gib']:.1f} GiB", flush=True)
+                if profile:  # the profiled step's state is let go at once
+                    t_p = time.perf_counter()
+                    t_prof = host_ms(lambda: step(state, batches[steps]))[1]
+                    cats = report_profile(f"{label} fused step (profiled)",
+                                          lambda: step(state, batches[steps]), t_prof)
+                    busy = None if cats is None else sum(c[0] for c in cats.values())
+                    summary["idle_share"] = None if busy is None else 1 - busy / t_prof
+                    summary["profile_s"] = time.perf_counter() - t_p
+            print(f"  {label} {run} run: {in_use:.2f} GiB in use before its state, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+                  f"{time.perf_counter() - t_run:.1f} s", flush=True)
+            del state, step, snap
+            torch.cuda.empty_cache()
+    summary["beyond TRAIN_TOL"] = hold_with_witness(label, hist, bufs)
+    if moe:
+        for run in ("fused", "witness"):
+            r = route_gaps(calls[run], calls["reference"], m.moe.top_k)
+            summary[f"{run} flips"] = (r["flips"], r["decisions"])
+            print(f"  {label} routing, {run} vs reference: {r['flips']} of {r['decisions']} "
+                  f"token decisions flipped over {steps} step(s)", flush=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_other_train(records):
+    """16 (a), (b), (d)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+
+    out, t0 = {}, time.perf_counter()
+    whisper = get_config("whisper-small").replace(**WHISPER_TRAIN)
+    out["whisper-small"] = train_other(records, "whisper-small", whisper, "flat_vr_adam",
+                                       "train whisper-small")
+    xl = get_config("xlstm-1.3b")
+    xl = xl.replace(global_batch=XLSTM_TRAIN["global_batch"], seq_len=XLSTM_TRAIN["seq_len"],
+                    model=dataclasses.replace(xl.model, n_layers=XLSTM_TRAIN["n_layers"]))
+    out["whisper-small"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["xlstm-1.3b"] = train_other(records, f"xlstm-1.3b ({xl.model.n_layers} layers)", xl,
+                                    "flat_vr_adam", "train xlstm-1.3b")
+    out["xlstm-1.3b"]["wall_s"] = time.perf_counter() - t0
+    for arch in MOE_SMOKES:
+        cfg = get_smoke(arch)
+        update = {"vr_lamb": "flat_vr_lamb", "vr_adam": "flat_vr_adam"}[cfg.optimizer.name]
+        out[f"{arch} smoke"] = train_other(records, f"{arch} smoke", cfg, update,
+                                           "train MoE smokes", profile=False,
+                                           steps=MOE_SMOKE_STEPS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_other(label, eng, reng, prompts, extra, res, m):
+    """The fused and plain plans teacher-forced along the fused tokens, as
+    hold_plans does, with the model's cross-attention source and its own
+    launch counts (K1 per self- and cross-attention layer at prefill, K12
+    per self-attention layer per decode step; the cross decode is plain),
+    within SERVE_GATE.  A MoE model's routing is recorded on both plans and
+    on the witness (the plain plan under F32Attention) and held to
+    ROUTE_GATE against it (route_gaps); SERVE_GATE then holds on a fourth
+    run, the plain plan routed to the fused run's experts, so that the plans
+    differ there only by what they compute.  Returns (max, mean) |diff| of
+    the gated pair and the routing record."""
+    import torch
+
+    dev = eng.device
+    b, s = prompts.shape
+    new = res.tokens.shape[1]
+    toks = torch.as_tensor(prompts, device=dev)
+    fused_toks = torch.as_tensor(res.tokens, device=dev).long()
+    ex = None if extra is None else {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
+    self_attn, cross = kind_counts(m)
+
+    def teacher_forced(e):
+        logits, cache = e._prefill(toks, extra=ex)
+        out = [logits[:, -1]]
+        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        for t in range(new - 1):
+            logits, cache = e._decode(cache, fused_toks[:, t:t + 1], pos)
+            out.append(logits[:, -1])
+            pos = pos + 1
+        return torch.stack(out, 1)
+
+    def gaps(a, c):
+        diff = (a - c).abs()
+        return float(diff.max()), float(diff.mean())
+
+    routing = None
+    with torch.no_grad(), RouteRecorder() as rec:
+        rec.on = m.moe is not None
+        reset_counts()
+        tf_f = teacher_forced(eng)
+        got = read_counts()
+        want = {"flash_attention_fwd": self_attn + cross, "flash_decode": self_attn * (new - 1)}
+        if {k: got[k] for k in SERVE_KERNELS} != want:
+            fail(f"{label}: teacher-forced fused launches {got}, want {want}")
+        calls_f = rec.take()
+        tf_r = teacher_forced(reng)
+        calls_r = rec.take()
+        if m.moe is not None:
+            with F32Attention():
+                tf_w = teacher_forced(reng)
+            calls_w = rec.take()
+            if len(calls_f) % new:
+                fail(f"{label}: {len(calls_f)} MoE calls over {new} forwards")
+            n_moe = len(calls_f) // new
+            rf, rw = (route_gaps(c, calls_r, m.moe.top_k, n_moe) for c in (calls_f, calls_w))
+            free_f, free_w = gaps(tf_f, tf_r), gaps(tf_w, tf_r)
+            for who, r, free in (("fused", rf, free_f), ("witness", rw, free_w)):
+                print(f"  {label} MoE routing, {who} vs reference (each its own): {r['flips']} "
+                      f"of {r['decisions']} token decisions flipped; at the first MoE layer "
+                      f"router inputs {r['first_gap']:.3e} apart (relative), "
+                      f"{r['first_flips']} flips, margins max {r['max_margin']:.3e}, bounds "
+                      f"max {r['max_bound']:.3e}, {r['first_unexplained']} past their bound; "
+                      f"logits max |diff| {free[0]:.4f}, mean {free[1]:.5f}", flush=True)
+            limit = max(ROUTE_GATE["flips"] * rw["flips"], ROUTE_GATE["floor"] * rf["decisions"])
+            print(f"  {label} ROUTE_GATE: first-layer gap {rf['first_gap']:.3e} <= "
+                  f"{ROUTE_GATE['first_layer']} x {rw['first_gap']:.3e}; flips {rf['flips']} <= "
+                  f"{limit:.0f}; mean logit gap {free_f[1]:.5f} <= {ROUTE_GATE['free_mean']} x "
+                  f"{free_w[1]:.5f}", flush=True)
+            if rf["first_unexplained"] or rw["first_unexplained"]:
+                fail(f"{label}: a routing flip at the first MoE layer past what its measured "
+                     "input difference can close")
+            if not rf["first_gap"] <= ROUTE_GATE["first_layer"] * rw["first_gap"]:
+                fail(f"{label}: the plans' router inputs at the first MoE layer are further "
+                     "apart than the witness's")
+            if rf["flips"] > limit:
+                fail(f"{label}: the plans' routing flips past ROUTE_GATE")
+            if not free_f[1] <= ROUTE_GATE["free_mean"] * free_w[1]:
+                fail(f"{label}: the plans' logits further apart than ROUTE_GATE allows")
+            rec.on, rec.forced = False, list(calls_f)
+            tf_routed = teacher_forced(reng)
+            if rec.forced:
+                fail(f"{label}: {len(rec.forced)} recorded routings left unused")
+            routing = dict(flips=rf["flips"], decisions=rf["decisions"],
+                           witness_flips=rw["flips"], first_gap=rf["first_gap"],
+                           witness_first_gap=rw["first_gap"], first_flips=rf["first_flips"],
+                           free_max=free_f[0], free_mean=free_f[1], witness_free_max=free_w[0],
+                           witness_free_mean=free_w[1])
+            tf_r = tf_routed
+    d_max, d_mean = gaps(tf_f, tf_r)
+    what = "the plain plan routed as the fused plan" if m.moe is not None else "reference"
+    print(f"  {label} teacher-forced, all {new} steps: max |fused - {what}| = {d_max:.4f}, "
+          f"mean {d_mean:.5f}, logit std {float(tf_r.std()):.3f} (tol max {SERVE_GATE['max']}, "
+          f"mean {SERVE_GATE['mean']})", flush=True)
+    if not (d_max <= SERVE_GATE["max"] and d_mean <= SERVE_GATE["mean"]):
+        fail(f"{label}: the fused and reference plans disagree beyond SERVE_GATE")
+    return d_max, d_mean, routing
+
+
+def serve_other(records, arch, n_layers):
+    import torch
+
+    from repro_torch.backend import Backend
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_inputs, weight_dtype
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_layers=n_layers))
+    m = cfg.model
+    dtype = weight_dtype(cfg, dev)
+    b, s, new = OTHER_SERVE_SHAPE
+    cache_len = s + new + 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    eng = Engine(cfg, params, cache_len=cache_len, device=dev)
+    self_attn, cross = kind_counts(m)
+    cut = f" (of {get_config(arch).model.n_layers})" if n_layers else ""
+    print(f"[other serve] {m.name}: {m.n_layers} layers{cut} ({'/'.join(m.block_pattern)}), "
+          f"d_model {m.d_model}, heads {m.n_heads}/{m.n_kv_heads} (head dim "
+          f"{m.resolved_head_dim}), d_ff {m.d_ff}, vocab {m.vocab_size}; {n_params / 1e9:.3f} B "
+          f"params (analytic {m.param_count() / 1e9:.3f} B) held in {dtype}: "
+          f"{w_bytes / 1e9:.2f} GB, drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, m.vocab_size, size=(b, s))
+    extra = stub_inputs(cfg, b, rng)
+    eng.generate(prompts, 2, extra=extra)  # warm-up
+    _, t_prefill = host_ms(lambda: eng.generate(prompts, 0, extra=extra))
+    reset_counts()
+    res, t_total = host_ms(lambda: eng.generate(prompts, new, extra=extra))
+    counts = read_counts()
+    want = {name: 0 for name in counts}
+    want.update(flash_attention_fwd=self_attn + cross, flash_decode=self_attn * new)
+    if counts != want:
+        fail(f"{arch}: launch counts {counts} != expected {want}")
+    for name in SERVE_KERNELS:
+        records[name].setdefault("launches_by_path", {})[f"serve {arch}"] = counts[name]
+    if res.tokens.shape != (b, new) or not np.isfinite(res.logprobs).all() \
+            or not ((res.tokens >= 0) & (res.tokens < m.vocab_size)).all():
+        fail(f"{arch}: generate returned {res.tokens.shape} tokens, non-finite logprobs or tokens "
+             "out of vocabulary")
+    decode_ms = t_total - t_prefill
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  launches in generate: K1 {counts['flash_attention_fwd']} ({self_attn} self + "
+          f"{cross} cross), K12 {counts['flash_decode']}, none else; prefill (B={b}, S={s}) "
+          f"{t_prefill:.1f} ms (host clock); decode {new} steps {decode_ms:.1f} ms = "
+          f"{b * new / decode_ms * 1e3:.1f} tok/s; peak memory {peak / 1e9:.2f} GB", flush=True)
+    toks = torch.as_tensor(prompts, device=dev)
+    ex = None if extra is None else {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
+    with torch.no_grad():
+        _, t_pre = host_ms(lambda: eng._prefill(toks, extra=ex))
+        cats = report_profile(f"{arch} prefill (profiled)", lambda: eng._prefill(toks, extra=ex),
+                              t_pre)
+    busy = None if cats is None else sum(c[0] for c in cats.values())
+    # the plain plan over the same weights and compute copy
+    reng = copy.copy(eng)
+    reng.cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
+                                                        backend=Backend.all_reference()))
+    gate = hold_other(arch, eng, reng, prompts, extra, res, m)
+    del eng, reng, params, leaves
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=t_prefill, decode_tok_s=b * new / decode_ms * 1e3,
+                peak_gb=peak / 1e9, weights_gb=w_bytes / 1e9, dtype=str(dtype),
+                prefill_idle=None if busy is None else 1 - busy / t_pre,
+                gate_max=gate[0], gate_mean=gate[1], routing=gate[2])
+
+
+def cross_attention_shapes(records):
+    """16 (e): K1 (with its LSE) and K2 at the encoder and cross-attention
+    shapes of (a), K1 at the vision model's cross-attention prefill shape of
+    (c), and K1 / K12 at recurrentgemma's head dim 256 (c): each against its
+    plain version on the same inputs, timed in turns with it and SDPA, beside
+    its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import flash_decode as fd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev,
+                                                                                   torch.bfloat16)
+
+    def rows(n, b):
+        return torch.arange(n, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+
+    mb = WHISPER_TRAIN["global_batch"] // 8
+    b_s, s_s, new = OTHER_SERVE_SHAPE
+    # tag: (B, Sq, Skv, H, KV, D, causal, window, with the backward)
+    shapes = {
+        "whisper encoder": (mb, 1500, 1500, 12, 12, 64, False, 0, True),
+        "whisper cross": (mb, WHISPER_TRAIN["seq_len"], 1500, 12, 12, 64, False, 0, True),
+        "vision cross": (b_s, s_s, 1601, 32, 8, 128, False, 0, False),
+        "recurrentgemma local D256": (b_s, s_s, s_s, 16, 1, 256, True, 2048, False),
+    }
+    for tag, (b, sq, skv, h, kvh, d, causal, window, bwd) in shapes.items():
+        q, k, v = randn(b, sq, h, d), randn(b, skv, kvh, d), randn(b, skv, kvh, d)
+        qp, kp = rows(sq, b), rows(skv, b)
+        qs, ks = torch.zeros_like(qp), torch.zeros_like(kp)
+        ops = (qp, kp, qs, ks)
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_attention(q, k, v, *ops, with_lse=True, **kw)
+        want, wlse = fa.attention_fwd_ref(q, k, v, q_pos=qp, k_pos=kp, q_seg=qs, k_seg=ks, **kw)
+        err1 = max(check_close(f"{tag} K1 B{b} Sq{sq} Skv{skv} H{h}/{kvh} D{d} out", out, want,
+                               tol_scaled(want)),
+                   check_close(f"{tag} K1 lse", lse, wlse, TOL_F32))
+        mask = fa.attention_mask(qp, kp, qs, ks, **kw)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+        vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+        am = mask[:, None]
+        t1 = cuda_ms_interleaved({
+            "kernel": lambda: fa.flash_attention(q, k, v, *ops, with_lse=True, **kw),
+            "plain": lambda: fa.attention_fwd_ref(q, k, v, q_pos=qp, k_pos=kp, q_seg=qs,
+                                                  k_seg=ks, **kw),
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)})
+        pairs = int(mask.sum()) * h
+        b1 = bound(nbytes(q, k, v, *ops, out, lse), pairs * 4 * d, "bfloat16")
+        print(f"  {tag} K1 (ms): kernel={t1['kernel']:.4f} plain={t1['plain']:.4f} "
+              f"sdpa={t1['sdpa']:.4f} bound={b1[0]:.4f} ({b1[1]})", flush=True)
+        entries = [("flash_attention_fwd", err1, t1, b1)]
+        if bwd:
+            do = randn(b, sq, h, d)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, lse, delta, do, *ops)
+            got = fab.flash_attention_bwd(*args, **kw)
+            wgot = fab.attention_bwd_ref(q, k, v, lse, delta, do, q_pos=qp, k_pos=kp, q_seg=qs,
+                                         k_seg=ks, **kw)
+            err2 = max(check_close(f"{tag} K2 {g}", a, w, tol_scaled(w))
+                       for g, a, w in zip(("dq", "dk", "dv"), got, wgot))
+            t2 = cuda_ms_interleaved({
+                "kernel": lambda: fab.flash_attention_bwd(*args, **kw),
+                "plain": lambda: fab.attention_bwd_ref(q, k, v, lse, delta, do, q_pos=qp,
+                                                       k_pos=kp, q_seg=qs, k_seg=ks, **kw)})
+            t2["sdpa"] = sdpa_bwd_ms(q, k, v, do, mask)
+            b2 = bound(nbytes(q, k, v, lse, delta, do, *ops, *got), pairs * 10 * d, "bfloat16")
+            print(f"  {tag} K2 (ms): kernel={t2['kernel']:.4f} plain={t2['plain']:.4f} "
+                  f"sdpa={t2['sdpa']:.4f} bound={b2[0]:.4f} ({b2[1]})", flush=True)
+            entries.append(("flash_attention_bwd", err2, t2, b2))
+            del do, delta, args, got, wgot
+        for name, err, t, bd in entries:
+            r = records[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r[tag] = dict(shape=f"B{b} Sq{sq} Skv{skv} H{h}/{kvh} D{d} bf16 "
+                                f"{'causal' if causal else 'non-causal'}"
+                                f"{f' window {window}' if window else ''}",
+                          max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                          library_ms=t["sdpa"], bound_ms=bd[0], bound_by=bd[1])
+        del q, k, v, qt, kt, vt, am, mask, out, lse, want, wlse
+    # K12 at recurrentgemma's decode shape: one lane a row, 16 query heads on
+    # one kv head of dim 256, the local window's ring of cache_len slots
+    cache_len = s_s + new + 8
+    b, h, kvh, d = b_s, 16, 1, 256
+    qd = randn(b, 1, h, d)
+    kc, vc = randn(b, cache_len, kvh, d), randn(b, cache_len, kvh, d)
+    qp, kp, qs, ks = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in paged_cache(b, cache_len, 1, s_s + new, rng))
+    got = fd.flash_decode(qd, kc, vc, qp, kp, qs, ks, window=2048)
+    err12 = check_close(f"recurrentgemma K12 B{b} C{cache_len} L1 H{h}/{kvh} D{d} window 2048",
+                        got, fd.decode_attention_ref(qd, kc, vc, qp, kp, qs, ks, window=2048),
+                        TOL_BF16_OUT)
+    dmask = fa.attention_mask(qp, kp, qs, ks, causal=True, window=2048)
+    qt = qd.transpose(1, 2).contiguous()
+    kt = kc.transpose(1, 2).repeat_interleave(h, dim=1).contiguous()
+    vt = vc.transpose(1, 2).repeat_interleave(h, dim=1).contiguous()
+    am = dmask[:, None]
+    t12 = cuda_ms_interleaved({
+        "kernel": lambda: fd.flash_decode(qd, kc, vc, qp, kp, qs, ks, window=2048),
+        "plain": lambda: fd.decode_attention_ref(qd, kc, vc, qp, kp, qs, ks, window=2048),
+        "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)})
+    kv_need = int(dmask.any(dim=1).sum()) * kvh * d * kc.element_size() * 2
+    b12 = bound(nbytes(qd, qp, kp, qs, ks, got) + kv_need, int(dmask.sum()) * h * 4 * d,
+                "bfloat16")
+    print(f"  recurrentgemma K12 (ms): kernel={t12['kernel']:.6f} plain={t12['plain']:.6f} "
+          f"sdpa={t12['sdpa']:.6f} bound={b12[0]:.6f} ({b12[1]})", flush=True)
+    r = records["flash_decode"]
+    r["max_abs_err"] = max(r["max_abs_err"], err12)
+    r["recurrentgemma D256"] = dict(shape=f"B{b} C{cache_len} L1 H{h}/{kvh} D{d} bf16",
+                                    max_abs_err=err12, ms=t12["kernel"], plain_ms=t12["plain"],
+                                    library_ms=t12["sdpa"], bound_ms=b12[0], bound_by=b12[1])
+
+
+def phase_other_blocks(records):
+    """16: the other block kinds at full width: (a) whisper-small and (b)
+    xlstm-1.3b trained, (c) mixtral-8x22b, recurrentgemma-9b and
+    llama-3.2-vision-11b served, (d) one VR step of each MoE smoke, (e) K1,
+    K2 and K12 at the new shapes.  Prints one summary line."""
+    import torch
+
+    t0 = time.perf_counter()
+    summary = {"train": phase_other_train(records), "serve": {}, "walls_s": {}}
+    summary["walls_s"]["train"] = time.perf_counter() - t0
+    for arch, n_layers in OTHER_SERVE:
+        t1 = time.perf_counter()
+        summary["serve"][arch] = serve_other(records, arch, n_layers)
+        summary["walls_s"][f"serve {arch}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cross_attention_shapes(records)
+    summary["walls_s"]["kernel shapes"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.perf_counter() - t0
+    print(f"[other blocks] {json.dumps(summary)}", flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4088,7 +4882,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     logs = _build.build_all()
     print(f"[build] {len(_build.sources())} sources in {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
@@ -4098,35 +4892,47 @@ def main() -> None:
 
     from repro_torch.configs import get_config
 
-    records = {}
+    records, walls = {}, {}
+
+    def timed(tag, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[tag] = time.perf_counter() - t
+        print(f"[wall] phase {tag}: {walls[tag]:.1f} s", flush=True)
+        return out
+
     bert = get_config("bert-large")
     layout = train_layout(bert)
     data = make_token_caches(bert.model.vocab_size)  # phase 13(a)'s; phase 7 packs rows too
     try:
-        phase_kernels(records)
-        phase_engine(records)
+        timed("3", phase_kernels, records)
+        timed("4-6", phase_engine, records)
         torch.cuda.empty_cache()
-        phase_dense_serving(records)
-        phase_train_kernels(records, layout, data)
-        scan = phase_train(records)
-        phase_train_vmap(records, scan)  # against phase 8's scan steps, while they are at hand
+        timed("6b", phase_dense_serving, records)
+        timed("7", phase_train_kernels, records, layout, data)
+        scan = timed("8", phase_train, records)
+        timed("11", phase_train_vmap, records, scan)  # against phase 8's scan steps
         del scan
         torch.cuda.empty_cache()
-        phase_autoscale(records, data)  # before phases 9 and 10b, after which the profiler
-        torch.cuda.empty_cache()        # has seen no device events
-        phase_train_optimizers(records)
-        phase_spmd_kernels(records, layout)
-        phase_norm_sums(records)
-        phase_train_dp(records, DP_GROUPS, "10b")
-        phase_train_dp(records, DP_PATH_GROUPS, "10c")
-        phase_per_leaf(records, layout)
+        timed("13", phase_autoscale, records, data)  # before phases 9 and 10b, after which
+        torch.cuda.empty_cache()                      # the profiler has seen no device events
+        timed("9", phase_train_optimizers, records)
+        timed("10a", phase_spmd_kernels, records, layout)
+        timed("7b", phase_norm_sums, records)
+        timed("10b", phase_train_dp, records, DP_GROUPS, "10b")
+        timed("10c", phase_train_dp, records, DP_PATH_GROUPS, "10c")
+        timed("12", phase_per_leaf, records, layout)
         torch.cuda.empty_cache()
-        phase_dlrm(records)
+        timed("14", phase_dlrm, records)
         torch.cuda.empty_cache()
-        phase_benches(records)
+        timed("15", phase_benches, records)
+        torch.cuda.empty_cache()
+        timed("16", phase_other_blocks, records)
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(data["dir"], ignore_errors=True)
+    print(f"[walls] {json.dumps({k: round(v, 1) for k, v in walls.items()})}; the script "
+          f"{time.perf_counter() - t_start:.1f} s with the build", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

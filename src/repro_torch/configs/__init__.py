@@ -10,7 +10,9 @@ from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401  (public re-exports)
     Config,
+    EncoderConfig,
     ModelConfig,
+    MoEConfig,
     OptimizerConfig,
     ParallelismConfig,
     smoke_variant,
@@ -22,6 +24,12 @@ ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "granite-20b": "granite_20b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "whisper-small": "whisper_small",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
 

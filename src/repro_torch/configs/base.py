@@ -1,26 +1,51 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the parts of ``repro/configs/base.py`` that the port runs: the
-model, optimizer and runtime configs and ``smoke_variant``.  The port keeps
-its own copy because the reference module imports the JAX execution plan.
+model (with its MoE and encoder parts), optimizer and runtime configs and
+``smoke_variant``.  The port keeps its own copy because the reference
+module imports the JAX execution plan.
 
-Block kinds the port's transformer runs:
+Block kinds the port's transformer runs (every kind of the reference):
 
   "attn"    full (causal) self-attention + MLP
   "swa"     sliding-window self-attention + MLP
   "local"   sliding-window self-attention + MLP (recurrentgemma naming)
+  "xattn"   self-attention + cross-attention (to image/audio memory) + MLP
+  "rec"     RG-LRU recurrent block + MLP                     [arXiv:2402.19427]
+  "mlstm"   mLSTM block (matrix memory, chunkwise parallel)  [arXiv:2405.04517]
+  "slstm"   sLSTM block (scalar memory, sequential scan)     [arXiv:2405.04517]
 
-Cross-attention, MoE, recurrent and xLSTM blocks are not ported yet.
+With ``moe`` set, the MLP of the attn/swa/local/xattn/rec blocks is a
+mixture of experts.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.backend import Backend
 
-ATTN_KINDS = ("attn", "swa", "local")
+BLOCK_KINDS = ("attn", "swa", "local", "xattn", "rec", "mlstm", "slstm")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    n_shared_experts: int = 0  # llama4-style always-on shared expert
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower of an encoder-decoder model (whisper).  Its frontend is
+    a stub: the batch carries frame embeddings of shape (B, n_frames, d)."""
+
+    n_layers: int = 12
+    n_frames: int = 1500  # whisper-small: 30 s of audio -> 1500 frames after the conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +64,15 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     act: str = "swiglu"  # swiglu | gelu
+    moe: Optional[MoEConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    n_image_tokens: int = 0  # vlm: length of the stubbed vision-encoder output
     causal: bool = True
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
+    # xLSTM specifics
+    qk_dim_factor: float = 0.5
+    v_dim_factor: float = 1.0
     citation: str = ""
 
     @property
@@ -62,22 +93,52 @@ class ModelConfig:
         return tuple(self.block_pattern[: self.n_layers % len(self.block_pattern)])
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula (the rec/mlstm/slstm terms are its estimates)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         q = self.n_heads * hd
         kv = self.n_kv_heads * hd
-        attn = d * q + 2 * d * kv + q * d
+        attn = d * q + 2 * d * kv + q * d  # wq wk wv wo
         mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
         total = 0
         for kind in self.pattern_layers():
-            if kind not in ATTN_KINDS:
-                raise ValueError(f"block kind {kind!r} is not ported")
-            total += attn + mlp + 2 * d
+            if kind in ("attn", "swa", "local"):
+                body = attn + self._mlp_or_moe(mlp)
+            elif kind == "xattn":
+                body = 2 * attn + self._mlp_or_moe(mlp)
+            elif kind == "rec":
+                body = 2 * d * d + 2 * d * d // 8 + 3 * d + self._mlp_or_moe(mlp)
+            elif kind == "mlstm":
+                qk = int(d * self.qk_dim_factor)
+                vd = int(d * self.v_dim_factor)
+                body = d * (2 * qk + 3 * vd) + vd * d + 2 * d * 2 * d
+            elif kind == "slstm":
+                body = 4 * d * d + 2 * d * 4 * d
+            else:
+                raise ValueError(kind)
+            total += body + 2 * d  # norms
         total += v * d
         if not self.tie_embeddings:
             total += v * d
+        if self.encoder is not None:
+            total += self.encoder.n_layers * (attn + mlp + 2 * d)
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters one token reads (MoE: only top_k + shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        mlp = 3 * self.d_model * self.d_ff if self.act == "swiglu" else 2 * self.d_model * self.d_ff
+        n_moe = sum(1 for k in self.pattern_layers() if k in ("attn", "swa", "local", "xattn"))
+        return self.param_count() - n_moe * mlp * (m.n_experts - m.top_k)
+
+    def _mlp_or_moe(self, mlp: int) -> int:
+        if self.moe is None:
+            return mlp
+        m = self.moe
+        return mlp * (m.n_experts + m.n_shared_experts) + self.d_model * m.n_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +202,8 @@ class Config:
 
 
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Reduced same-family variant: <=2 pattern groups, d_model<=256."""
+    """Reduced same-family variant: <=2 pattern groups, d_model<=256, <=4
+    experts, a 2-layer encoder over 16 frames, <=16 image tokens."""
     pattern = cfg.block_pattern
     if len(pattern) > 4:
         seen, small = set(), []
@@ -155,6 +217,12 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     while n_heads % n_kv:
         n_kv -= 1
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, n_experts=min(4, cfg.moe.n_experts))
+    enc = None
+    if cfg.encoder is not None:
+        enc = dataclasses.replace(cfg.encoder, n_layers=2, n_frames=16)
     kw = dict(
         n_layers=n_layers,
         d_model=min(cfg.d_model, 256),
@@ -165,6 +233,9 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=0,
         block_pattern=pattern,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        moe=moe,
+        encoder=enc,
+        n_image_tokens=min(cfg.n_image_tokens, 16) if cfg.n_image_tokens else 0,
         name=cfg.name + "-smoke",
     )
     kw.update(overrides)

@@ -467,7 +467,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 
 // q (B,Sq,H,D), k/v (B,Skv,KV,D) contiguous in bf16 (is_bf16=1: the
 // tensor-core kernel at D = 64, 128, 16-byte aligned; the CUDA-core kernel
-// at D = 32) or f32 (the CUDA-core kernel); D one of 32, 64, 128;
+// at D = 32 and 256) or f32 (the CUDA-core kernel); D one of 32, 64, 128,
+// 256 (recurrentgemma's heads; 150 KB of shared memory a block);
 // positions/segments (B,S) int32; out like q; lse (B,H,Sq) f32 or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* k_pos, const void* q_seg,
@@ -486,6 +487,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 32)  // too narrow for the wgmma tiles: the CUDA-core kernel
       return launch<__nv_bfloat16, 32>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv,
                                        H, KV, causal, window, scale, s);
+    if (D == 256)  // wider than the wgmma tiles' shared memory: the CUDA-core kernel
+      return launch<__nv_bfloat16, 256>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq,
+                                        Skv, H, KV, causal, window, scale, s);
   } else {
     if (D == 128)
       return launch<float, 128>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
@@ -496,6 +500,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 32)
       return launch<float, 32>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
                                causal, window, scale, s);
+    if (D == 256)
+      return launch<float, 256>(q, k, v, q_pos, k_pos, q_seg, k_seg, out, lse, B, Sq, Skv, H, KV,
+                                causal, window, scale, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -83,7 +83,7 @@ struct Geo {
   static constexpr int KCH = D * ES / 16 / PARTS;      // 16-byte chunks of a K row per lane
   static constexpr int VPL = D / 32;                   // output columns per lane
   static_assert(RING_BYTES >= NW * RB * (D + 2) * 4, "the warps' partials reuse the ring");
-  static_assert(KCH >= 1 && (VPL == 2 || VPL == 4), "D must be 64 or 128");
+  static_assert(KCH >= 1 && (VPL == 2 || VPL == 4 || VPL == 8), "D must be 64, 128 or 256");
   // Dynamic shared memory for a block whose registers hold `rr` query
   // rows: 1024 bytes of alignment slack, the ring, q (then the block's
   // acc), the warps' p.
@@ -373,7 +373,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       const int row = w * SW + jj;
       const T* src = reinterpret_cast<const T*>(vt + tile_off<BT>(row, cb >> 4) + (cb & 15));
       float vx[VPL];
-      if constexpr (VPL == 4) {
+      if constexpr (VPL == 8) {  // D = 256: whole 16-byte chunks
+#pragma unroll
+        for (int q4 = 0; q4 < VPL * G::ES / 16; ++q4)
+          unpack16(vt + tile_off<BT>(row, (cb >> 4) + q4), vx + q4 * G::EPC, T());
+      } else if constexpr (VPL == 4) {
         const float4 x = load4(src);
         vx[0] = x.x; vx[1] = x.y; vx[2] = x.z; vx[3] = x.w;
       } else {
@@ -582,6 +586,7 @@ cudaError_t dispatch(int D, int is_bf16, int tile, int rows, const F& f) {
     REPRO_DECODE_ROWS(__nv_bfloat16, 128, 32)
     REPRO_DECODE_ROWS(__nv_bfloat16, 64, 64)
     REPRO_DECODE_ROWS(__nv_bfloat16, 64, 32)
+    REPRO_DECODE_ROWS(__nv_bfloat16, 256, 64)  // recurrentgemma's heads: 64-slot tiles only
   } else {
     REPRO_DECODE_CASE(float, 128, 64, 16)
     REPRO_DECODE_CASE(float, 128, 32, 16)

@@ -38,9 +38,11 @@
 // reference's (rows, 128) f32 layout (a plain op, as _pad2d does; a view
 // when the leaf already is f32 and whole rows).  Each thread streams float4
 // vectors in a grid-stride loop.  The TPU kernels carry the (1, 128) lane
-// partials of the norms across their sequential grid; here each block
-// reduces its threads' sums (warp shuffles) and adds them to two f32
-// accumulators with one atomicAdd each, zeroed by the entry.  The zero tail
+// partials of the norms across their sequential grid; here the norm sums
+// are flat_update.cuh's two-level f64 combine (leaf_norm_sums): each block
+// reduces its threads' f32 sums in f64 into its own two slots, and the last
+// block to finish adds the slots in block order in f64 and rounds each sum
+// once to f32, so the sums are the same bits on every run.  The zero tail
 // adds exact zeros (g = ga = w = m = v = 0 there, so dir = u = 0).
 //
 // Bound on the card: bytes (< 50 flops per element).  At bert-large's
@@ -52,6 +54,31 @@
 #include "flat_update.cuh"
 
 namespace {
+
+// The leaf's sums of u^2 and w^2: each block's f64 totals to its slots of
+// ``partials`` (2 x gridDim.x), and the last block to finish adds them in
+// block order in f64, writes acc[0], acc[1] rounded once to f32 and resets
+// ``ticket`` (one u32, 0 at launch) for the next launch on the stream.
+__device__ __forceinline__ void leaf_norm_sums(float uu, float ww, double* __restrict__ partials,
+                                               unsigned* __restrict__ ticket,
+                                               float* __restrict__ acc) {
+  __shared__ double red[NT / 32];
+  double totals[2];
+  totals[0] = block_sum_d((double)uu, red);
+  __syncthreads();  // red is reused
+  totals[1] = block_sum_d((double)ww, red);
+  if (!block_done<2>(totals, partials, ticket)) return;
+  const int n_blocks = (int)gridDim.x;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    double x = 0.0;
+    for (int b = threadIdx.x; b < n_blocks; b += NT) x += __ldcg(partials + (int64_t)s * n_blocks + b);
+    __syncthreads();  // red is reused
+    x = block_sum_d(x, red);
+    if (threadIdx.x == 0) acc[s] = (float)x;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
 
 __global__ void __launch_bounds__(NT) leaf_scale_kernel(
     const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
@@ -75,15 +102,15 @@ __global__ void __launch_bounds__(NT) leaf_scale_kernel(
 }
 
 // VR-Adam (TRUST false): u = dir (hp.wd = 0, no w).  VR-LAMB (TRUST true):
-// u = dir + wd w, and the block's sums of u^2 and w^2 into acc[0], acc[1].
+// u = dir + wd w, and the leaf's sums of u^2 and w^2 into acc[0], acc[1].
 template <bool TRUST>
 __global__ void __launch_bounds__(NT) leaf_adam_kernel(
     const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
     const float* __restrict__ m, const float* __restrict__ v, const float* __restrict__ p,
     const float* __restrict__ w, const float* __restrict__ scal, float* __restrict__ u,
     float* __restrict__ m_out, float* __restrict__ v_out, float* __restrict__ p_out,
-    float* __restrict__ acc, int64_t n4, Hyper hp) {
-  __shared__ float red[NT / 32];
+    float* __restrict__ acc, double* __restrict__ partials, unsigned* __restrict__ ticket,
+    int64_t n4, Hyper hp) {
   const float inv_mean = scal[0];
   float uu = 0.f, ww = 0.f;
   for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
@@ -112,22 +139,14 @@ __global__ void __launch_bounds__(NT) leaf_adam_kernel(
     st(v_out, i, f4(vo));
     st(p_out, i, f4(po));
   }
-  if (TRUST) {
-    uu = block_sum(uu, red);
-    __syncthreads();  // red is reused
-    ww = block_sum(ww, red);
-    if (threadIdx.x == 0) {
-      atomicAdd(acc, uu);
-      atomicAdd(acc + 1, ww);
-    }
-  }
+  if (TRUST) leaf_norm_sums(uu, ww, partials, ticket, acc);
 }
 
 __global__ void __launch_bounds__(NT) leaf_lars_kernel(
     const float* __restrict__ g, const float* __restrict__ ga, const float* __restrict__ g2,
     const float* __restrict__ w, const float* __restrict__ scal, float* __restrict__ u,
-    float* __restrict__ acc, int64_t n4, float gamma, float wd, float eps) {
-  __shared__ float red[NT / 32];
+    float* __restrict__ acc, double* __restrict__ partials, unsigned* __restrict__ ticket,
+    int64_t n4, float gamma, float wd, float eps) {
   const float inv_mean = scal[0];
   float uu = 0.f, ww = 0.f;
   for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n4; i += (int64_t)gridDim.x * NT) {
@@ -145,13 +164,7 @@ __global__ void __launch_bounds__(NT) leaf_lars_kernel(
     }
     st(u, i, f4(uo));
   }
-  uu = block_sum(uu, red);
-  __syncthreads();  // red is reused
-  ww = block_sum(ww, red);
-  if (threadIdx.x == 0) {
-    atomicAdd(acc, uu);
-    atomicAdd(acc + 1, ww);
-  }
+  leaf_norm_sums(uu, ww, partials, ticket, acc);
 }
 
 // ---- the GSNR prepass: inv_mean = 1 / max(sum(r_raw) / n, 1e-30) -----------
@@ -292,12 +305,14 @@ extern "C" int leaf_vr_scale(const void* g, const void* ga, const void* g2, cons
   return cudaGetLastError();
 }
 
-// trust 0: VR-Adam (w and acc unused, may be null; wd ignored).  trust 1:
-// VR-LAMB, acc = 2 f32 (sum u^2, sum w^2), zeroed here.
+// trust 0: VR-Adam (w, acc, partials and ticket unused, may be null; wd
+// ignored).  trust 1: VR-LAMB, acc = 2 f32 (sum u^2, sum w^2), written;
+// partials 2 * 16 * n_sm f64 of scratch; ticket one u32 that is 0 and that no
+// launch in flight on another stream shares (left at 0).
 extern "C" int leaf_vr_adam(const void* g, const void* ga, const void* g2, const void* m,
                             const void* v, const void* p, const void* w, const void* scal,
                             void* u, void* m_out, void* v_out, void* p_out, void* acc,
-                            long long n, float b1, float b2, float b3, float eps, float wd,
+                            void* partials, void* ticket, long long n, float b1, float b2, float b3, float eps, float wd,
                             float gamma, float gsnr_eps, float bc1, float bc2, float bc3,
                             int trust, int n_sm, void* stream) {
   if (n % 4) return cudaErrorInvalidValue;
@@ -310,32 +325,33 @@ extern "C" int leaf_vr_adam(const void* g, const void* ga, const void* g2, const
                        static_cast<const float*>(w), static_cast<const float*>(scal)};
   float* out[] = {static_cast<float*>(u), static_cast<float*>(m_out), static_cast<float*>(v_out),
                   static_cast<float*>(p_out), static_cast<float*>(acc)};
+  double* part = static_cast<double*>(partials);
+  unsigned* tick = static_cast<unsigned*>(ticket);
   if (trust) {
-    cudaError_t err = cudaMemsetAsync(acc, 0, 2 * sizeof(float), s);
-    if (err != cudaSuccess) return err;
     leaf_adam_kernel<true><<<leaf_grid(n4, n_sm), NT, 0, s>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0], out[1], out[2], out[3],
-        out[4], n4, hp);
+        out[4], part, tick, n4, hp);
   } else {
     leaf_adam_kernel<false><<<leaf_grid(n4, n_sm), NT, 0, s>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0], out[1], out[2], out[3],
-        out[4], n4, hp);
+        out[4], part, tick, n4, hp);
   }
   return cudaGetLastError();
 }
 
-// acc = 2 f32 (sum u^2, sum w^2), zeroed here.
+// acc = 2 f32 (sum u^2, sum w^2), written; partials and ticket as for
+// leaf_vr_adam's trust 1.
 extern "C" int leaf_vr_lars(const void* g, const void* ga, const void* g2, const void* w,
-                            const void* scal, void* u, void* acc, long long n, float gamma,
-                            float wd, float eps, int n_sm, void* stream) {
+                            const void* scal, void* u, void* acc, void* partials, void* ticket,
+                            long long n, float gamma, float wd, float eps, int n_sm,
+                            void* stream) {
   if (n % 4) return cudaErrorInvalidValue;
   const int64_t n4 = n / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(acc, 0, 2 * sizeof(float), s);
-  if (err != cudaSuccess) return err;
   leaf_lars_kernel<<<leaf_grid(n4, n_sm), NT, 0, s>>>(
       static_cast<const float*>(g), static_cast<const float*>(ga), static_cast<const float*>(g2),
       static_cast<const float*>(w), static_cast<const float*>(scal), static_cast<float*>(u),
-      static_cast<float*>(acc), n4, gamma, wd, eps);
+      static_cast<float*>(acc), static_cast<double*>(partials), static_cast<unsigned*>(ticket),
+      n4, gamma, wd, eps);
   return cudaGetLastError();
 }

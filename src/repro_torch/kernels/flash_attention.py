@@ -29,7 +29,8 @@ from repro_torch.backend import HOPPER, device_info
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # bf16 at 32: the CUDA-core kernel (the wgmma tiles take 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)  # bf16 at 32, 256: the CUDA-core kernel (wgmma: 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128)  # the backward kernel's
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -199,7 +200,7 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, q_seg=None, k_seg=None, *,
 
     Positions are explicit (B, S) int32 or both omitted (implicit arange,
     Sq == Skv).  On a CUDA tensor this launches the kernel (bf16 or f32,
-    D in {64, 128}) or raises; on a CPU tensor it computes the plain
+    D in HEAD_DIMS) or raises; on a CPU tensor it computes the plain
     ``attention_fwd_ref``.  Forward only."""
     b, sq = q.shape[:2]
     skv = k.shape[1]

@@ -25,7 +25,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import NEG_INF, attention_mask, check_cuda_operands
+from repro_torch.kernels.flash_attention import (
+    BWD_HEAD_DIMS,
+    NEG_INF,
+    attention_mask,
+    check_cuda_operands,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -68,7 +73,8 @@ def attention_bwd_ref(q, k, v, lse, delta, do, *, causal: bool, window: int = 0,
 def _kernel(q, k, v, lse, delta, do, q_pos, k_pos, q_seg, k_seg, causal, window):
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    check_cuda_operands("flash_attention_bwd", q, k, v, (q_pos, k_pos, q_seg, k_seg))
+    check_cuda_operands("flash_attention_bwd", q, k, v, (q_pos, k_pos, q_seg, k_seg),
+                        dims=BWD_HEAD_DIMS)
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("flash_attention_bwd: dO must be a contiguous tensor like q")
     for name, t in (("lse", lse), ("delta", delta)):

@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attention import (
 TILES = (64, 32)  # cache slots per kernel tile, in order of preference
 ROWS_PER_BLOCK = 16  # query rows (G * L of one kv head) per block
 MAX_SPLITS = 8  # blocks per cluster: the portable cluster size
-DECODE_DIMS = (64, 128)  # head dims the decode kernel is built for
+DECODE_DIMS = (64, 128, 256)  # head dims the decode kernel is built for (256: bf16 only)
+WIDE_D = 256  # built for 64-slot tiles only: a 32-slot ring cannot hold the warps' partials
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -62,7 +63,7 @@ def _chunks(tiles: int, want: int):
     return per, splits
 
 
-def split_plan(b: int, kvh: int, rows: int, c: int, n_sm: int):
+def split_plan(b: int, kvh: int, rows: int, c: int, n_sm: int, tiles=TILES):
     """The cluster plan (tile, chunk, splits): C slots cut into ``splits``
     <= 8 chunks of ``chunk`` slots, a whole number of tiles, so that the
     kernel's B * KV * row_groups * splits blocks cover the n_sm SMs at least
@@ -72,7 +73,7 @@ def split_plan(b: int, kvh: int, rows: int, c: int, n_sm: int):
     clusters = b * kvh * -(-rows // ROWS_PER_BLOCK)
     want = min(MAX_SPLITS, max(1, -(-2 * n_sm // clusters)))
     best = None
-    for tile in TILES:
+    for tile in tiles:
         per, splits = _chunks(-(-c // tile), want)
         plan = (tile, per * tile, splits)
         if clusters * splits >= 2 * n_sm:
@@ -128,6 +129,11 @@ def decode_combine_ref(m, l, acc, dtype):
     return out.permute(0, 2, 1, 3).to(dtype)
 
 
+def _plan(b, lanes, h, kvh, c, d, device):
+    tiles = (64,) if d == WIDE_D else TILES
+    return split_plan(b, kvh, (h // kvh) * lanes, c, device_info(device.index)[1], tiles)
+
+
 def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, window: int = 0):
     """q: (B,L,H,D) decode lanes; k, v: (B,C,KV,D) paged cache -> (B,L,H,D).
 
@@ -154,7 +160,9 @@ def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, wi
     check_cuda_operands("flash_decode", q, k, v, (q_pos, k_pos, q_seg, k_seg), dims=DECODE_DIMS)
     if k.shape[0] != b:
         raise ValueError(f"flash_decode: q has {b} rows, the cache {k.shape[0]}")
-    tile, chunk, splits = split_plan(b, kvh, (h // kvh) * lanes, c, device_info(q.device.index)[1])
+    if d == WIDE_D and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_decode: head_dim {WIDE_D} is built for bf16, got {q.dtype}")
+    tile, chunk, splits = _plan(b, lanes, h, kvh, c, d, q.device)
     out = torch.empty_like(q)
     lib = _build.library("flash_decode", _SIGNATURES)
     err = lib.flash_decode(
@@ -173,7 +181,7 @@ def active_clusters(q, k) -> int:
     resident on the card at once (``cudaOccupancyMaxActiveClusters``)."""
     b, lanes, h, d = q.shape
     c, kvh = k.shape[1], k.shape[2]
-    tile, chunk, splits = split_plan(b, kvh, (h // kvh) * lanes, c, device_info(q.device.index)[1])
+    tile, chunk, splits = _plan(b, lanes, h, kvh, c, d, q.device)
     n = ctypes.c_int(0)
     lib = _build.library("flash_decode", _SIGNATURES)
     err = lib.flash_decode_active_clusters(b, lanes, c, h, kvh, d, int(q.dtype == torch.bfloat16),

@@ -56,7 +56,7 @@ def vr_adam_inner(g, g2, m, v, p, bc1, bc2, bc3, *, b1, b2, b3, eps, gamma, gsnr
     outs = [torch.empty_like(ops[0]) for _ in range(4)]
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_vr_adam(*(t.data_ptr() for t in ops), None, inv.data_ptr(),
-                           *(t.data_ptr() for t in outs), None, outs[0].numel(),
+                           *(t.data_ptr() for t in outs), None, None, None, outs[0].numel(),
                            b1, b2, b3, eps, 0.0, gamma, gsnr_eps, float(bc1), float(bc2),
                            float(bc3), 0, *stream_args(outs[0]))
     _build.check(err, "leaf_vr_adam")

@@ -10,7 +10,9 @@ needs.
   vr_lars_inner -> (u, sum(u^2), sum(w^2)),               u = r ga + wd w
 
 The caller applies the trust ratio.  The reference returns each sum from
-(1, 128) lane partials (a TPU layout); here each is a 0-dim f32 tensor.
+(1, 128) lane partials (a TPU layout); here each is a 0-dim f32 tensor,
+summed in two levels in f64 (each block's slots, then the last block adds
+them in block order).
 The flat single-launch forms are ``flat_update.py::flat_vr_lamb`` and
 ``::flat_vr_lars``.  The kernels are ``csrc/vr_leaf.cu``; inv_mean comes
 from the prepass kernel (``vr_update.py::leaf_inv_mean``) and the operands
@@ -25,7 +27,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.vr_adam import adam_math_ref
 from repro_torch.kernels.vr_update import (SIGNATURES, check_leaf, clip_r, inv_mean_r,
-                                           leaf_inv_mean, pad2d, stream_args, unpad)
+                                           leaf_inv_mean, norm_scratch, pad2d, stream_args,
+                                           unpad)
 
 
 def vr_lamb_inner_ref(g, ga, g2, m, v, p, w, bc1, bc2, bc3, *, b1, b2, b3, eps, wd, gamma,
@@ -53,10 +56,11 @@ def vr_lamb_inner(g, ga, g2, m, v, p, w, bc1, bc2, bc3, *, b1, b2, b3, eps, wd, 
     check_leaf("vr_lamb_inner", ops)
     inv = leaf_inv_mean(g, g2, gsnr_eps)
     outs = [torch.empty_like(ops[0]) for _ in range(4)]
-    acc = torch.empty(2, dtype=torch.float32, device=g.device)
+    partials, ticket, acc = norm_scratch(g)
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_vr_adam(*(t.data_ptr() for t in ops), inv.data_ptr(),
-                           *(t.data_ptr() for t in outs), acc.data_ptr(), outs[0].numel(),
+                           *(t.data_ptr() for t in outs), acc.data_ptr(), partials.data_ptr(),
+                           ticket.data_ptr(), outs[0].numel(),
                            b1, b2, b3, eps, wd, gamma, gsnr_eps, float(bc1), float(bc2),
                            float(bc3), 1, *stream_args(outs[0]))
     _build.check(err, "leaf_vr_lamb")
@@ -83,10 +87,11 @@ def vr_lars_inner(g, ga, g2, w, *, wd, gamma, eps):
     check_leaf("vr_lars_inner", ops)
     inv = leaf_inv_mean(g, g2, eps)
     u = torch.empty_like(ops[0])
-    acc = torch.empty(2, dtype=torch.float32, device=g.device)
+    partials, ticket, acc = norm_scratch(g)
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_vr_lars(*(t.data_ptr() for t in ops), inv.data_ptr(), u.data_ptr(),
-                           acc.data_ptr(), u.numel(), gamma, wd, eps, *stream_args(u))
+                           acc.data_ptr(), partials.data_ptr(), ticket.data_ptr(), u.numel(),
+                           gamma, wd, eps, *stream_args(u))
     _build.check(err, "leaf_vr_lars")
     vr_lars_inner.launches += 1
     return unpad(u, g.shape), acc[0], acc[1]

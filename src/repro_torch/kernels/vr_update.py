@@ -31,11 +31,12 @@ from repro_torch.kernels import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "leaf_vr_scale": [_P] * 6 + [ctypes.c_longlong, _F, _F, _I, _P],
-    "leaf_vr_adam": [_P] * 13 + [ctypes.c_longlong] + [_F] * 10 + [_I, _I, _P],
-    "leaf_vr_lars": [_P] * 7 + [ctypes.c_longlong, _F, _F, _F, _I, _P],
+    "leaf_vr_adam": [_P] * 15 + [ctypes.c_longlong] + [_F] * 10 + [_I, _I, _P],
+    "leaf_vr_lars": [_P] * 9 + [ctypes.c_longlong, _F, _F, _F, _I, _P],
     "leaf_inv_mean": [_P, _P, ctypes.c_longlong, _I, _I, _F, _P, _I, _P, _P, _P],
 }
 INV_MEAN_BLOCKS_PER_SM = 2  # the prepass's grid cap: its f64 partials, one a block
+STEP_BLOCKS_PER_SM = 16  # the step kernels' grid cap (vr_leaf.cu::leaf_grid)
 
 
 def padded_rows(n: int) -> int:
@@ -73,7 +74,26 @@ def inv_mean_r(g, g2, eps) -> torch.Tensor:
     return 1.0 / torch.clamp(torch.mean(gf * gf / (var + eps)), min=1e-30)
 
 
-_counters = {}  # (device index, stream) -> the prepass's u32 block counter
+_counters = {}  # (device index, stream, kind) -> a u32 block counter, left at 0
+
+
+def zeroed_counter(device, stream, kind: str) -> torch.Tensor:
+    """The u32 block counter of ``kind``'s kernels on (device, stream):
+    zeroed once, and every launch leaves it at 0."""
+    key = (device.index, stream, kind)
+    if key not in _counters:
+        _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+def norm_scratch(t: torch.Tensor):
+    """(partials, ticket, acc) of a K20/K21 launch on ``t``'s card: the f64
+    slots of the norm sums' two-level combine (two a block), its ticket
+    and the two f32 sums."""
+    n_sm, stream = stream_args(t)
+    partials = torch.empty(2 * STEP_BLOCKS_PER_SM * n_sm, dtype=torch.float64, device=t.device)
+    acc = torch.empty(2, dtype=torch.float32, device=t.device)
+    return partials, zeroed_counter(t.device, stream, "norms"), acc
 
 
 def leaf_inv_mean(g, g2, eps) -> torch.Tensor:
@@ -98,10 +118,7 @@ def leaf_inv_mean(g, g2, eps) -> torch.Tensor:
     gf, g2f = g.reshape(-1), g2.reshape(-1)
     n_sm, stream = stream_args(g)
     partials = torch.empty(INV_MEAN_BLOCKS_PER_SM * n_sm, dtype=torch.float64, device=g.device)
-    counter = _counters.get((g.device.index, stream))
-    if counter is None:  # zeroed once; every launch leaves it at 0
-        counter = _counters[(g.device.index, stream)] = torch.zeros(1, dtype=torch.int32,
-                                                                    device=g.device)
+    counter = zeroed_counter(g.device, stream, "inv_mean")
     inv = torch.empty((), dtype=torch.float32, device=g.device)
     lib = _build.library("vr_leaf", SIGNATURES)
     err = lib.leaf_inv_mean(gf.data_ptr(), g2f.data_ptr(), gf.numel(),

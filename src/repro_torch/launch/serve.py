@@ -3,6 +3,13 @@
   python -m repro_torch.launch.serve                       # internlm2-1.8b, full width, on the card
   python -m repro_torch.launch.serve --arch granite-20b    # 20 B params, held in bf16
   python -m repro_torch.launch.serve --smoke --device cpu  # reduced config on the CPU
+  python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
+
+Every registered architecture runs: the MoE (mixtral-8x22b,
+llama4-maverick-400b-a17b), recurrent (recurrentgemma-9b, xlstm-1.3b) and
+cross-attention ones (whisper-small, llama-3.2-vision-11b) too.  The last
+two take their stub inputs, frame or patch embeddings (B, n, d_model) of a
+standard normal drawn from the seed (``stub_inputs``).
 
 Weights are random (normal, std 1/sqrt(fan_in), from a torch.Generator
 seeded with the config's seed), since no checkpoint ships with the repo.
@@ -36,6 +43,27 @@ def weight_dtype(cfg, device: torch.device) -> torch.dtype:
     return dtype
 
 
+def stub_shapes(model) -> dict:
+    """The per-row shapes of a model's stub inputs, the cross-attention's
+    source, as lm_batches' ``extra`` takes them: {"image": (n_image_tokens,
+    d)} for a vlm, {"frames": (n_frames, d)} for an encoder-decoder, else {}."""
+    extra = {}
+    if model.n_image_tokens:
+        extra["image"] = (model.n_image_tokens, model.d_model)
+    if model.encoder is not None:
+        extra["frames"] = (model.encoder.n_frames, model.d_model)
+    return extra
+
+
+def stub_inputs(cfg, batch: int, rng: np.random.Generator):
+    """The stub inputs of a model that takes them, f32 standard normal as
+    the reference's launcher draws them (``stub_shapes`` per row), else
+    None."""
+    shapes = stub_shapes(cfg.model)
+    return {name: rng.standard_normal((batch, *shape), dtype=np.float32)
+            for name, shape in shapes.items()} or None
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b", choices=sorted(ARCH_MODULES))
@@ -53,10 +81,11 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = init_params(cfg.model, gen, device=device, dtype=dtype)
     eng = Engine(cfg, params, cache_len=args.prompt_len + args.new_tokens + 8, device=device)
-    prompts = np.random.default_rng(cfg.seed).integers(
-        0, cfg.model.vocab_size, size=(args.batch, args.prompt_len))
+    rng = np.random.default_rng(cfg.seed)
+    prompts = rng.integers(0, cfg.model.vocab_size, size=(args.batch, args.prompt_len))
+    extra = stub_inputs(cfg, args.batch, rng)
     t0 = time.perf_counter()
-    res = eng.generate(prompts, args.new_tokens, temperature=args.temperature)
+    res = eng.generate(prompts, args.new_tokens, temperature=args.temperature, extra=extra)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

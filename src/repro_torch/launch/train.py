@@ -10,6 +10,10 @@
   torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
       --device cpu --gsnr-source data_axis --dist-backend gloo
 
+Every registered architecture trains; an encoder-decoder's batches carry
+"frames" (B, n_frames, d_model) and a vlm's "image" (B, n_image_tokens,
+d_model), standard normal stubs drawn with the tokens, as in the
+reference's launcher.
 ``--optimizer`` takes any name of ``core/vrgd.py::make_optimizer`` (default:
 the config's).  ``--stats-method vmap`` takes the k microbatches of a VR
 step through one vmapped forward and backward (core/accumulate.py).
@@ -35,6 +39,7 @@ import json
 from repro_torch.configs import ARCH_MODULES, get_config, get_smoke
 from repro_torch.data import lm_batches
 from repro_torch.launch.mesh import DIST_BACKENDS, init_data_mesh
+from repro_torch.launch.serve import stub_shapes
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train import train_loop
 
@@ -90,7 +95,8 @@ def main(argv=None) -> None:
     cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, **kw))
 
     m = cfg.model
-    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len)
+    stream = lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len,
+                        extra=stub_shapes(m) or None)
     rank0 = mesh is None or mesh.rank == 0
     if rank0:
         o = cfg.optimizer

@@ -1,7 +1,8 @@
-"""Self-attention layer: GQA/MQA, causal, sliding-window, paged KV cache.
+"""Attention layer: GQA/MQA, causal, sliding-window, paged KV cache, and
+cross-attention to an encoder's or an image's memory.
 
-Port of ``repro/models/attention.py`` (self-attention only; cross-attention
-comes with a later slice).  Three execution paths, one masking contract:
+Port of ``repro/models/attention.py``.  Three execution paths, one masking
+contract:
 
   * naive      — ``_sdpa``: materialize the (Sq, Skv) scores;
   * chunked    — ``_chunked_sdpa``: online softmax over q and kv chunks, for
@@ -23,6 +24,14 @@ call's valid tokens) mod cache_len, and every slot stores its position
 reference, which returns new arrays, the port writes the cache IN PLACE:
 the returned dict holds the same tensors, and a cache passed to a decode
 step is consumed by it (the reference's engines donate it the same way).
+
+Cross-attention (``memory`` given) projects the memory to k, v at train
+and prefill time (prefill keeps them as the cross cache {"k", "v",
+"kpos"}, which decode reads); it has no causal mask, window or segments.
+Train and prefill run the fused kernels with Sq != Skv and explicit
+all-zero segments on both sides, so only position validity masks; cross
+decode runs the plain ``_sdpa`` over the cross cache, as the reference
+runs its jnp path there.
 """
 from __future__ import annotations
 
@@ -166,6 +175,8 @@ def attention(
     rope_theta: float = 0.0,
     causal: bool = True,
     window: int = 0,
+    memory: Optional[torch.Tensor] = None,
+    mem_pos: Optional[torch.Tensor] = None,
     cache: Optional[Dict] = None,
     mode: str = "train",
     attn_chunk: int = 1024,
@@ -175,8 +186,10 @@ def attention(
     q_seg: Optional[torch.Tensor] = None,
     seg_base: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention.
+    """Self- or cross-attention.
 
+    memory: (B, M, d) for cross-attention (causal and window are ignored);
+    mem_pos: (B, M) its positions (None: arange(M)).
     mode: "train" (no cache), "prefill" (builds a fresh cache, or appends
     into ``cache`` when given; attends within the fresh sequence), "decode"
     (x is (B, L, d): L lanes decode in lock-step against the cache).
@@ -191,6 +204,10 @@ def attention(
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
     dtype = x.dtype
+    if memory is not None:
+        return _cross_attention(p, x, memory, mem_pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                                head_dim=head_dim, q_pos=q_pos, cache=cache, mode=mode,
+                                attn_chunk=attn_chunk, plan=plan)
 
     if q_seg is not None:
         seg_q = q_seg.to(torch.int32)
@@ -253,3 +270,34 @@ def attention(
         out = _sdpa(qh, k, v, _mask(q_pos, k_pos, causal, window, seg_q, seg_k))
     out = out.reshape(b, s, n_heads * head_dim)
     return out @ p["wo"].to(dtype), new_cache
+
+
+def _cross_attention(p: Dict, x, memory, mem_pos, *, n_heads, n_kv_heads, head_dim, q_pos,
+                     cache, mode, attn_chunk, plan: Backend):
+    b, s, _ = x.shape
+    g = n_heads // n_kv_heads
+    dtype = x.dtype
+    q = (x @ p["wq"].to(dtype)).reshape(b, s, n_kv_heads, g, head_dim)
+    if mode == "decode" and cache is not None:
+        k, v, k_pos = cache["k"], cache["v"], cache["kpos"]
+        new_cache = cache
+    else:
+        src = memory.to(dtype)
+        m = src.shape[1]
+        k = (src @ p["wk"].to(dtype)).reshape(b, m, n_kv_heads, head_dim)
+        v = (src @ p["wv"].to(dtype)).reshape(b, m, n_kv_heads, head_dim)
+        if mem_pos is None:
+            k_pos = torch.arange(m, dtype=torch.int32, device=x.device)[None, :].expand(b, m)
+        else:
+            k_pos = mem_pos.to(torch.int32)
+        new_cache = {"k": k, "v": v, "kpos": k_pos} if mode == "prefill" else None
+    q_pos = q_pos.to(torch.int32)
+    if plan.fused("attention", x.device) and mode in ("train", "prefill"):
+        out = kops.flash_attention(q, k, v, q_pos, k_pos, q_seg=torch.zeros_like(q_pos),
+                                   k_seg=torch.zeros_like(k_pos), causal=False, window=0,
+                                   train=mode == "train")
+    elif attn_chunk and s * k.shape[1] > attn_chunk * attn_chunk * 4:
+        out = _chunked_sdpa(q, k, v, q_pos, k_pos, False, 0, attn_chunk, attn_chunk)
+    else:
+        out = _sdpa(q, k, v, _mask(q_pos, k_pos, False, 0))
+    return out.reshape(b, s, n_heads * head_dim) @ p["wo"].to(dtype), new_cache

@@ -2,7 +2,8 @@
 
 Port of ``repro/models/common.py``.  Parameters are nested dicts of tensors
 with the reference's leaf names (wq wk wv wo, wi wg wd, embed head, scale
-bias) and its ``(in, out)`` weight layout, so ``x @ W`` needs no transpose.
+bias; the MoE, RG-LRU and xLSTM leaves in their modules) and its
+``(in, out)`` weight layout, so ``x @ W`` needs no transpose.
 """
 from __future__ import annotations
 
@@ -37,6 +38,15 @@ def apply_norm(p: Dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return out.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Head-wise group norm of the xLSTM cells: x (..., H, D) normalized over
+    D in f32, no affine, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:

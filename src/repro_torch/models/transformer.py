@@ -1,20 +1,29 @@
-"""Model assembly for decoder LMs of attention blocks (attn / swa / local).
+"""Model assembly: decoder LMs, encoder-decoder (whisper), VLM cross-attention,
+hybrid recurrent and xLSTM stacks, all driven by ``ModelConfig.block_pattern``.
 
 Port of ``repro/models/transformer.py``.  The reference scans stacked layer
 groups with ``lax.scan``; here ``forward`` is a Python loop over the
 layers.  The parameter tree mirrors the reference's unstacked form:
 
   {"embed": {"embed"}, "groups": [{"pos0": block, ...}, ...],
-   "tail": [block, ...], "final_norm": {"scale"}, "head"}
+   "tail": [block, ...], "final_norm": {"scale"}, "head",
+   "encoder": {"layers": [block, ...], "final_norm"} (whisper),
+   "img_proj" (vlm)}
 
-where a block is {"ln1", "attn": {wq wk wv wo}, "ln2", "mlp": {wi [wg] wd}}.
-Caches mirror it too: {"groups": [{"pos0": {"self": paged cache}}], "tail"}.
+where a block is {"ln1", "attn": {wq wk wv wo}, ["lnx", "xattn"], "ln2",
+"mlp": {wi [wg] wd} | "moe": {...}} for attn/swa/local/xattn, {"ln1",
+"rec", "ln2", "mlp" | "moe"} for rec, {"ln1", "mlstm"} and {"ln1",
+"slstm"}.  Caches mirror it: {"groups": [{"pos0": block cache}], "tail",
+"memory"}, a block cache being {"self": paged cache[, "cross": {k, v,
+kpos}]} for the attention kinds, the RG-LRU's {"h", "conv"} and the
+xLSTM cells' {"conv", "state"}.
 
 Public API:
   init_params(cfg, gen, device)                     -> params tree
   forward(cfg, pcfg, params, tokens, ...)           -> (logits, aux, cache|None)
   prefill(cfg, pcfg, params, tokens, cache_len=...) -> (logits, cache)
   decode_step(cfg, pcfg, params, cache, token, positions) -> (logits, cache)
+  encode(cfg, pcfg, params, frames)                 -> encoder memory (whisper)
   cache_shapes(cfg, pcfg, batch, prompt_len, cache_len)   -> meta-tensor tree
   Transformer(cfg, params)                          -> nn.Module holding them
 """
@@ -25,9 +34,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN_KINDS, ModelConfig, ParallelismConfig
+from repro_torch.configs.base import BLOCK_KINDS, ModelConfig, ParallelismConfig
 from repro_torch.core.layout import _skeleton, _unflatten, tree_map, tree_paths
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xl_mod
 from repro_torch.models.common import (
     apply_head,
     apply_norm,
@@ -35,56 +47,142 @@ from repro_torch.models.common import (
     embedding_init,
     head_init,
     norm_init,
+    normal_init,
 )
 from repro_torch.models.mlp import mlp_hidden, mlp_init
 
 # Leaves the reference casts to the compute dtype at every use
 # (``x @ p["wq"].astype(dtype)``, ``p["embed"].astype(dtype)[tokens]``).
-COMPUTE_CAST_LEAVES = ("wq", "wk", "wv", "wo", "wi", "wg", "wd", "embed")
+# Not a_log, xl_if_b, sl_b and sl_r, which it adds or uses in f32.
+COMPUTE_CAST_LEAVES = (
+    "wq", "wk", "wv", "wo", "wi", "wg", "wd", "embed",
+    "router", "expert_wi", "expert_wg", "expert_wd",
+    "w_y", "w_gatein", "w_rg_a", "w_rg_x", "w_out", "conv_w",
+    "xl_up", "xl_conv", "xl_q", "xl_k", "xl_v", "xl_if", "xl_down",
+    "sl_conv", "sl_w", "sl_up", "sl_upg", "sl_down", "img_proj",
+)
+ATTN_FAMILY = ("attn", "swa", "local", "xattn")
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_util")
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported; the port runs {ATTN_KINDS}"
-        )
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; known: {BLOCK_KINDS}")
+
+
+def _ffn_init(gen, cfg: ModelConfig, device) -> Tuple[str, Dict]:
+    if cfg.moe is not None:
+        return "moe", moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.moe, device)
+    return "mlp", mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device)
 
 
 def _block_init(gen, cfg: ModelConfig, kind: str, device) -> Dict:
     _check_kind(kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
-        "ln1": norm_init(d, cfg.norm, device),
-        "attn": attn_mod.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device),
-        "ln2": norm_init(d, cfg.norm, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, device),
-    }
+    p: Dict[str, Any] = {"ln1": norm_init(d, cfg.norm, device)}
+    if kind in ATTN_FAMILY:
+        p["attn"] = attn_mod.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device)
+        if kind == "xattn":
+            p["lnx"] = norm_init(d, cfg.norm, device)
+            p["xattn"] = attn_mod.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device)
+    elif kind == "rec":
+        p["rec"] = rec_mod.rglru_init(gen, d, device)
+    elif kind == "mlstm":
+        p["mlstm"] = xl_mod.mlstm_init(gen, d, cfg.n_heads, cfg.qk_dim_factor, device)
+        return p
+    else:
+        p["slstm"] = xl_mod.slstm_init(gen, d, cfg.n_heads, device)
+        return p
+    p["ln2"] = norm_init(d, cfg.norm, device)
+    name, ffn = _ffn_init(gen, cfg, device)
+    p[name] = ffn
+    return p
+
+
+def last_product(cfg: ModelConfig, kind: str) -> Optional[Tuple[str, str]]:
+    """The path in a block of the weight whose product ends it (the
+    block's output is ``x_res + hidden @ W``), or None when its last step
+    is no single product (a mixture of experts)."""
+    if kind == "mlstm":
+        return ("mlstm", "xl_down")
+    if kind == "slstm":
+        return ("slstm", "sl_down")
+    return None if cfg.moe is not None else ("mlp", "wd")
+
+
+def _ffn(cfg: ModelConfig, p: Dict, x):
+    """(x_res, hidden, aux) of the block's feed-forward half."""
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    if "moe" in p:
+        out, aux = moe_mod.apply_moe(p["moe"], h2, cfg.act, cfg.moe)
+        return x + out, None, aux
+    return x, mlp_hidden(p["mlp"], h2, cfg.act), None
 
 
 def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
-                q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base):
-    """(x_res, h, cache) of one block, whose output is ``x_res + h @ wd``:
-    x_res is the residual stream before the MLP's add, h the MLP's hidden
-    activation.  Reads no ``wd``."""
-    window = cfg.sliding_window if kind in ("swa", "local") else 0
-    eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
+                q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base,
+                memory=None, causal=None):
+    """(x_res, hidden, cache, aux) of one block.  Its output is ``x_res +
+    hidden @ W`` for W at ``last_product`` (read nowhere here), or x_res
+    when hidden is None; aux holds the MoE readings, or is None."""
+    causal = cfg.causal if causal is None else causal
     h = apply_norm(p["ln1"], x, cfg.norm)
-    out, c_self = attn_mod.attention(
-        p["attn"], h,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-        q_pos=q_pos, rope_theta=cfg.rope_theta, causal=cfg.causal, window=window,
-        cache=None if cache is None else cache["self"], mode=mode,
-        attn_chunk=pcfg.attn_chunk, cache_len=eff_cache_len, backend=pcfg.backend,
-        implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base,
-    )
-    x = x + out
-    h = mlp_hidden(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
-    return x, h, (None if mode == "train" else {"self": c_self})
+    if kind in ATTN_FAMILY:
+        window = cfg.sliding_window if kind in ("swa", "local") else 0
+        eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
+        common = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.resolved_head_dim, q_pos=q_pos, mode=mode,
+                      attn_chunk=pcfg.attn_chunk, backend=pcfg.backend)
+        out, c_self = attn_mod.attention(
+            p["attn"], h, rope_theta=cfg.rope_theta, causal=causal, window=window,
+            cache=None if cache is None else cache["self"], cache_len=eff_cache_len,
+            implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base, **common,
+        )
+        x = x + out
+        new_cache = None if mode == "train" else {"self": c_self}
+        if kind == "xattn":
+            hx = apply_norm(p["lnx"], x, cfg.norm)
+            out, c_cross = attn_mod.attention(
+                p["xattn"], hx, memory=memory,
+                cache=None if cache is None else cache["cross"], **common)
+            x = x + out
+            if new_cache is not None:
+                new_cache["cross"] = c_cross
+        x, hidden, aux = _ffn(cfg, p, x)
+        return x, hidden, new_cache, aux
+    if kind == "rec":
+        out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode)
+        x, hidden, aux = _ffn(cfg, p, x + out)
+        return x, hidden, new_cache, aux
+    if kind == "mlstm":
+        hidden, new_cache = xl_mod.apply_mlstm(p["mlstm"], h, cfg.n_heads, cache=cache, mode=mode)
+    else:
+        hidden, new_cache = xl_mod.apply_slstm(p["slstm"], h, cfg.n_heads, cache=cache, mode=mode)
+    return x, hidden, new_cache, None
+
+
+def _leaf(p: Dict, path):
+    for key in path:
+        p = p[key]
+    return p
 
 
 def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, **kw):
-    x, h, c = _block_body(cfg, pcfg, kind, p, x, **kw)
-    return x + h @ p["mlp"]["wd"].to(x.dtype), c
+    """(x, cache, aux) of one block."""
+    x, hidden, c, aux = _block_body(cfg, pcfg, kind, p, x, **kw)
+    if hidden is not None:
+        x = x + hidden @ _leaf(p, last_product(cfg, kind)).to(x.dtype)
+    return x, c, aux
+
+
+def _aux_zero(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
+def _aux_add(total: Dict, aux: Optional[Dict]) -> Dict:
+    if aux is None:
+        return total
+    return {k: total[k] + aux[k] for k in total}
 
 
 class _RematGroup(torch.autograd.Function):
@@ -95,8 +193,9 @@ class _RematGroup(torch.autograd.Function):
 
     ``fn(x, *leaves, *consts) -> (x_res, h)`` is the group's body up to its
     last projection: the group's output is ``x_res + h @ wd`` (the last
-    block's MLP down-projection and residual add).  The leaves (all but
-    ``wd``) are flat tensor arguments, and so are the tensors it reads
+    block's closing product and residual add: the MLP's ``wd``, the
+    mLSTM's ``xl_down`` or the sLSTM's ``sl_down``, ``last_product``).  The
+    leaves (all but ``wd``) are flat tensor arguments, and so are the tensors it reads
     besides (positions, segments), since a tensor made under a transform
     may not be captured.  Forward runs the group and keeps only its
     inputs; backward recomputes the body alone under ``torch.func.vjp``
@@ -133,38 +232,79 @@ class _RematGroup(torch.autograd.Function):
         return (None, None, dx, dwd, *dleaves, *(None,) * ctx.n_consts)
 
 
-def remat(group_body, x, gp: Dict, wd_path: Tuple[str, ...], *consts):
-    """``x_res + h @ gp[wd_path]`` for ``(x_res, h) = group_body(x, gp,
-    *consts)``, with the body's activations recomputed in the backward;
-    ``consts`` are tensors (or None) that take no gradient, and the body
-    finds None at ``wd_path``.  One form for every stats method
-    (``_RematGroup``): the body's forward runs twice, the last product
-    once, the backward once."""
+class _RematWhole(torch.autograd.Function):
+    """A layer group that ends in no single product (its last block is a
+    mixture of experts), recomputed whole in the backward, in the form of
+    ``_RematGroup``.  ``fn(x, *leaves, *consts) -> (y, aux)``: the group's
+    output and its (3,) MoE readings, both differentiable (the load-balance
+    and z losses enter the loss).  Backward reruns the body under
+    ``torch.func.vjp`` and pulls ``(dy, daux)`` back to x and the leaves."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, n_consts, x, *args):
+        return fn(x, *args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn, ctx.n_consts = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, daux):
+        x, *rest = ctx.saved_tensors
+        n_var = len(rest) - ctx.n_consts
+        consts = rest[n_var:]
+        _, pullback = torch.func.vjp(lambda *v: ctx.fn(*v, *consts), x, *rest[:n_var])
+        dx, *dleaves = pullback((dy, daux))
+        return (None, None, dx, *dleaves, *(None,) * ctx.n_consts)
+
+
+def remat(group_body, x, gp: Dict, wd_path: Optional[Tuple[str, ...]], *consts, inputs=()):
+    """The group's output with the body's activations recomputed in the
+    backward.  ``group_body(x, gp, *inputs, *consts)`` gives ``(x_res, h)``
+    and the output is ``x_res + h @ gp[wd_path]`` (the body finds None at
+    ``wd_path``; ``_RematGroup``: the body's forward runs twice, the last
+    product once); with ``wd_path`` None it gives ``(y, aux)`` and both are
+    returned (``_RematWhole``: the body's forward runs twice).  ``inputs``
+    are tensors (or None) that take a gradient besides x (an encoder's
+    memory), ``consts`` tensors (or None) that take none.  One form for
+    every stats method."""
     skel = _skeleton(gp)
-    wd_key = "/".join(wd_path)
+    wd_key = None if wd_path is None else "/".join(wd_path)
     paths = tree_paths(gp)
-    wd = next(leaf for path, leaf in paths if path == wd_key)
     leaves = [leaf for path, leaf in paths if path != wd_key]
+    given_in = [t for t in inputs if t is not None]
     given = [c for c in consts if c is not None]
+    n_leaves = len(leaves)
 
     def flat_fn(xx, *args):
-        vals, it = iter(args[:len(leaves)]), iter(args[len(leaves):])
+        vals = iter(args[:n_leaves])
+        ins = iter(args[n_leaves:n_leaves + len(given_in)])
+        it = iter(args[n_leaves + len(given_in):])
         tree = [None if path == wd_key else next(vals) for path, _ in paths]
         return group_body(xx, _unflatten(skel, tree),
+                          *(None if t is None else next(ins) for t in inputs),
                           *(None if c is None else next(it) for c in consts))
 
-    return _RematGroup.apply(flat_fn, len(given), x, wd, *leaves, *given)
+    if wd_key is None:
+        return _RematWhole.apply(flat_fn, len(given), x, *leaves, *given_in, *given)
+    wd = next(leaf for path, leaf in paths if path == wd_key)
+    return _RematGroup.apply(flat_fn, len(given), x, wd, *leaves, *given_in, *given)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cpu",
                 dtype: torch.dtype = torch.float32) -> Dict:
     """Seeded random params with the reference's init distribution (normal,
-    std 1/sqrt(fan_in); norm scales 1), drawn in f32 from ``gen``.  With
-    ``dtype`` bf16 each block's leaves (and the embedding and head) are
-    rounded as soon as they are drawn, so the f32 draws of one block at a
-    time are all that is held besides: granite-20b's 20 B params take 40.6
-    GB so, against 81 GB in f32.  The draws are the same for every dtype, so
-    a bf16 tree holds the f32 tree's values rounded."""
+    std 1/sqrt(fan_in); norm scales 1; the RG-LRU's and xLSTM's fixed gate
+    inits), drawn in f32 from ``gen``.  With ``dtype`` bf16 each block's
+    leaves (and the embedding and head) are rounded as soon as they are
+    drawn, so the f32 draws of one block at a time are all that is held
+    besides: granite-20b's 20 B params take 40.6 GB so, against 81 GB in
+    f32.  The draws are the same for every dtype, so a bf16 tree holds the
+    f32 tree's values rounded."""
     for kind in cfg.pattern_layers():
         _check_kind(kind)
 
@@ -182,6 +322,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cpu",
     params["final_norm"] = cast(norm_init(cfg.d_model, cfg.norm, device))
     if not cfg.tie_embeddings:
         params.update(cast(head_init(gen, cfg.d_model, cfg.vocab_size, device)))
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [cast(_block_init(gen, cfg, "attn", device))
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": cast(norm_init(cfg.d_model, cfg.norm, device)),
+        }
+    if cfg.n_image_tokens:
+        params["img_proj"] = normal_init(gen, (cfg.d_model, cfg.d_model), device=device).to(dtype)
     return params
 
 
@@ -194,12 +342,41 @@ def _layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]):
         yield kind, params["tail"][ti], None if cache is None else cache["tail"][ti]
 
 
+def encode(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, frames: torch.Tensor):
+    """The encoder tower (whisper) over the stub frame embeddings (B, F, d):
+    non-causal attn blocks on the implicit layout, then the final norm."""
+    x = frames.to(getattr(torch, pcfg.compute_dtype))
+    b, f, _ = x.shape
+    pos = torch.arange(f, dtype=torch.int32, device=x.device)[None, :].expand(b, f)
+    for lp in params["encoder"]["layers"]:
+        x, _, _ = _block_apply(cfg, pcfg, "attn", lp, x, q_pos=pos, cache=None, mode="train",
+                               cache_len=0, causal=False, implicit_layout=True, q_seg=None,
+                               seg_base=None)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
+
+
+def _resolve_memory(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, extra):
+    """The cross-attention memory: the encoder over ``extra["frames"]``, or
+    ``extra["image"] @ img_proj``; None for a model without either."""
+    if cfg.encoder is not None:
+        if extra is None or "frames" not in extra:
+            raise ValueError("enc-dec model needs extra={'frames': (B,F,d)}")
+        return encode(cfg, pcfg, params, extra["frames"])
+    if cfg.n_image_tokens:
+        if extra is None or "image" not in extra:
+            raise ValueError("vlm needs extra={'image': (B,N,d)}")
+        img = extra["image"].to(getattr(torch, pcfg.compute_dtype))
+        return img @ params["img_proj"].to(img.dtype)
+    return None
+
+
 def forward(
     cfg: ModelConfig,
     pcfg: ParallelismConfig,
     params: Dict,
     tokens: torch.Tensor,
     *,
+    extra: Optional[Dict] = None,
     mode: str = "train",
     cache: Optional[Dict] = None,
     positions: Optional[torch.Tensor] = None,
@@ -211,15 +388,19 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict, Optional[Dict]]:
     """tokens (B, S) -> (logits f32, aux, cache).
 
-    positions: None (arange), (B,) offsets or (B, S) explicit; segments:
-    (B, S) explicit segment ids (None = derived from positions); seg_base:
-    (B,) offset into a cache row's segment numbering; gather_idx: (B, L)
-    per-row token indices to unembed, which overrides last_only.  A cache
-    passed with mode="prefill" is appended to.  In mode "train" with
-    autograd on and ``pcfg.remat``, each layer group runs under ``remat``
-    (recomputed in the backward), as the reference wraps its scanned group
-    in ``jax.checkpoint``; the tail is not
-    rematerialized there either.  aux is empty: no MoE block is ported."""
+    extra: {"frames": (B, F, d)} (encoder-decoder) or {"image": (B, N, d)}
+    (vlm), the cross-attention's source; a decode step reads the memory
+    from ``cache["memory"]`` instead.  positions: None (arange), (B,)
+    offsets or (B, S) explicit; segments: (B, S) explicit segment ids (None
+    = derived from positions); seg_base: (B,) offset into a cache row's
+    segment numbering; gather_idx: (B, L) per-row token indices to unembed,
+    which overrides last_only.  A cache passed with mode="prefill" is
+    appended to.  In mode "train" with autograd on and ``pcfg.remat``, each
+    layer group runs under ``remat`` (recomputed in the backward), as the
+    reference wraps its scanned group in ``jax.checkpoint``; the tail and
+    the encoder are not rematerialized there either.  aux: the MoE
+    readings {moe_lb_loss, moe_z_loss, moe_util} summed over the layers
+    and divided by max(1, n_layers) (zeros without MoE)."""
     dtype = getattr(torch, pcfg.compute_dtype)
     b, s = tokens.shape
     implicit_layout = positions is None
@@ -231,31 +412,50 @@ def forward(
     else:
         q_pos = positions.to(torch.int32)
     use_cache_in = cache is not None and mode in ("decode", "prefill")
+    if mode == "decode" and cache is not None and "memory" in cache:
+        memory = cache["memory"]
+    else:
+        memory = _resolve_memory(cfg, pcfg, params, extra)
 
     x = embed_tokens(params["embed"], tokens, dtype)
+    aux = _aux_zero(x.device)
     kw = dict(q_pos=q_pos, mode=mode, cache_len=cache_len, implicit_layout=implicit_layout,
-              q_seg=segments, seg_base=seg_base)
+              q_seg=segments, seg_base=seg_base, memory=memory)
     layer_caches = []
     if mode == "train" and pcfg.remat and torch.is_grad_enabled():
         # the counterpart of jax.checkpoint around each scanned layer group:
         # a group's activations are recomputed in the backward
         last = len(cfg.block_pattern) - 1
+        # a group with MoE blocks returns their readings too: recomputed whole
+        wd_path = None if cfg.moe is not None else last_product(cfg, cfg.block_pattern[last])
 
-        def group_body(xx, gp, q_pos, q_seg, seg_base):
-            gkw = {**kw, "q_pos": q_pos, "q_seg": q_seg, "seg_base": seg_base}
+        def group_body(xx, gp, memory, q_pos, q_seg, seg_base):
+            gkw = {**kw, "q_pos": q_pos, "q_seg": q_seg, "seg_base": seg_base, "memory": memory}
+            gaux = _aux_zero(xx.device)
             for i, kind in enumerate(cfg.block_pattern[:last]):
-                xx, _ = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None, **gkw)
-            xx, h, _ = _block_body(cfg, pcfg, cfg.block_pattern[last], gp[f"pos{last}"], xx,
-                                   cache=None, **gkw)
-            return xx, h
+                xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, cache=None, **gkw)
+                gaux = _aux_add(gaux, a)
+            xx, h, _, a = _block_body(cfg, pcfg, cfg.block_pattern[last], gp[f"pos{last}"], xx,
+                                      cache=None, **gkw)
+            if wd_path is not None:
+                return xx, h
+            return xx, torch.stack([_aux_add(gaux, a)[k] for k in AUX_KEYS])
 
-        for gp in params["groups"]:
-            x = remat(group_body, x, gp, (f"pos{last}", "mlp", "wd"), q_pos, segments, seg_base)
+        for gi, gp in enumerate(params["groups"]):
+            path = None if wd_path is None else (f"pos{last}", *wd_path)
+            out = remat(group_body, x, gp, path, q_pos, segments, seg_base, inputs=(memory,))
+            if wd_path is None:
+                x, gaux = out
+                aux = {k: aux[k] + gaux[i] for i, k in enumerate(AUX_KEYS)}
+            else:
+                x = out
         for kind, p in zip(cfg.tail_kinds(), params["tail"]):
-            x, _ = _block_apply(cfg, pcfg, kind, p, x, cache=None, **kw)
+            x, _, a = _block_apply(cfg, pcfg, kind, p, x, cache=None, **kw)
+            aux = _aux_add(aux, a)
     else:
         for kind, p, blk_cache in _layers(cfg, params, cache if use_cache_in else None):
-            x, nc = _block_apply(cfg, pcfg, kind, p, x, cache=blk_cache, **kw)
+            x, nc, a = _block_apply(cfg, pcfg, kind, p, x, cache=blk_cache, **kw)
+            aux = _aux_add(aux, a)
             layer_caches.append(nc)
 
     if gather_idx is not None:
@@ -269,6 +469,8 @@ def forward(
     else:
         logits = apply_head(params, x, cfg.logit_softcap)
 
+    n_layers = max(1, cfg.n_layers)
+    aux = {k: v / n_layers for k, v in aux.items()}
     out_cache = None
     if mode in ("prefill", "decode"):
         n_pat = len(cfg.block_pattern)
@@ -280,18 +482,20 @@ def forward(
             ],
             "tail": layer_caches[n_grouped:],
         }
-    return logits, {}, out_cache
+        if memory is not None:
+            out_cache["memory"] = memory
+    return logits, aux, out_cache
 
 
-def prefill(cfg, pcfg, params, tokens, *, cache_len: int, cache=None, positions=None,
-            segments=None, seg_base=None, gather_idx=None):
+def prefill(cfg, pcfg, params, tokens, *, extra=None, cache_len: int, cache=None,
+            positions=None, segments=None, seg_base=None, gather_idx=None):
     """(logits, cache): logits (B,1,V) at the last position, or (B,L,V) at
     gather_idx (B, L).  A given ``cache`` is appended to (continuous
     batching) instead of building a fresh one."""
     logits, _aux, cache = forward(
-        cfg, pcfg, params, tokens, mode="prefill", cache_len=cache_len, cache=cache,
-        positions=positions, segments=segments, seg_base=seg_base, last_only=True,
-        gather_idx=gather_idx,
+        cfg, pcfg, params, tokens, extra=extra, mode="prefill", cache_len=cache_len,
+        cache=cache, positions=positions, segments=segments, seg_base=seg_base,
+        last_only=True, gather_idx=gather_idx,
     )
     return logits, cache
 
@@ -300,7 +504,8 @@ def decode_step(cfg, pcfg, params, cache, token, positions, segments=None):
     """token: (B,) or (B, L) (L lock-step lanes); positions: (B,) or (B, L)
     absolute position of each token, -1 for idle lanes; segments: optional
     (B,)/(B, L) row-global segment ids (None = segment 0, right only for
-    single-document rows).  Consumes ``cache`` (written in place)."""
+    single-document rows).  Consumes ``cache`` (its attention caches are
+    written in place)."""
     if token.ndim == 1:
         token = token[:, None]
     pos = positions if positions.ndim == 2 else positions[:, None]
@@ -312,25 +517,49 @@ def decode_step(cfg, pcfg, params, cache, token, positions, segments=None):
     return logits, cache
 
 
+def memory_len(cfg: ModelConfig) -> int:
+    """The cross-attention memory's length: the encoder's frames or the
+    image tokens (0 without either)."""
+    return cfg.encoder.n_frames if cfg.encoder is not None else cfg.n_image_tokens
+
+
 def cache_shapes(cfg: ModelConfig, pcfg: ParallelismConfig, batch: int, prompt_len: int,
                  cache_len: int):
     """The decode-input cache tree as meta tensors (shapes and dtypes, no
     storage); prompt_len does not change them (kept for the reference's
-    signature)."""
+    signature).  A cross-attention model's memory has ``memory_len(cfg)``
+    rows."""
     del prompt_len
     dtype = getattr(torch, pcfg.compute_dtype)
-    hd = cfg.resolved_head_dim
+    d, hd, kvh = cfg.d_model, cfg.resolved_head_dim, cfg.n_kv_heads
+    mem = memory_len(cfg)
 
     def one(kind):
+        if kind == "rec":
+            return rec_mod.rglru_cache(batch, d, dtype, "meta")
+        if kind == "mlstm":
+            return xl_mod.mlstm_cache(batch, d, cfg.n_heads, cfg.qk_dim_factor, dtype, "meta")
+        if kind == "slstm":
+            return xl_mod.slstm_cache(batch, d, dtype, "meta")
         window = cfg.sliding_window if kind in ("swa", "local") else 0
         c = min(cache_len, window) if (window and cache_len) else cache_len
-        return {"self": attn_mod.empty_cache(batch, c, cfg.n_kv_heads, hd, dtype, "meta")}
+        out = {"self": attn_mod.empty_cache(batch, c, kvh, hd, dtype, "meta")}
+        if kind == "xattn":
+            out["cross"] = {
+                "k": torch.empty((batch, mem, kvh, hd), dtype=dtype, device="meta"),
+                "v": torch.empty((batch, mem, kvh, hd), dtype=dtype, device="meta"),
+                "kpos": torch.empty((batch, mem), dtype=torch.int32, device="meta"),
+            }
+        return out
 
-    return {
+    out = {
         "groups": [{f"pos{i}": one(kind) for i, kind in enumerate(cfg.block_pattern)}
                    for _ in range(cfg.n_groups())],
         "tail": [one(kind) for kind in cfg.tail_kinds()],
     }
+    if mem:
+        out["memory"] = torch.empty((batch, mem, d), dtype=dtype, device="meta")
+    return out
 
 
 def _fill(m: nn.Module, tree: Dict) -> nn.Module:

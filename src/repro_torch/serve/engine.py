@@ -24,8 +24,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_KINDS, Config
+from repro_torch.configs.base import Config
 from repro_torch.models import Transformer, decode_step, prefill
+
+# The kinds whose state is a paged, segment-aware cache that packed rows can
+# share; recurrent, xLSTM and cross-attention state is per row, so
+# ContinuousEngine refuses them, as the reference's does.
+_PAGEABLE_KINDS = ("attn", "swa", "local")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,19 +99,25 @@ class Engine:
         max_new_tokens: int,
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        extra: Optional[Dict] = None,
         prompt_lens: Optional[np.ndarray] = None,
     ) -> GenerationResult:
-        """Greedy (temperature 0) or sampled generation.  prompt_lens: (B,)
-        true lengths of right-padded ragged prompts — pads get position -1,
-        never enter the cache, and each row decodes at its own position.
-        One decode runs after every emitted token, the last one included,
-        as in the reference loop."""
+        """Greedy (temperature 0) or sampled generation.  extra: the
+        cross-attention's source, {"frames": (B,F,d)} or {"image": (B,N,d)}
+        (arrays or tensors), for the models that take one; the decode steps
+        read its projection from the cache.  prompt_lens: (B,) true lengths
+        of right-padded ragged prompts — pads get position -1, never enter
+        the cache, and each row decodes at its own position.  One decode
+        runs after every emitted token, the last one included, as in the
+        reference loop."""
         prompts = np.asarray(prompts)
         b, s = prompts.shape
         dev = self.device
         toks_in = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        if extra is not None:
+            extra = {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
         if prompt_lens is None:
-            logits, cache = self._prefill(toks_in)
+            logits, cache = self._prefill(toks_in, extra=extra)
             pos = torch.full((b,), s, dtype=torch.int32, device=dev)
         else:
             lens = np.asarray(prompt_lens, np.int32)
@@ -117,7 +128,7 @@ class Engine:
             gidx = (lens - 1)[:, None].astype(np.int32)
             logits, cache = self._prefill(
                 toks_in, positions=torch.as_tensor(positions, device=dev),
-                gather_idx=torch.as_tensor(gidx, device=dev),
+                gather_idx=torch.as_tensor(gidx, device=dev), extra=extra,
             )
             pos = torch.as_tensor(lens, device=dev)
         if generator is None and temperature > 0:
@@ -187,10 +198,10 @@ class ContinuousEngine:
                  cache_len: int = 0, chunk: int = 0, eos_id: int = -1, seed: int = 0,
                  device=None):
         bad = [k for k in tuple(cfg.model.block_pattern) + tuple(cfg.model.tail_kinds())
-               if k not in ATTN_KINDS]
+               if k not in _PAGEABLE_KINDS]
         if bad:
             raise NotImplementedError(
-                f"ContinuousEngine needs a pure-attention pattern {ATTN_KINDS}, "
+                f"ContinuousEngine needs a pure-attention pattern {_PAGEABLE_KINDS}, "
                 f"got {bad!r} — recurrent/xLSTM state is not segment-pageable"
             )
         self.cfg = cfg

@@ -5,7 +5,8 @@ row, pads at position -1) support two normalizations, chosen by
 ``Config.loss_norm``: "token" (mean NLL over live tokens) and "document"
 (every packed document contributes its own token-mean NLL with equal
 weight).  Packed batches also report ``pack_efficiency`` (live tokens /
-slots).  The port's model has no MoE block, so there is no auxiliary loss.
+slots).  The loss adds the MoE router's load-balance and z losses (zero
+without MoE) to the cross-entropy, as the reference's does.
 """
 from __future__ import annotations
 
@@ -88,8 +89,10 @@ def make_loss_fn(cfg: Config):
     batch: {"tokens": (B,S) int, "targets": (B,S) int, optional "mask",
     optional "positions" (B,S) int32 (packed/offset layouts; pads carry
     position -1 and are masked out of the loss), optional "segments",
-    optional ``LOSS_DENOM``: the mean's denominator in place of the batch's
-    own count}.  ``loss_fn.denominator(batch)`` is that count: under a mesh
+    optional "image" (B,N,d) / "frames" (B,F,d) (the cross-attention's
+    source), optional ``LOSS_DENOM``: the mean's denominator in place of
+    the batch's own count}.  The loss is ce + moe_lb_loss + moe_z_loss;
+    metrics {"ce", moe_lb_loss, moe_z_loss, moe_util[, pack_efficiency]}.  ``loss_fn.denominator(batch)`` is that count: under a mesh
     core/accumulate.py hands each rank its group's global count / W, so the
     ranks' losses average to the group's loss over all its rows (the
     reference's ``pjit`` mean), however the pads fall on the ranks."""
@@ -114,17 +117,19 @@ def make_loss_fn(cfg: Config):
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
         positions, mask, packed, segments = masks(batch)
-        logits, _aux, _ = forward(m, p, params, batch["tokens"], mode="train",
-                                  positions=positions)
+        extra = {name: batch[name] for name in ("image", "frames") if name in batch}
+        logits, aux, _ = forward(m, p, params, batch["tokens"], extra=extra or None,
+                                 mode="train", positions=positions)
         denom = batch.get(LOSS_DENOM)
         if segments is not None:
             ce = document_cross_entropy(logits, batch["targets"], segments, mask, denom)
         else:
             ce = cross_entropy(logits, batch["targets"], mask, denom)
-        metrics = {"ce": ce.detach()}
+        total = ce + aux["moe_lb_loss"] + aux["moe_z_loss"]
+        metrics = {"ce": ce.detach(), **{k: v.detach() for k, v in aux.items()}}
         if packed:
             metrics["pack_efficiency"] = torch.mean((positions >= 0).float())
-        return ce, metrics
+        return total, metrics
 
     def denominator(batch) -> torch.Tensor:
         """The loss's denominator over ``batch``: its live tokens, or its

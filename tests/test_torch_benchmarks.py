@@ -330,3 +330,21 @@ def test_backend_describe_names_the_resolved_plan():
     assert Backend().describe("cpu") == {"attention": "reference", "optimizer": "reference",
                                          "stats": "reference", "device": "cpu"}
     assert Backend.all_fused().describe(torch.device("cpu"))["optimizer"] == "fused"
+
+
+@pytest.mark.parametrize("argv", [[], ["2e7ac75"], ["a1b2c3d", "csrc"]])
+def test_norm_sums_probe_takes_a_known_parent_and_its_sources(argv):
+    """``norm_sums_probe PARENT DIR``: a parent without its own table of C
+    signatures, or a missing argument, stops with the usage before any
+    build; each table names sources this tree still has."""
+    from pathlib import Path
+
+    from repro_torch.benchmarks import norm_sums_probe as probe
+
+    with pytest.raises(SystemExit) as stop:
+        probe.main(argv)
+    assert "norm_sums_probe PARENT" in str(stop.value)
+    csrc = Path(probe.__file__).parents[1] / "kernels" / "csrc"
+    assert set(probe.PARENT_SIGNATURES) == {"2e7ac75", "d548add"}
+    for libs in probe.PARENT_SIGNATURES.values():
+        assert all((csrc / f"{name}.cu").is_file() for name in libs)

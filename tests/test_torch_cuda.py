@@ -82,7 +82,8 @@ def _packed(b, s, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
                                      (torch.float32, 128), (torch.bfloat16, 32),
-                                     (torch.float32, 32)])
+                                     (torch.float32, 32), (torch.bfloat16, 256),
+                                     (torch.float32, 256)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, d):
     rng = np.random.default_rng(0)
     b, s, h, kvh = 2, 160, 4, 2
@@ -139,6 +140,57 @@ def test_flash_decode_kernels_match_plain(dev, lanes, c):
     torch.testing.assert_close(full.float(), fd.decode_combine_ref(m, l, acc, torch.bfloat16).float(),
                                **BF16)
     assert bool((full[0, -1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_flash_decode_wide_heads_match_plain(dev, lanes):
+    """K12 at head dim 256 (recurrentgemma: 16 query heads on one kv head),
+    bf16, 64-slot tiles, over a sliding window of a part-filled cache."""
+    rng = np.random.default_rng(lanes)
+    b, c, h, kvh, d, fill = 2, 300, 16, 1, 256, 210
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
+               for shape in ((b, lanes, h, d), (b, c, kvh, d), (b, c, kvh, d)))
+    k_pos = np.where(np.arange(c) < fill, np.arange(c), -1).astype(np.int32)[None].repeat(b, 0)
+    q_pos = (fill + np.arange(lanes, dtype=np.int32))[None].repeat(b, 0)
+    zeros_q, zeros_k = np.zeros_like(q_pos), np.where(k_pos >= 0, 0, -1).astype(np.int32)
+    qp, kp, qs, ks = (torch.from_numpy(a).to(dev) for a in (q_pos, k_pos, zeros_q, zeros_k))
+    got = fd.flash_decode(q, k, v, qp, kp, qs, ks, window=128)
+    want = fd.decode_attention_ref(q, k, v, qp, kp, qs, ks, window=128)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    with pytest.raises(TypeError, match="bf16"):
+        fd.flash_decode(q.float(), k.float(), v.float(), qp, kp, qs, ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cross_attention_kernels_match_plain(dev, d):
+    """K1 and K2 at a cross-attention shape: Sq 37 against Skv 150 (no
+    multiple of the 64-row tiles: the kv tail and TMA's out-of-bounds
+    fill), non-causal, explicit all-zero segments, the last 20 memory rows
+    of one batch row padding (k_pos -1): out, lse and the gradients of q, k
+    and v through the autograd Function against autograd of the plain
+    version."""
+    rng = np.random.default_rng(d)
+    b, sq, skv, h, kvh = 2, 37, 150, 8, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(dev, torch.bfloat16).requires_grad_(True)
+               for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    qp = torch.arange(sq, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    kp = torch.arange(skv, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    kp[1, -20:] = -1
+    qs, ks = torch.zeros_like(qp), torch.zeros_like(kp)
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, d), dtype=np.float32)).to(dev, torch.bfloat16)
+    out = fa.flash_attention_train(q, k, v, qp, kp, qs, ks, causal=False)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    want = fa.attention_fwd_ref(q, k, v, causal=False, q_pos=qp, k_pos=kp, q_seg=qs, k_seg=ks)[0]
+    wgrads = torch.autograd.grad(want, (q, k, v), do)
+    torch.testing.assert_close(out.float(), want.float(), **BF16)
+    for name, a, w in zip("qkv", grads, wgrads):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), atol=2 ** -7 * scale, rtol=2 ** -7,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+    assert float(grads[1][1, -20:].abs().max()) == 0.0 and float(grads[2][1, -20:].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -400,16 +452,18 @@ def test_flat_vr_scale_leaf_mean_over_many_blocks(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["K5", "K7", "K16", "K17"])
+@pytest.mark.parametrize("kernel", ["K5", "K7", "K16", "K17", "K20", "K21"])
 def test_norm_sums_over_many_blocks(dev, kernel):
     """The per-leaf sums of u^2 and w^2 (the LAMB/LARS trust ratio) of K5
     and K7 over a leaf of 16,384 blocks (2^27 elements, between two small
-    leaves), and of K16 and K17 on a row shard of the big and the last leaf
-    followed by two zero pad blocks of leaf id 0: within 1e-7 relative of an
-    f64 sum of the same u and w on the big leaf, and the same bits on a
-    repeat from the same state (the blocks' f64 partials are added in block
-    order).  K5's u is rebuilt in f64 from its m', v' and w; K7 runs at
-    gamma 1, where r = 1 and u = ga + wd w; K16 and K17 return their u."""
+    leaves), of K16 and K17 on a row shard of the big and the last leaf
+    followed by two zero pad blocks of leaf id 0, and of the per-leaf K20
+    and K21 on the big leaf alone (their grid's cap of 16 blocks an SM):
+    within 1e-7 relative of an f64 sum of the same u and w on the big leaf,
+    and the same bits on a repeat from the same state (the blocks' f64
+    partials are added in block order).  K5's u is rebuilt in f64 from its
+    m', v' and w; K7 runs at gamma 1, where r = 1 and u = ga + wd w; K16,
+    K17, K20 and K21 return their u."""
     layout = ParamLayout(("a", "big", "c"), ((3, 70), (1024, 1024, 128), (5,)))
     n, big = layout.n_rows, 1
     first, pad = layout.row_offsets[big], 128
@@ -452,6 +506,17 @@ def test_norm_sums_over_many_blocks(dev, kernel):
                                        0.9, 0.01, 0.001, 1e-12)
                 u = g[:n].double() + float(np.float32(0.01)) * w[:n].double()
             return acc[1:], u, meta["row_ids"], w[:n]
+        if kernel in ("K20", "K21"):  # one leaf: the big one's rows
+            rows = slice(first, first + (1 << 20))
+            if kernel == "K20":
+                u, *_, uu, ww = vl.vr_lamb_inner(g[rows], g[rows], g2[rows], m[rows], v[rows],
+                                                 p[rows], w[rows], bc1, bc2, 0.19, **hyper)
+            else:
+                u, uu, ww = vl.vr_lars_inner(g[rows], g[rows], g2[rows], w[rows], wd=0.01,
+                                             gamma=1.0, eps=1e-12)
+            acc = torch.zeros((2, slots), device=dev)
+            acc[0, big], acc[1, big] = uu, ww
+            return acc, u.double(), torch.full((1 << 20,), big, device=dev), w[rows]
         racc = fsp.leaf_r_partials(g[sh], g2[sh], lids, slots, gsnr_eps=1e-12)
         if kernel == "K16":
             u, *_, acc = fsp.vr_lamb_compute(g[sh], g[sh], g2[sh], m[sh], v[sh], p[sh], w[sh],

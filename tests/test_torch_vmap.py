@@ -198,10 +198,10 @@ def _remat_group(monkeypatch):
 
     def group_body(xx, gp, q_pos, q_seg, seg_base):
         for i, kind in enumerate(cfg.model.block_pattern[:last]):
-            xx, _ = _block_apply(cfg.model, pcfg, kind, gp[f"pos{i}"], xx,
-                                 **{**blk, "q_pos": q_pos}, q_seg=q_seg)
-        xx, h, _ = _block_body(cfg.model, pcfg, cfg.model.block_pattern[last],
-                               gp[f"pos{last}"], xx, **{**blk, "q_pos": q_pos}, q_seg=q_seg)
+            xx, _, _ = _block_apply(cfg.model, pcfg, kind, gp[f"pos{i}"], xx,
+                                    **{**blk, "q_pos": q_pos}, q_seg=q_seg)
+        xx, h, _, _ = _block_body(cfg.model, pcfg, cfg.model.block_pattern[last],
+                                  gp[f"pos{last}"], xx, **{**blk, "q_pos": q_pos}, q_seg=q_seg)
         return xx, h
 
     def f(gp, xx, use_remat):
