@@ -83,10 +83,10 @@ Phases, in order; any failure exits non-zero:
                 the single-card K5-K8; times beside bounds.  (b) bert-large
                 at full width, depth cut to 2 layers (CUT_LAYERS), trained by
                 ranks that share the card over gloo
-                (one process per rank): two ranks at global batch 64 (three
+                (one process per rank): two ranks at global batch 64 (two
                 VR-LAMB steps, one each of VR-Adam, VR-LARS and VR-SGD)
                 against single-card k=2 steps, and four ranks at global
-                batch 128 (three VR-LAMB steps) against single-card k=4;
+                batch 128 (two VR-LAMB steps) against single-card k=4;
                 launch counts per rank per step, params bit-identical across
                 the ranks after every step, agreement within DP_TOL, step
                 and collective walls, peak memory per rank.  At W = 2 also
@@ -97,7 +97,7 @@ Phases, in order; any failure exits non-zero:
                 (c) the other mesh paths, the same frame: two ranks at
                 global batch 64 with the microbatch source at k = 4 (each
                 microbatch's gradient reduce-scattered into the ranks'
-                rows, K3/K4 on the rows): three VR-LAMB steps, VR-Adam
+                rows, K3/K4 on the rows): two VR-LAMB steps, VR-Adam
                 fresh/stale/fresh (stale: K9 on the rows), one vmap
                 VR-LAMB step (K10 on the rows) and one LAMB step, each
                 against rank 0's single-card k = 4 run of the same method
@@ -105,6 +105,18 @@ Phases, in order; any failure exits non-zero:
                 (rank_split_loss: the gradient rounded as the mesh rounds
                 it) within DP_TOL; launches per rank per step (no K11),
                 params bit-identical, each collective's wall and bytes.
+                (d) FSDP+TP of the weights: bert-large at full width, depth
+                cut to 2 layers, on a (2, 2) GridMesh of four gloo ranks
+                sharing the card, each holding its spec blocks of every
+                leaf (sharding/rules.py): global batch 64, seq 128, VR-LAMB
+                k = 4 fresh, stale, fresh on the fused plan, against rank
+                0's one-card run split over the two data ranks' rows
+                (rank_split_loss) within DP_TOL; each rank's held param and
+                state elements beside the whole layout's, no flat buffer of
+                the whole layout on the step's path, its peak memory,
+                launches per step (K1 16, K2 8, K3 4, K4 1, K13 1, K16 1,
+                trust_apply 1; stale: K9 4, trust_apply 1), every leaf's
+                replicas equal, each collective's wall by kind and size.
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -188,7 +200,7 @@ Phases, in order; any failure exits non-zero:
                 the exact-delta run (hold_with_witness); warm step,
                 tokens/s and a profiled step's idle share; (b) xlstm-1.3b
                 at full width on two pattern groups (16 layers), the same
-                way; (c) mixtral-8x22b (8 of 56 layers, bf16),
+                way, two steps; (c) mixtral-8x22b (8 of 56 layers, bf16),
                 recurrentgemma-9b and llama-3.2-vision-11b (1,601 image
                 tokens) at published width and depth through
                 Engine.generate (batch 4, prompt 256, 16 new tokens):
@@ -2772,10 +2784,13 @@ def dp_axis_runs(world, runs):
 # (world, global batch, source, runs); a run is (label, optimizer, the mesh
 # run's OptimizerConfig overrides, the single-card run's, each step's fresh
 # flag, whether the single-card loss splits each group as the ranks do)
+# VR-LAMB steps of each 10b and 10c run: two since phase 10d came in (three
+# before), to keep the script's wall (PERF.md)
+DP_STEPS = 2
 DP_GROUPS = (
     (2, 64, "data_axis GSNR (k = 2)",
-     dp_axis_runs(2, (("vr_lamb", TRAIN_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1)))),
-    (4, 128, "data_axis GSNR (k = 4)", dp_axis_runs(4, (("vr_lamb", TRAIN_STEPS),))),
+     dp_axis_runs(2, (("vr_lamb", DP_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1)))),
+    (4, 128, "data_axis GSNR (k = 4)", dp_axis_runs(4, (("vr_lamb", DP_STEPS),))),
 )
 # Phase 10c: the microbatch source at k = 4 (each microbatch spread over the
 # ranks), stale steps, the vmap method and a baseline, against the
@@ -2783,7 +2798,7 @@ DP_GROUPS = (
 DP_PATHS_K = 4
 DP_PATH_GROUPS = (
     (2, 64, f"microbatch GSNR (k = {DP_PATHS_K}, each microbatch over the ranks)", (
-        ("vr_lamb", "vr_lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,) * TRAIN_STEPS,
+        ("vr_lamb", "vr_lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,) * DP_STEPS,
          True),
         ("vr_adam refresh 2", "vr_adam", {"k": DP_PATHS_K, "gsnr_refresh": 2},
          {"k": DP_PATHS_K, "gsnr_refresh": 2}, (True, False, True), True),
@@ -2800,13 +2815,13 @@ def phase_train_dp(records, groups, tag):
     CUT_LAYERS) on the
     card, every rank a process sharing the card over gloo (NCCL refuses two
     ranks on one card), data-axis GSNR.  Two ranks at global batch 64 (32
-    sequences per rank, phase 8's microbatch): three VR-LAMB steps, then one
+    sequences per rank, phase 8's microbatch): two VR-LAMB steps, then one
     step each of VR-Adam, VR-LARS and VR-SGD, against single-card k=2
     microbatch steps.  Four ranks at global batch 128, whose row shards pad
-    the layout (10,710 blocks at 2 layers): three VR-LAMB steps against
+    the layout (10,710 blocks at 2 layers): two VR-LAMB steps against
     single-card k=4.
     10c (``DP_PATH_GROUPS``): two ranks at global batch 64 with the
-    microbatch source at k = 4 (8 sequences per rank per microbatch): three
+    microbatch source at k = 4 (8 sequences per rank per microbatch): two
     VR-LAMB steps, VR-Adam with gsnr_refresh 2 (fresh, stale, fresh), one
     vmap VR-LAMB step and one LAMB step, against the single-card k = 4
     runs, whose loss splits each group over the ranks' rows
@@ -2851,6 +2866,272 @@ def phase_train_dp(records, groups, tag):
         print(f"  warm VR-LAMB step wall over the ranks: {np.mean(lamb):.1f} ms = "
               f"{ranks[0]['tokens'] / np.mean(lamb) * 1e3:.0f} tokens/s on one card", flush=True)
     add_path(records, "train_dp", path_counts)
+
+
+# Phase 10d: FSDP+TP of the weights on a (data, model) grid of ranks, bert-
+# large at full width (depth CUT_LAYERS), VR-LAMB k = 4 fresh / stale /
+# fresh, held against the one-card run split over the data ranks' rows
+# within DP_TOL.
+GRID_SHAPE = (2, 2)
+GRID_BATCH = 64
+GRID_FRESH = (True, False, True)
+GRID_DEADLINE_S = 300.0
+# The grid's loss, grad_norm and gsnr/* are held to DP_TOL at every step
+# (the first full-width run, H100 80GB HBM3 700 W: 1.2e-5, 3.2e-5, 8.8e-5 at
+# most).  Its first-step update and m, v, p cannot be: the model axis splits
+# each row product's sum and sums the column products' input gradients in
+# f32 across the ranks, which rounds in bf16 otherwise than one card, and
+# the GSNR ratio's leaf means amplify any rounding (PERF.md).  The same
+# first run measured the grid 1.9e-2 / 8.8e-3 / 9.4e-3 / 1.9e-2 (upd, m, v,
+# p) from the one-card run split over the data ranks' rows, where the
+# witness, that one-card run without the split (one backward over each
+# group: another rounding of the same step), is 1.0e-2 / 5.2e-3 / 5.5e-3 /
+# 1.6e-2 from it.  So the buffers are held to TRAIN_TOL, the fused-vs-
+# reference bound for bf16 rounding, whole and, for m and v, leaf by leaf: a
+# gradient counted M times on one leaf (a replicated leaf summed over the
+# model axis) moves that leaf's m by M - 1 and v by M^2 - 1, however small
+# the leaf, so the per-leaf hold catches it where the whole-buffer one
+# would not; the witness's gaps are printed beside.
+
+
+def grid_counts(n_layers, k, fresh):
+    """Launches of one rank's fused grid VR-LAMB step: K1 twice and K2 once
+    per layer per microbatch (the rank's heads), K3 per microbatch and K4
+    (stale: K9 per microbatch), K13 and K16 once on a fresh step, the trust
+    epilogue once."""
+    want = fused_counts(n_layers, k, carry="moments" if fresh else "g")
+    if fresh:
+        want.update(leaf_r_partials=1, vr_lamb_compute=1)
+    want["trust_apply"] = 1
+    return want
+
+
+def grid_rank(rank, init, out_dir):
+    """One rank of phase 10d's (2, 2) grid on card 0 (gloo).  Rank 0 first
+    runs the one-card steps; then every rank runs the grid steps (launches
+    held per step), rank 0 holds them within DP_TOL, and each rank writes
+    its counts, walls, collective walls, held elements and peak memory to
+    out_dir."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.accumulate import rank_split_loss
+    from repro_torch.core.layout import pad_mask
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import init_grid_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.loss import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = init_grid_mesh("gloo", *GRID_SHAPE, dev, init_method=init, rank=rank)
+    cfg = plan_config(cut_train_config(GRID_BATCH), "fused", k=DP_PATHS_K, gsnr_refresh=2)
+    m = cfg.model
+    label = f"grid {GRID_SHAPE} rank {rank} {mesh.coords}"
+    stream = lm_batches(m.vocab_size, GRID_BATCH, cfg.seq_len, seed=2)
+    batches = [next(stream) for _ in GRID_FRESH]
+
+    def params():
+        return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def flag_all(ok: bool) -> bool:
+        f = torch.tensor([0.0 if ok else 1.0], device=dev)
+        return float(mesh.all_reduce_(f)) == 0.0
+
+    def one_card(loss):
+        """(metrics per step, the first step's update and m, v, p on the
+        leaf elements, peak bytes) of the one-card run with ``loss``."""
+        state = init_state(cfg, params=params(), device=dev)
+        step = make_train_step(cfg, loss, log_gsnr=True, device=dev)[0]
+        hist, first = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        for i, (batch, fresh) in enumerate(zip(batches, GRID_FRESH)):
+            w0 = state.params.data.clone() if i == 0 else None
+            state, metrics = step(state, batch, fresh)
+            hist.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:  # on the leaf elements: the grid's buffers pad otherwise
+                live = pad_mask(state.params.layout, dev)
+                first = {"upd": torch.where(live, state.params.data - w0, 0.0).cpu(),
+                         **{nm: torch.where(live, flat_state(state, nm), 0.0).cpu()
+                            for nm in "mvp"}}
+                del w0, live
+        peak = torch.cuda.max_memory_allocated()
+        del state, step
+        torch.cuda.empty_cache()
+        return hist, first, peak
+
+    ref = witness = None
+    if rank == 0:  # the one-card run split over the data ranks' rows, and the witness
+        ref = one_card(rank_split_loss(make_loss_fn(cfg), GRID_SHAPE[0]))
+        witness = one_card(None)
+    flag_all(True)  # a barrier
+    state = init_state(cfg, params=params(), device=dev, mesh=mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gp = state.params
+    sh = gp.shard
+    whole = {"elements": sum(gp.layout.sizes), "rows": gp.layout.n_rows}
+    bufs = {"params": gp.data, "grad": gp.grad,
+            **{nm: state.opt_state[nm].data for nm in "mvp"}}
+    if any(tuple(b.shape) != (sh.rows, 128) for b in bufs.values()) or sh.rows >= whole["rows"]:
+        raise RuntimeError(f"{label}: a flat buffer is not the rank's local layout "
+                           f"({ {k: tuple(b.shape) for k, b in bufs.items()} }, whole rows "
+                           f"{whole['rows']})")
+    held = {"param_elements": sh.held, "rows": sh.rows,
+            "state_elements": 3 * sh.held, "state_rows": 3 * sh.rows}
+    step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh)[0]
+    mesh.timed = True
+    hist, first, walls, counts_all = [], {}, [], {}
+    for i, (batch, fresh) in enumerate(zip(batches, GRID_FRESH)):
+        w0 = gp.gather() if i == 0 else None
+        reset_counts()
+        (state, metrics), ms = host_ms(lambda: step(state, batch, fresh))
+        counts = read_counts()
+        want = grid_counts(m.n_layers, DP_PATHS_K, fresh)
+        if counts != want:
+            raise RuntimeError(f"{label} step {i}: launches {counts} != {want}")
+        for k, c in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + c
+        walls.append(ms)
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            raise RuntimeError(f"{label} step {i}: non-finite metrics {vals}")
+        hist.append(vals)
+        if i == 0:  # every rank takes part in the gathers
+            mesh.timed = False
+            upd = (gp.gather() - w0).cpu()
+            gathered = {nm: sh.gather(state.opt_state[nm].data).float().cpu() for nm in "mvp"}
+            first = {"upd": upd, **gathered} if rank == 0 else {}
+            del w0, upd, gathered
+            mesh.timed = True
+        if rank == 0:
+            gsnr = f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else " (stale)"
+            print(f"  {label} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
+                  f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e}{gsnr}; "
+                  f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+    mesh.timed = False
+    peak = torch.cuda.max_memory_allocated()
+    # every replica of a leaf block the same: each rank's gathered whole
+    # params (assembled from its own replica column) equal rank 0's
+    mine = gp.gather()
+    first_rank = mine.clone()
+    mesh.broadcast_(first_rank)
+    if not flag_all(torch.equal(first_rank, mine)):
+        raise RuntimeError(f"{label}: the replicas of a leaf block differ across the ranks")
+    del mine, first_rank
+    gaps = None
+    if rank == 0:
+        gaps = hold_grid(f"grid {GRID_SHAPE} vs one-card k{DP_PATHS_K} split", hist, first,
+                         ref, witness, gp.layout)
+    summary = {"counts": counts_all, "walls": walls, "held": held, "whole": whole,
+               "peak_bytes": peak, "one_card_peak_bytes": None if ref is None else ref[2],
+               "collectives": {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()},
+               "coords": mesh.coords, "tokens": GRID_BATCH * cfg.seq_len, "gaps": gaps}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(summary, f)
+    del state, step
+    mesh.close()
+
+
+def leaf_gaps(a, b, layout):
+    """{path: ||a - b|| / ||b||} over each leaf of two whole flat buffers
+    (host snapshots, compared on the card)."""
+    import torch
+
+    a, b = a.to("cuda"), b.to("cuda")
+    return {p: float(torch.linalg.vector_norm(x - y) /
+                     torch.linalg.vector_norm(y).clamp_min(1e-30))
+            for p, x, y in zip(layout.paths, layout.leaf_views(a.float()),
+                               layout.leaf_views(b.float()))}
+
+
+def hold_grid(label, hist, first, ref, witness, layout):
+    """Phase 10d's hold (GRID_SHAPE's note): the grid's metrics at every
+    step within DP_TOL of the one-card split run ``ref``; its first-step
+    buffers within TRAIN_TOL, whole and (m, v) leaf by leaf, each gap
+    printed beside the witness's.  Returns the gaps."""
+    out = {}
+    for i, (g, r, w) in enumerate(zip(hist, ref[0], witness[0])):
+        gg, gw = step_gaps(g, r), step_gaps(w, r)
+        out[f"step {i}"] = gg
+        print(f"  {label} step {i}: " + "; ".join(
+            f"{k} {gg[k]:.3e} (witness {gw[k]:.3e}, DP_TOL {DP_TOL[k]})" for k in gg),
+            flush=True)
+        if any(gg[k] > DP_TOL[k] for k in gg):
+            fail(f"{label} step {i}: the grid and one-card runs disagree past DP_TOL")
+    for nm in ("upd", "m", "v", "p"):
+        tol = TRAIN_TOL[{"m": "mv", "v": "mv"}.get(nm, nm)]
+        whole = rel_diff(first[nm], ref[1][nm]), rel_diff(witness[1][nm], ref[1][nm])
+        per = leaf_gaps(first[nm], ref[1][nm], layout)
+        per_w = leaf_gaps(witness[1][nm], ref[1][nm], layout)
+        worst = max(per, key=per.get)
+        out[nm] = {"whole": whole[0], "witness": whole[1], "worst_leaf": worst,
+                   "leaf": per[worst], "leaf_witness": per_w[worst],
+                   "witness_worst_leaf": max(per_w.values())}
+        print(f"  {label} after step 0: ||{nm}_grid - {nm}_one-card|| / ||{nm}_one-card|| = "
+              f"{whole[0]:.4e} (witness {whole[1]:.4e}, TRAIN_TOL {tol}); worst leaf {worst} "
+              f"{per[worst]:.4e} (witness {per_w[worst]:.4e}; the witness's worst leaf "
+              f"{max(per_w.values()):.4e})", flush=True)
+        if whole[0] > tol or (nm in "mv" and per[worst] > tol):
+            fail(f"{label}: after step 0, {nm} of the grid and one-card runs disagree past "
+                 f"TRAIN_TOL")
+    return out
+
+
+def phase_train_grid(records):
+    """10d: FSDP+TP of bert-large's weights on a (2, 2) grid (module
+    docstring)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import local_init_method, run_ranks
+
+    cfg = cut_train_config(GRID_BATCH)
+    d, mm = GRID_SHAPE
+    print(f"[train grid 10d] {cfg.model.name} at full width, depth cut to {cfg.model.n_layers} "
+          f"layers, a ({d}, {mm}) (data, model) grid of {d * mm} gloo ranks on one card, "
+          f"global batch {GRID_BATCH}, seq {cfg.seq_len}, fused plan, VR-LAMB k = {DP_PATHS_K} "
+          f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)}", flush=True)
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        run_ranks(grid_rank, d * mm, args=(local_init_method(), out),
+                  deadline_s=GRID_DEADLINE_S)
+    except Exception as e:  # a rank failed, died or hung: the phase fails
+        fail(f"grid of {d * mm} ranks: {type(e).__name__}: {e}")
+    ranks = []
+    for r in range(d * mm):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out)
+    print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, init, the one-card run and "
+          "the checks included)", flush=True)
+    path_counts = {}
+    for r, res in enumerate(ranks):
+        h, w = res["held"], res["whole"]
+        coll = "; ".join(f"{k} B: {v[0]:.1f} ms over {v[1]} calls" for k, v in
+                         sorted(res["collectives"].items(), key=lambda kv: -kv[1][0]))
+        print(f"  rank {r} {res['coords']}: holds {h['param_elements']:,} param elements of "
+              f"{w['elements']:,} ({h['param_elements'] / w['elements']:.4f}), flat rows "
+              f"{h['rows']:,} of {w['rows']:,}; m, v, p {h['state_elements']:,} elements "
+              f"({h['state_rows']:,} rows) against {3 * w['elements']:,} whole; peak "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB after init (the whole layout in f32: "
+              f"{w['rows'] * 128 * 4 / 2**30:.3f} GiB"
+              + (f"; rank 0's one-card run peaked at {res['one_card_peak_bytes'] / 2**30:.3f} GiB"
+                 if res["one_card_peak_bytes"] else "") + ")", flush=True)
+        print(f"  rank {r}: launches over the three steps (each step held to grid_counts) "
+              f"{ {k: c for k, c in res['counts'].items() if c} }", flush=True)
+        print(f"  rank {r}: step walls (ms, host clock) "
+              f"{', '.join(f'{x:.1f}' for x in res['walls'])}; collectives (host clock, card "
+              f"synchronized; the three steps) {coll}", flush=True)
+        for k, c in res["counts"].items():
+            path_counts[k] = path_counts.get(k, 0) + c
+    warm = [x for res in ranks for x in res["walls"][1:]]
+    print(f"  warm grid step wall over the ranks: {np.mean(warm):.1f} ms = "
+          f"{ranks[0]['tokens'] / np.mean(warm) * 1e3:.0f} tokens/s on one card (gloo through "
+          "the host: no claim of speed)", flush=True)
+    add_path(records, "train_grid", path_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -4144,11 +4425,12 @@ def phase_benches(records):
 # (a) whisper-small whole (12 + 12 layers, 1,500 frames a row) and (b)
 # xlstm-1.3b at full width on two of its six pattern groups (16 layers):
 # global batch, seq (k = 8 microbatches, the configs' VR-Adam at lr 1e-3
-# with no warm-up), OTHER_STEPS steps a run; (d) one VR step of each MoE
+# with no warm-up), OTHER_STEPS steps a run (xlstm XLSTM_STEPS); (d) one VR step of each MoE
 # smoke in its own compute dtype (bf16).  Held by hold_with_witness.
 OTHER_STEPS = 3
 WHISPER_TRAIN = dict(global_batch=32, seq_len=128)
 XLSTM_TRAIN = dict(global_batch=16, seq_len=64, n_layers=16)
+XLSTM_STEPS = 2  # OTHER_STEPS before phase 10d came in (PERF.md)
 MOE_SMOKES = ("llama4-maverick-400b-a17b", "mixtral-8x22b")
 MOE_SMOKE_STEPS = 1
 # (c) served at full width: (arch, layers kept or None) through
@@ -4524,7 +4806,7 @@ def phase_other_train(records):
     out["whisper-small"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["xlstm-1.3b"] = train_other(records, f"xlstm-1.3b ({xl.model.n_layers} layers)", xl,
-                                    "flat_vr_adam", "train xlstm-1.3b")
+                                    "flat_vr_adam", "train xlstm-1.3b", steps=XLSTM_STEPS)
     out["xlstm-1.3b"]["wall_s"] = time.perf_counter() - t0
     for arch in MOE_SMOKES:
         cfg = get_smoke(arch)
@@ -4921,6 +5203,7 @@ def main() -> None:
         timed("7b", phase_norm_sums, records)
         timed("10b", phase_train_dp, records, DP_GROUPS, "10b")
         timed("10c", phase_train_dp, records, DP_PATH_GROUPS, "10c")
+        timed("10d", phase_train_grid, records)
         timed("12", phase_per_leaf, records, layout)
         torch.cuda.empty_cache()
         timed("14", phase_dlrm, records)

@@ -38,6 +38,14 @@ per-leaf accumulator and an apply or compute kernel (kernels/flat_spmd.py);
 LAMB and LARS add a second all-reduce of the norm sums before their
 trust-ratio epilogue.  The update comes back as the rank's rows; the
 trainer gathers it.
+
+On a ``launch/mesh.py::GridMesh`` (the weights' FSDP+TP sharding),
+``Backend.shard(mesh, rules, layout)`` returns a :class:`GridSpmd`: the
+same pipelines over each rank's local buffer of its spec blocks
+(core/layout.py::GridShard), whose per-leaf partial sums are weighted by
+the leaf's owner (a replicated leaf counts once) before the all-reduce over
+the grid; the gradient needs no collective of its own (the weights'
+gathers reduce it in their backward), and the update is the rank's own.
 """
 from __future__ import annotations
 
@@ -106,10 +114,15 @@ class Backend:
     def all_reference(cls) -> "Backend":
         return cls(attention=REFERENCE, optimizer=REFERENCE, stats=REFERENCE)
 
-    def shard(self, mesh) -> "FlatSpmd":
-        """The per-row-shard plan of the flat VR updates on ``mesh``."""
+    def shard(self, mesh, rules=None, layout=None) -> "FlatSpmd":
+        """The per-row-shard plan of the flat VR updates on a data ``mesh``;
+        on a GridMesh the per-block plan of ``layout``'s buffers under
+        ``rules`` (sharding/rules.py; default: the mesh's default rules)."""
+        from repro_torch.launch.mesh import GridMesh
         from repro_torch.sharding.rules import Rules
 
+        if isinstance(mesh, GridMesh):
+            return GridSpmd(mesh, rules if rules is not None else Rules(mesh=mesh), layout)
         return FlatSpmd(mesh, Rules(mesh=mesh))
 
 
@@ -145,6 +158,15 @@ class FlatSpmd:
         if layout not in self._shards:
             self._shards[layout] = self.rules.flat_buffer_shard(layout)
         return self._shards[layout]
+
+    @property
+    def batch_mesh(self):
+        """The mesh whose ranks split each group's rows."""
+        return self.mesh
+
+    def _sum_leaves(self, acc: torch.Tensor, layout) -> torch.Tensor:
+        """Per-leaf partial sums of the rank's rows summed over the ranks."""
+        return self.mesh.all_reduce_(acc)
 
     def n_shards(self, layout) -> int:
         sh = self.shard(layout)
@@ -227,8 +249,8 @@ class FlatSpmd:
     def _racc(self, g, g2, lids, layout, eps):
         from repro_torch.kernels import flat_spmd as fsp
 
-        return self.mesh.all_reduce_(
-            fsp.leaf_r_partials(g, g2, lids, layout.leaf_slots, gsnr_eps=eps))
+        return self._sum_leaves(
+            fsp.leaf_r_partials(g, g2, lids, layout.leaf_slots, gsnr_eps=eps), layout)
 
     def vr_scale(self, g, ga, g2, layout, *, gamma, eps):
         """(r * ga, r) over this rank's rows."""
@@ -254,7 +276,7 @@ class FlatSpmd:
         racc = self._racc(g, g2, lids, layout, hyper["gsnr_eps"])
         u, m, v, p, acc = fsp.vr_lamb_compute(g, ga, g2, m, v, p, w, scal, racc, lids, inv,
                                               **hyper)
-        self.mesh.all_reduce_(acc)
+        acc = self._sum_leaves(acc, layout)
         return fsp.trust_apply(u, acc, lids, lr=float(scal[0]), lamb=True), m, v, p
 
     def vr_lars(self, g, ga, g2, m, w, scal, layout, *, mu, wd, trust, eps):
@@ -264,7 +286,7 @@ class FlatSpmd:
         lids, inv, w = self._local(layout, g, ga, g2, w=w)
         racc = self._racc(g, g2, lids, layout, eps)
         u, acc = fsp.vr_lars_compute(g, ga, g2, w, scal, racc, lids, inv, wd=wd, eps=eps)
-        self.mesh.all_reduce_(acc)
+        acc = self._sum_leaves(acc, layout)
         return fsp.trust_apply(u, acc, lids, lr=float(scal[0]), lamb=False, m=m, mu=mu,
                                trust=trust)
 
@@ -280,5 +302,103 @@ class FlatSpmd:
         wf = w.float()
         acc = torch.stack((fsp.shard_sums(u * u, lids, layout.leaf_slots),
                            fsp.shard_sums(wf * wf, lids, layout.leaf_slots)))
-        self.mesh.all_reduce_(acc)
+        acc = self._sum_leaves(acc, layout)
         return fsp.trust_apply(u, acc, lids, lr=float(lr), lamb=True)
+
+
+class GridSpmd(FlatSpmd):
+    """The flat stats sweeps and VR updates on a GridMesh: every buffer is
+    the rank's local buffer of its spec blocks (core/layout.py::GridShard
+    of ``layout``), the params w included.
+
+    The carries' sweeps (K3, K9, K4) run on the local buffer as they are.
+    The gradient of each microbatch arrives summed over the data axis by the
+    backward of the weights' gathers (sharding/placement.py), so
+    ``reduce_rows`` only scales it by 1/D, in place.  The per-leaf partial
+    sums (K13's Sigma r, K16's norm sums) are weighted by each leaf's owner
+    and all-reduced over the grid, so a leaf replicated over an axis counts
+    once; the trust epilogue applies on the rank's blocks.  The reference
+    plan's tree math runs on the rank's local leaves with the same sums
+    (``tree_leaf_means``, ``tree_lamb_trust``), and ``norm`` is a global
+    norm counted the same way."""
+
+    def __init__(self, mesh, rules, layout):
+        super().__init__(mesh, rules)
+        self.layout = layout
+        self._batch = mesh.axis(rules.dp_axis)
+
+    @property
+    def batch_mesh(self):
+        return self._batch
+
+    def shard(self, layout):
+        from repro_torch.core.layout import GridShard
+
+        if layout not in self._shards:
+            specs = [self.rules.leaf_pspec(p, s) for p, s in zip(layout.paths, layout.shapes)]
+            self._shards[layout] = GridShard(layout, specs, self.mesh)
+        return self._shards[layout]
+
+    def supports(self, layout) -> bool:
+        return True
+
+    def _sum_leaves(self, acc: torch.Tensor, layout) -> torch.Tensor:
+        own = self.shard(layout).owner_weights(acc.device)
+        return self.mesh.all_reduce_(acc * own.to(acc.dtype))
+
+    def reduce_rows(self, g: torch.Tensor, layout) -> torch.Tensor:
+        """The rank's gradient blocks x 1/D, in place (the data axis's sum is
+        already taken)."""
+        from repro_torch.kernels.flat_stats import inv_k
+
+        return g.mul_(inv_k(self._batch.size))
+
+    def reduce_stack_rows(self, gstack, layout):
+        from repro_torch.sharding.placement import ROADMAP_REST
+
+        raise NotImplementedError(f"the vmap stats method on a GridMesh ({ROADMAP_REST})")
+
+    def _leaf_totals(self, per_leaf) -> torch.Tensor:
+        """(n, n_leaves) f64 per-leaf sums of the rank's blocks -> the sums
+        over the grid, each leaf from its owners only."""
+        sh = self.shard(self.layout)
+        own = torch.as_tensor(sh.owner, dtype=torch.float64, device=per_leaf.device)
+        return self.mesh.all_reduce_(per_leaf * own)
+
+    def tree_leaf_means(self, tree) -> list:
+        """The whole leaves' means of a tree of the rank's blocks."""
+        from repro_torch.core.layout import tree_leaves
+
+        leaves = tree_leaves(tree)
+        sums = self._leaf_totals(torch.stack([x.double().sum() for x in leaves])[None])[0]
+        return [(sums[i] / n).float() for i, n in enumerate(self.layout.sizes)]
+
+    def tree_lamb_trust(self, d, p, lr, wd):
+        """LAMB's trust-scaled update of a tree of the rank's blocks (the
+        whole leaves' norms of u = d + wd p and of p)."""
+        from repro_torch.core.baselines import _lamb_phi
+        from repro_torch.core.layout import tree_leaves, tree_map
+
+        u = tree_map(lambda d_, p_: d_ + wd * p_, d, p)
+        sums = self._leaf_totals(torch.stack([
+            torch.stack([x.double().square().sum() for x in tree_leaves(t)])
+            for t in (u, p)]))
+        un, pn = torch.sqrt(sums).float()
+        ratio = torch.where((pn > 0) & (un > 0), _lamb_phi(pn) / (un + 1e-12),
+                            torch.ones_like(pn))
+        scale = iter(-lr * ratio)
+        return tree_map(lambda x: next(scale) * x, u)
+
+    def norm(self, x) -> torch.Tensor:
+        """The global norm of a FlatBuffer of the rank's blocks or a tree of
+        them, each leaf counted once over the grid."""
+        from repro_torch.core.layout import is_flat, tree_leaves
+        from repro_torch.kernels import flat_spmd as fsp
+
+        if is_flat(x):
+            meta = self.shard(self.layout).device_meta(x.data.device)
+            per = fsp.shard_sums(x.data.float().square(), meta["block_leaf_ids"],
+                                 self.layout.leaf_slots)[: self.layout.n_leaves].double()
+        else:
+            per = torch.stack([t.double().square().sum() for t in tree_leaves(x)])
+        return torch.sqrt(self._leaf_totals(per[None])[0].sum()).float()

@@ -175,6 +175,12 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelismConfig:
+    # mesh axis names and the FSDP switch of the weights' sharding rules
+    # (sharding/rules.py), used under a launch/mesh.py::GridMesh
+    dp_axis: str = "data"
+    tp_axis: str = "model"
+    pod_axis: str = "pod"
+    fsdp: bool = True  # shard params/opt-state over the data axis too
     remat: bool = True  # recompute each layer group's forward in the backward
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

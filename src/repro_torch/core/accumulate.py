@@ -41,6 +41,15 @@ rows; the vmap method reduce-scatters each slice of its stack and runs K10
 over the rows.  On the reference plan the flat gradient (or stack) is
 all-reduced x 1/W whole and the tree carry is replicated.  The loss and aux
 are the ranks' means (one all-reduce).
+
+On a GridMesh (``spmd`` a ``backend.GridSpmd``; the weights' FSDP+TP
+sharding) ``params`` is a core/layout.py::GridParams: the data ranks split
+each group's rows as above (the model ranks of a data row take the same
+rows), each backward leaves the rank's blocks of the gradient already
+summed over the data axis (the weights' gathers, sharding/placement.py),
+and the 1/D scale is the only step between it and the carry: K3 (K9) and
+K4 over the rank's local buffer on the fused plan, the tree carry over its
+blocks on the reference plan.
 """
 from __future__ import annotations
 
@@ -48,7 +57,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.backend import Backend
+from repro_torch.backend import Backend, GridSpmd
 from repro_torch.core.distributed import mean_over_ranks
 from repro_torch.core.gsnr import GradStats
 from repro_torch.core.layout import FlatBuffer, FlatParams, stack_groups, tree_map
@@ -87,8 +96,11 @@ def split_batch(batch: Dict, k: int) -> Dict:
 
 
 def _mesh_of(spmd):
-    """The plan's mesh when it has more than one rank, else None."""
-    return spmd.mesh if spmd is not None and spmd.mesh.size > 1 else None
+    """The mesh whose ranks split each group's rows (the data axis of a
+    GridMesh) when the plan's mesh has more than one rank, else None."""
+    if isinstance(spmd, GridSpmd):
+        return spmd.batch_mesh
+    return spmd.batch_mesh if spmd is not None and spmd.mesh.size > 1 else None
 
 
 def _rank_rows(x: torch.Tensor, size: int, rank: int, dim: int) -> torch.Tensor:
@@ -179,12 +191,15 @@ def grad_stats(
     fused = bk.fused("stats", params.device)
     mb = split_batch(batch, k)
     mesh = _mesh_of(spmd)
+    grid = isinstance(spmd, GridSpmd)
     plan = spmd if (fused and mesh is not None) else None
     if mesh is not None:
         mb = _rank_groups(loss_fn, mb, mesh)
     from repro_torch.kernels import ops as kops
 
     if method == "vmap":
+        if grid:
+            spmd.reduce_stack_rows(None, params.layout)  # raises: not ported on a grid
         return _vmap_stats(loss_fn, params, mb, k, squares, fused, mesh, plan)
 
     layout = params.layout
@@ -205,7 +220,9 @@ def grad_stats(
         for name, val in aux.items():
             aux_sum[name] = aux_sum.get(name, 0.0) + val.detach()
         g = params.grad
-        if plan is not None:  # the rank's rows of the ranks' mean gradient
+        if grid:  # the rank's blocks, summed over the data axis by the gathers: x 1/D
+            g = spmd.reduce_rows(g, layout)
+        elif plan is not None:  # the rank's rows of the ranks' mean gradient
             g = plan.reduce_rows(g, layout)
         elif mesh is not None:  # the whole mean gradient, in place
             mesh.all_reduce_(g).mul_(inv_k(mesh.size))

@@ -56,9 +56,15 @@ def raw_gsnr(stats: GradStats, eps: float = 1e-12) -> PyTree:
     return tree_map(lambda m, v: (m * m) / (v + eps), stats.mean, variance(stats))
 
 
-def normalize_per_layer(r: PyTree) -> PyTree:
-    """r / mean(r) per parameter tensor ("layer", paper eq. 8)."""
-    return tree_map(lambda x: x / torch.clamp(torch.mean(x), min=1e-30), r)
+def normalize_per_layer(r: PyTree, leaf_means=None) -> PyTree:
+    """r / mean(r) per parameter tensor ("layer", paper eq. 8).  With
+    ``leaf_means`` (tree -> each leaf's mean, in tree_leaves order) the
+    means are its: a tree of a rank's blocks on a grid takes the whole
+    leaves' means (backend.py::GridSpmd.tree_leaf_means)."""
+    if leaf_means is None:
+        return tree_map(lambda x: x / torch.clamp(torch.mean(x), min=1e-30), r)
+    means = iter(leaf_means(r))
+    return tree_map(lambda x: x / torch.clamp(next(means), min=1e-30), r)
 
 
 def clip_ratio(r: PyTree, gamma: float) -> PyTree:
@@ -66,9 +72,11 @@ def clip_ratio(r: PyTree, gamma: float) -> PyTree:
     return tree_map(lambda x: torch.clamp(x, gamma, 1.0), r)
 
 
-def gsnr_scale(stats: GradStats, gamma: float = 0.1, eps: float = 1e-12) -> PyTree:
-    """Full pipeline: the element-wise LR multiplier r(theta) in [gamma, 1]."""
-    return clip_ratio(normalize_per_layer(raw_gsnr(stats, eps)), gamma)
+def gsnr_scale(stats: GradStats, gamma: float = 0.1, eps: float = 1e-12,
+               leaf_means=None) -> PyTree:
+    """Full pipeline: the element-wise LR multiplier r(theta) in [gamma, 1]
+    (``leaf_means`` as for ``normalize_per_layer``)."""
+    return clip_ratio(normalize_per_layer(raw_gsnr(stats, eps), leaf_means), gamma)
 
 
 def _summary(total, floor, low, n: int) -> dict:
@@ -96,21 +104,24 @@ def gsnr_summary(scale: PyTree, gamma: float = 0.1) -> dict:
 
 def gsnr_summary_rows(stats: GradStats, gamma: float, mesh, eps: float = 1e-12) -> dict:
     """``gsnr_summary(gsnr_scale(stats, gamma, eps), gamma)`` of a carry
-    whose FlatBuffers hold this rank's rows of a layout (a RowShard): r of
-    the rows (``raw_gsnr``), the per-leaf sums of r (f64) all-reduced for
-    the leaf means, ``clip_ratio``, then the summary's sum and floor count
-    over the rows' leaf elements (padding left out) all-reduced and the
-    ranks' minima gathered; every rank returns the same values."""
+    whose FlatBuffers hold this rank's rows of a layout (a RowShard) or its
+    blocks of the leaves (a core/layout.py::GridShard, ``mesh`` the view of
+    the whole grid): r of the rows (``raw_gsnr``), the per-leaf sums of r
+    (f64) over the shard's live elements (the leaf elements it owns)
+    all-reduced for the leaf means, ``clip_ratio``, then the summary's sum
+    and floor count over the live elements all-reduced and the ranks'
+    minima gathered; every rank returns the same values."""
     shard = stats.mean.shard
     layout = shard.layout
     r = raw_gsnr(GradStats(stats.mean.data, stats.sq_mean.data, stats.k), eps)
     rid = shard.device_meta(r.device)["row_ids"]
+    live = shard.live(r.device)
     leaf = torch.zeros(layout.n_leaves, dtype=torch.float64, device=r.device)
-    leaf = mesh.all_reduce_(leaf.index_add_(0, rid, r.double().sum(dim=1)))
+    leaf = mesh.all_reduce_(
+        leaf.index_add_(0, rid, torch.where(live, r, 0.0).double().sum(dim=1)))
     sizes = torch.tensor(layout.sizes, dtype=torch.float64, device=r.device)
     leaf_mean = torch.clamp((leaf / sizes).float(), min=1e-30)
     scale = clip_ratio(r / leaf_mean[rid][:, None], gamma)
-    live = shard.live(r.device)
     sums = mesh.all_reduce_(torch.stack([torch.where(live, scale, 0.0).double().sum(),
                                          (_at_floor(scale, gamma) & live).sum().double()]))
     low = torch.where(live, scale, torch.inf).min()[None]

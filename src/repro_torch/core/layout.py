@@ -30,6 +30,12 @@ the whole buffer at once.
 ``RowShard`` is one rank's contiguous row range of a flat buffer under data
 parallelism (sharding/rules.py): the state of the per-shard optimizer
 update lives in it, and ``gather`` puts the ranks' rows back together.
+
+``GridShard`` and ``GridParams`` are their counterparts under the weights'
+FSDP+TP sharding on a (data, model) grid (sharding/placement.py): each
+rank's spec blocks of the leaves packed into a flat buffer of their own,
+whose per-leaf maps point at the whole leaves, so no buffer of the step
+holds the whole model's layout on one rank.
 """
 from __future__ import annotations
 
@@ -529,3 +535,170 @@ def leaf_sums(layout: ParamLayout, x: torch.Tensor) -> torch.Tensor:
 def rows_of(layout: ParamLayout, per_leaf: torch.Tensor) -> torch.Tensor:
     """(n_leaves,) per-leaf values broadcast to (n_rows, 1)."""
     return per_leaf[layout.device_meta(per_leaf.device)["row_ids"]][:, None]
+
+
+class GridShard:
+    """One rank's part of a layout's flat buffers on a launch/mesh.py::
+    GridMesh: the rank's spec block of every leaf (sharding/rules.py),
+    packed in the reference's leaf order into a flat buffer of its own
+    (``local_layout``: the layout over the block shapes, each leaf's rows
+    still whole blocks of one leaf), the counterpart of RowShard for the
+    weights' FSDP+TP sharding.
+
+    ``device_meta`` maps the local blocks to the global leaf ids and keeps
+    the layout's ``inv_sizes`` of the WHOLE leaves, so the per-leaf kernels
+    (K13, K16) and sums run on the local buffer as they are.  A leaf that
+    is replicated over an axis is held whole along it by every rank there;
+    its ``owner`` (the rank at coordinate 0 on each such axis) alone adds
+    it to a sum over the grid (``owner_weights``, ``live``)."""
+
+    def __init__(self, layout: ParamLayout, specs, mesh):
+        from repro_torch.sharding.placement import shard_shape
+
+        self.layout, self.specs, self.mesh = layout, tuple(specs), mesh
+        sizes = dict(mesh.shape)
+        shapes = tuple(shard_shape(s, sp, sizes) for s, sp in zip(layout.shapes, self.specs))
+        self.local_layout = ParamLayout(layout.paths, shapes, layout.block_rows,
+                                        skeleton=layout.skeleton)
+        self.owner = np.array([all(mesh.coords[a] == 0 for a in mesh.axis_names
+                                   if a not in sp.axes()) for sp in self.specs], bool)
+        self.n_shards, self.index = mesh.size, mesh.rank
+        self._meta: Dict = {}
+
+    @property
+    def rows(self) -> int:
+        return self.local_layout.n_rows
+
+    @property
+    def held(self) -> int:
+        """Elements of the rank's blocks (padding left out)."""
+        return int(sum(self.local_layout.sizes))
+
+    def device_meta(self, device) -> Dict[str, torch.Tensor]:
+        """The local layout's ``block_leaf_ids`` and ``row_ids``, the whole
+        layout's ``inv_sizes`` and ``owner`` (leaf_slots,) f32 1/0."""
+        device = torch.device(device)
+        meta = self._meta.get(device)
+        if meta is None:
+            own = np.zeros(self.layout.leaf_slots, np.float32)
+            own[: self.layout.n_leaves] = self.owner
+            local = self.local_layout.device_meta(device)
+            meta = self._meta[device] = {
+                "block_leaf_ids": local["block_leaf_ids"], "row_ids": local["row_ids"],
+                "inv_sizes": self.layout.device_meta(device)["inv_sizes"],
+                "owner": torch.as_tensor(own, device=device)}
+        return meta
+
+    def owner_weights(self, device) -> torch.Tensor:
+        return self.device_meta(device)["owner"]
+
+    def live(self, device) -> torch.Tensor:
+        """(rows, LANE) bool: True where an element belongs to a leaf whose
+        owner this rank is."""
+        key = ("live", torch.device(device))
+        if key not in self._meta:
+            rid = self.device_meta(device)["row_ids"]
+            own = torch.as_tensor(self.owner, device=device)[rid][:, None]
+            self._meta[key] = pad_mask(self.local_layout, device) & own
+        return self._meta[key]
+
+    def local(self, buf: torch.Tensor) -> torch.Tensor:
+        """The rank's local buffer: ``buf`` itself when it holds the local
+        rows, else the rank's blocks of a whole (n_rows, LANE) buffer of the
+        layout, packed (a new tensor)."""
+        if buf.shape[0] == self.rows:
+            return buf
+        from repro_torch.sharding.placement import block_slices
+
+        out = self.local_layout.zeros(buf.dtype, buf.device)
+        sizes, coords = dict(self.mesh.shape), dict(self.mesh.coords)
+        for dst, src, spec in zip(self.local_layout.leaf_views(out),
+                                  self.layout.leaf_views(buf), self.specs):
+            dst.copy_(src[block_slices(dst.shape, spec, coords, sizes)])
+        return out
+
+    def zeros(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
+        return self.local_layout.zeros(dtype, device)
+
+    def gather(self, local: torch.Tensor, mesh=None) -> torch.Tensor:
+        """The whole (n_rows, LANE) buffer on every rank (a collective per
+        leaf over the grid)."""
+        from repro_torch.sharding.placement import gather_params
+
+        mesh = self.mesh if mesh is None else mesh
+        out = self.layout.zeros(local.dtype, local.device)
+        leaves = gather_params(self.local_layout.leaf_views(local), list(self.specs), mesh)
+        for dst, src in zip(self.layout.leaf_views(out), leaves):
+            dst.copy_(src)
+        return out
+
+
+class GridParams:
+    """The trainable parameters of one rank of a GridMesh: its blocks of
+    every leaf in one local flat f32 buffer (``data``, GridShard's local
+    layout) with its flat gradient ``grad``, as FlatParams holds the whole.
+
+    ``tree`` is what the grid's forward reads (models/transformer.py::
+    forward_grid): {"groups": [per group {path in the group: the group's
+    slice of the rank's block}], "whole": {reference path: the rank's
+    block}}, where the per-group leaves are the stacked leaves whose layer
+    dim is not split (gathered one group at a time, on use) and "whole"
+    holds every other leaf (gathered whole once per forward).  Each leaf
+    shares ``data``'s storage and its ``.grad`` is the same slice of
+    ``grad``, so autograd accumulates the gradients of the rank's blocks in
+    place, and an in-place update of ``data`` is seen by every leaf."""
+
+    def __init__(self, data: torch.Tensor, shard: GridShard, placement):
+        if data.dtype != torch.float32 or tuple(data.shape) != (shard.rows, LANE):
+            raise ValueError(f"GridParams: data {tuple(data.shape)} {data.dtype}, want "
+                             f"({shard.rows}, {LANE}) float32")
+        self.shard, self.placement = shard, placement
+        self.layout, self.local_layout = shard.layout, shard.local_layout
+        self.data = data
+        self.grad = torch.zeros_like(data)
+        n_groups = placement.cfg.n_groups()
+        groups: List[Dict] = [{} for _ in range(n_groups)]
+        whole: Dict[str, torch.Tensor] = {}
+        from repro_torch.sharding.placement import group_path
+
+        for path, view, gview in zip(self.layout.paths, self.local_layout.leaf_views(data),
+                                     self.local_layout.leaf_views(self.grad)):
+            if placement.group_dims(path):
+                rest = group_path(path, True)
+                for g in range(n_groups):
+                    leaf = view[g].detach().requires_grad_(True)
+                    leaf.grad = gview[g]
+                    groups[g][rest] = leaf
+            else:
+                leaf = view.detach().requires_grad_(True)
+                leaf.grad = gview
+                whole[path] = leaf
+        self.tree = {"groups": groups, "whole": whole}
+
+    @classmethod
+    def from_whole(cls, whole: torch.Tensor, shard: GridShard, placement,
+                   device=None) -> "GridParams":
+        """From a whole (n_rows, LANE) buffer of the layout (any device):
+        the rank's blocks, on ``device``."""
+        local = shard.local(whole)
+        if local is whole:
+            local = whole.clone()
+        return cls(local.to(device or whole.device, torch.float32).contiguous(), shard,
+                   placement)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def stacked(self, which: str = "data") -> Dict:
+        """The rank's blocks of ``data`` or ``grad`` as the reference-shaped
+        tree of local leaves (views)."""
+        return self.local_layout.unpack(getattr(self, which))
+
+    def zero_grad(self) -> None:
+        self.grad.zero_()
+
+    def gather(self) -> torch.Tensor:
+        """The whole (n_rows, LANE) params buffer on every rank (a
+        collective)."""
+        return self.shard.gather(self.data)

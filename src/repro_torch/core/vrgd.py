@@ -55,7 +55,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.backend import Backend
+from repro_torch.backend import Backend, GridSpmd
 from repro_torch.core import baselines as B
 from repro_torch.core.gsnr import GradStats, gsnr_scale
 from repro_torch.core.layout import (FlatBuffer, FlatParams, ParamLayout, is_flat, shard_rows,
@@ -182,18 +182,20 @@ def vr_momentum(lr_fn: Callable, mu: float = 0.9, gamma: float = 0.1, eps: float
     return B.Transform(init, update)
 
 
-def _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps, state_dtype="float32"):
+def _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps, state_dtype="float32",
+                 leaf_means=None):
     """Shared VR-Adam machinery (Alg. 3 lines 8-17) on trees or FlatBuffers:
     returns (direction, new_state).  Moments are stored in state_dtype, math
     in f32.  With ``stats=None`` (a stale step) p is left as it is and the
-    stale p̂ rescales the fresh gradient; pt does not advance."""
+    stale p̂ rescales the fresh gradient; pt does not advance.
+    ``leaf_means``: see core/gsnr.py::normalize_per_layer."""
     t, pt, bc1, bc2, bc3 = bias_corrections(state, b1, b2, b3, fresh=stats is not None)
     sd = getattr(torch, state_dtype)
     f32 = lambda tree: tree_map(lambda x: x.float(), tree)
     store = lambda tree: tree_map(lambda x: x.to(sd), tree)
     p = f32(state["p"])
     if stats is not None:
-        r = gsnr_scale(stats, gamma, gsnr_eps)
+        r = gsnr_scale(stats, gamma, gsnr_eps, leaf_means)
         p = tree_map(lambda p_, r_: b3 * p_ + (1 - b3) * r_, p, r)
     ghat = tree_map(lambda p_, g: (p_ / bc3) * g, p, grads)
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, f32(state["m"]), ghat)
@@ -306,10 +308,15 @@ def vr_lamb(
         if fused and stats is not None:
             return kops.vr_lamb_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
                                        gsnr_eps, params, state_dtype, spmd)
+        # on a grid the reference plan's trees hold a rank's blocks: their
+        # per-leaf means and norms are the whole leaves' (GridSpmd)
+        grid = spmd if isinstance(spmd, GridSpmd) else None
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
-                                    state_dtype)
+                                    state_dtype, None if grid is None else grid.tree_leaf_means)
         if fused:
             return kops.lamb_trust_flat(d, params, lr, wd, spmd), new_state
+        if grid is not None:
+            return grid.tree_lamb_trust(d, params, lr, wd), new_state
         return tree_map(lambda d_, p_: B.lamb_trust(d_, p_, lr, wd), d, params), new_state
 
     return B.Transform(init, update)

@@ -9,6 +9,8 @@
       --device cpu --dist-backend gloo
   torchrun --nproc_per_node 2 -m repro_torch.launch.train --arch bert-large --smoke \
       --device cpu --gsnr-source data_axis --dist-backend gloo
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train --arch bert-large --smoke \
+      --device cpu --dist-backend gloo --mesh 2,2
 
 Every registered architecture trains; an encoder-decoder's batches carry
 "frames" (B, n_frames, d_model) and a vlm's "image" (B, n_image_tokens,
@@ -26,6 +28,10 @@ the statistics are those of the config's k microbatches, each spread over
 the ranks; ``--gsnr-source data_axis`` takes them from the ranks' gradients
 instead (k = the number of ranks) and needs ``--dist-backend``; without it
 the microbatch source runs, as in the reference.
+``--mesh D,M`` (with ``--dist-backend``) trains on a (data, model) grid of
+the D x M ranks torchrun starts instead, the weights sharded FSDP+TP by the
+reference's rules (launch/mesh.py::GridMesh, sharding/placement.py):
+VR-LAMB with the microbatch source and the scan method.
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.
@@ -38,7 +44,7 @@ import json
 
 from repro_torch.configs import ARCH_MODULES, get_config, get_smoke
 from repro_torch.data import lm_batches
-from repro_torch.launch.mesh import DIST_BACKENDS, init_data_mesh
+from repro_torch.launch.mesh import DIST_BACKENDS, GridMesh, init_data_mesh, init_grid_mesh
 from repro_torch.launch.serve import stub_shapes
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train import train_loop
@@ -66,13 +72,25 @@ def main(argv=None) -> None:
     ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
                     help="train data-parallel over torchrun's ranks with this process-group "
                          "backend")
+    ap.add_argument("--mesh", default="",
+                    help="D,M: train on a (data, model) grid of the ranks, the weights sharded "
+                         "FSDP+TP (needs --dist-backend)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
     if args.gsnr_source == "data_axis" and args.dist_backend is None:
         ap.error("--gsnr-source data_axis needs --dist-backend (nccl or gloo)")
+    if args.mesh and args.dist_backend is None:
+        ap.error("--mesh needs --dist-backend (nccl or gloo)")
     mesh = None
-    if args.dist_backend is not None:
+    if args.mesh:
+        try:
+            data, model = (int(n) for n in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: want D,M")
+        mesh = init_grid_mesh(args.dist_backend, data, model, args.device)
+        device = mesh.device
+    elif args.dist_backend is not None:
         mesh = init_data_mesh(args.dist_backend, args.device)
         device = mesh.device
     else:
@@ -100,7 +118,9 @@ def main(argv=None) -> None:
     rank0 = mesh is None or mesh.rank == 0
     if rank0:
         o = cfg.optimizer
-        if mesh is not None and o.is_vr and o.gsnr_source == "data_axis":
+        if isinstance(mesh, GridMesh):
+            k = f"{o.k} (microbatch source) on a {mesh.shape} grid ({mesh.backend})"
+        elif mesh is not None and o.is_vr and o.gsnr_source == "data_axis":
             k = f"{mesh.size} ({mesh.size} ranks, {mesh.backend}: data_axis source)"
         else:
             k = f"{o.k} (microbatch source)"

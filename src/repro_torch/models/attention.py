@@ -185,6 +185,7 @@ def attention(
     implicit_layout: bool = False,
     q_seg: Optional[torch.Tensor] = None,
     seg_base: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self- or cross-attention.
 
@@ -199,6 +200,11 @@ def attention(
     offset added to the segment ids (a prefill chunk continuing a cache
     row's numbering).  implicit_layout: q_pos is the broadcast arange(S),
     whose segments are all zero.  Returns (out (B,S,d), cache or None).
+    tp: a sharding/placement.py::Placement whose model axis splits the heads
+    (train self-attention): ``n_heads`` / ``n_kv_heads`` are then the rank's,
+    ``p``'s wq/wk/wv its columns and wo whole; the projections take the
+    entered input (``tp.col_product``) and the output is the row product
+    summed over the model axis (``tp.row_product``).
     """
     plan = backend if backend is not None else Backend()
     b, s, _ = x.shape
@@ -218,9 +224,15 @@ def attention(
     if seg_q is not None and seg_base is not None:
         seg_q = seg_q + seg_base.to(torch.int32)[:, None]
 
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"].to(dtype)).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"].to(dtype)).reshape(b, s, n_kv_heads, head_dim)
+    if tp is not None:
+        if mode != "train":
+            raise NotImplementedError("tensor-parallel attention runs in train mode only")
+        proj = lambda w: tp.col_product(tp.enter(x), w, dtype)
+    else:
+        proj = lambda w: x @ w.to(dtype)
+    q = proj(p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = proj(p["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = proj(p["wv"]).reshape(b, s, n_kv_heads, head_dim)
     if rope_theta:
         q = apply_rope(q, q_pos, rope_theta)
         k = apply_rope(k, q_pos, rope_theta)
@@ -269,6 +281,8 @@ def attention(
     else:
         out = _sdpa(qh, k, v, _mask(q_pos, k_pos, causal, window, seg_q, seg_k))
     out = out.reshape(b, s, n_heads * head_dim)
+    if tp is not None:
+        return tp.row_product(out, p["wo"]), new_cache
     return out @ p["wo"].to(dtype), new_cache
 
 

@@ -20,12 +20,19 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str, device="cpu") -> Dict:
     return p
 
 
-def mlp_hidden(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The block's hidden activation, the input of its ``wd`` projection."""
+def mlp_hidden(p: Dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """The block's hidden activation, the input of its ``wd`` projection.
+    With ``tp`` (a sharding/placement.py::Placement whose model axis splits
+    d_ff) wi/wg are the rank's columns and the hidden activation its d_ff
+    columns; the input is entered (``tp.col_product``)."""
     dtype = x.dtype
-    h = x @ p["wi"].to(dtype)
+    if tp is not None:
+        proj = lambda w: tp.col_product(tp.enter(x), w, dtype)
+    else:
+        proj = lambda w: x @ w.to(dtype)
+    h = proj(p["wi"])
     if act == "swiglu":
-        return F.silu(x @ p["wg"].to(dtype)) * h
+        return F.silu(proj(p["wg"])) * h
     return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
 
 

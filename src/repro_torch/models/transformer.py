@@ -26,6 +26,9 @@ Public API:
   encode(cfg, pcfg, params, frames)                 -> encoder memory (whisper)
   cache_shapes(cfg, pcfg, batch, prompt_len, cache_len)   -> meta-tensor tree
   Transformer(cfg, params)                          -> nn.Module holding them
+  forward_grid(cfg, pcfg, tree, tokens, placement)  -> (logits, aux) of one rank
+                                                       of a GridMesh (train)
+  model_layout(cfg)                                 -> the stacked flat layout
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import BLOCK_KINDS, ModelConfig, ParallelismConfig
-from repro_torch.core.layout import _skeleton, _unflatten, tree_map, tree_paths
+from repro_torch.core.layout import (ParamLayout, _skeleton, _unflatten, stack_groups,
+                                     tree_map, tree_paths)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
@@ -50,6 +54,7 @@ from repro_torch.models.common import (
     normal_init,
 )
 from repro_torch.models.mlp import mlp_hidden, mlp_init
+from repro_torch.sharding.rules import constrain
 
 # Leaves the reference casts to the compute dtype at every use
 # (``x @ p["wq"].astype(dtype)``, ``p["embed"].astype(dtype)[tokens]``).
@@ -172,7 +177,7 @@ def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, 
     x, hidden, c, aux = _block_body(cfg, pcfg, kind, p, x, **kw)
     if hidden is not None:
         x = x + hidden @ _leaf(p, last_product(cfg, kind)).to(x.dtype)
-    return x, c, aux
+    return constrain(x, ("batch", None, None)), c, aux
 
 
 def _aux_zero(device) -> Dict[str, torch.Tensor]:
@@ -417,7 +422,7 @@ def forward(
     else:
         memory = _resolve_memory(cfg, pcfg, params, extra)
 
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = constrain(embed_tokens(params["embed"], tokens, dtype), ("batch", None, None))
     aux = _aux_zero(x.device)
     kw = dict(q_pos=q_pos, mode=mode, cache_len=cache_len, implicit_layout=implicit_layout,
               q_seg=segments, seg_base=seg_base, memory=memory)
@@ -485,6 +490,138 @@ def forward(
         if memory is not None:
             out_cache["memory"] = memory
     return logits, aux, out_cache
+
+
+class _RematGrid(torch.autograd.Function):
+    """A layer group on a GridMesh, recomputed in the backward: ``fn(x,
+    *leaves)`` gathers the group's weights from the rank's blocks on use
+    (sharding/placement.py) and returns the group's output.  Forward runs it
+    and keeps only its inputs (no gathered weight outlives the call);
+    backward reruns it under autograd, gathering again, and pulls ``dy``
+    back to x and the blocks, whose gathers' adjoints reduce the weight
+    gradients into the rank's blocks.  Plain autograd only: the grid runs
+    no ``torch.func`` transform."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *leaves):
+        ctx.fn = fn
+        ctx.save_for_backward(x, *leaves)
+        return fn(x, *leaves)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        ins = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = ctx.fn(*ins)
+        want = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, want, dy, allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None for t in ins))
+
+
+def _nest(flat: Dict[str, Any]) -> Dict:
+    """{"pos0/attn/wq": t, ...} -> {"pos0": {"attn": {"wq": t}}}."""
+    root: Dict[str, Any] = {}
+    for path, val in flat.items():
+        node = root
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return root
+
+
+def _block_grid(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, pl, **kw):
+    """One dense block on a GridMesh: the attention's heads and the MLP's
+    d_ff split over the model axis where the placement says so (column
+    products on the entered input, the row product summed over the model
+    axis in f32), the norms and residual computed replicated."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    m = pl.m if pl.attn_tp else 1
+    out, _ = attn_mod.attention(
+        p["attn"], h, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
+        window=cfg.sliding_window if kind in ("swa", "local") else 0, mode="train",
+        attn_chunk=pcfg.attn_chunk, backend=pcfg.backend, tp=pl if pl.attn_tp else None, **kw)
+    x = x + out
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    if pl.mlp_tp:
+        x = x + pl.row_product(mlp_hidden(p["mlp"], h2, cfg.act, tp=pl), p["mlp"]["wd"])
+    else:
+        x = x + mlp_hidden(p["mlp"], h2, cfg.act) @ p["mlp"]["wd"].to(x.dtype)
+    return constrain(x, ("batch", None, None))
+
+
+def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: torch.Tensor,
+                 placement, *, positions: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """The train forward of one rank of a GridMesh: tokens (B, S) (the
+    rank's rows) -> (f32 logits, aux).  ``tree`` is a core/layout.py::
+    GridParams tree of the rank's weight blocks, ``placement`` its
+    sharding/placement.py::Placement.  The logits are the rank's vocab
+    columns when the placement splits the vocab (``placement.vocab_tp``;
+    train/loss.py's vocab-parallel cross-entropy takes them), else the whole
+    vocab.  The layer groups run under ``_RematGrid`` (with autograd on and
+    ``pcfg.remat``), each group's weights gathered on use; a stacked leaf
+    whose layer dim is split is gathered whole once per call.  The dense
+    attention kinds only (``Placement`` refuses the others); aux holds the
+    MoE readings, zero."""
+    pl, whole = placement, tree["whole"]
+    dtype = getattr(torch, pcfg.compute_dtype)
+    b, s = tokens.shape
+    if positions is None:
+        q_pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
+    elif positions.ndim == 1:
+        q_pos = positions.to(torch.int32)[:, None] + torch.arange(
+            s, dtype=torch.int32, device=tokens.device)[None, :]
+    else:
+        q_pos = positions.to(torch.int32)
+    kw = dict(q_pos=q_pos, implicit_layout=positions is None, q_seg=None, seg_base=None)
+    use = lambda path: pl.use(whole[path], path)
+    x = constrain(pl.embed(use("embed/embed"), tokens, dtype), ("batch", None, None))
+
+    from repro_torch.sharding.placement import group_path
+
+    # leaves of the groups held whole: an unstacked group's, gathered in the
+    # group's body; a stacked leaf with its layer dim split, gathered here
+    held = {group_path(p, pl.stacked): p for p in whole if p.startswith("groups/")}
+    pre = {name: use(path) for name, path in held.items() if pl.stacked}
+    names = sorted(tree["groups"][0]) if tree["groups"] else []
+    n_in = len(names)
+
+    def body(xx, *leaves):
+        flat = {name: pl.use(leaf, f"groups/{name}", 1) for name, leaf in zip(names, leaves)}
+        for name, t in zip(sorted(held), leaves[n_in:]):
+            flat[name] = t if pl.stacked else pl.use(t, held[name])
+        gp = _nest(flat)
+        for i, kind in enumerate(cfg.block_pattern):
+            xx = _block_grid(cfg, pcfg, kind, gp[f"pos{i}"], xx, pl, **kw)
+        return xx
+
+    remat_on = pcfg.remat and torch.is_grad_enabled()
+    for g, gp in enumerate(tree["groups"]):
+        extra = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
+        args = [gp[n] for n in names] + extra
+        x = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
+    for ti, kind in enumerate(cfg.tail_kinds()):
+        prefix = f"tail/{ti}/"
+        p = _nest({path[len(prefix):]: use(path) for path in whole if path.startswith(prefix)})
+        x = _block_grid(cfg, pcfg, kind, p, x, pl, **kw)
+    x = apply_norm(_nest({path.split("/", 1)[1]: use(path) for path in whole
+                          if path.startswith("final_norm/")}), x, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = pl.logits(x, use("embed/embed"), tied=True)
+    else:
+        logits = pl.logits(x, use("head"), tied=False)
+        if cfg.logit_softcap > 0:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits, _aux_zero(x.device)
+
+
+def model_layout(cfg: ModelConfig) -> ParamLayout:
+    """The flat layout of ``cfg``'s stacked params (shapes only: the tree is
+    drawn on the meta device)."""
+    return ParamLayout.for_tree(stack_groups(init_params(cfg, None, device="meta")))
 
 
 def prefill(cfg, pcfg, params, tokens, *, extra=None, cache_len: int, cache=None,

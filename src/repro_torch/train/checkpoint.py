@@ -25,7 +25,13 @@ the other:
     template's device and dtype;
   * under a data mesh, a row-sharded FlatBuffer (core/layout.py::RowShard)
     is gathered before the save (every rank calls ``save``; rank 0 writes)
-    and each rank restores its own rows.
+    and each rank restores its own rows;
+  * on a GridMesh (the weights' FSDP+TP sharding) the params (a
+    core/layout.py::GridParams) and the flat state (FlatBuffers of a
+    GridShard) are gathered whole to every rank the same way, rank 0 writes
+    the reference's file, and at restore each rank reads the whole leaves
+    and keeps its own blocks.  The reference plan's tree state of a rank's
+    blocks is refused.
 
 Files are written to ``path + ".tmp"`` and moved into place with
 ``os.replace``.
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.layout import FlatBuffer, FlatParams, ParamLayout, is_flat, stack_groups
+from repro_torch.core.layout import (FlatBuffer, FlatParams, GridParams, ParamLayout, is_flat,
+                                     stack_groups)
 
 
 def _tensor(a, device, dtype):
@@ -169,6 +176,8 @@ def _items(tree, prefix: str, mesh, out: List[Tuple[str, Any]]) -> None:
         return
     if isinstance(tree, FlatParams):
         _items(tree.stacked(), prefix, mesh, out)
+    elif isinstance(tree, GridParams):
+        _items(tree.layout.unpack(tree.gather()), prefix, mesh, out)
     elif is_flat(tree):
         data = tree.data
         if tree.shard is not None:
@@ -195,6 +204,10 @@ def save(path: str, tree: Any, mesh=None) -> None:
     data mesh every rank calls it (the sharded state is gathered, a
     collective), rank 0 writes, and every rank returns once the file is in
     place."""
+    if isinstance(getattr(tree, "params", None), GridParams) and any(
+            not is_flat(v) for k, v in tree.opt_state.items() if k in ("m", "v", "p")):
+        raise ValueError("save: the reference plan's optimizer state on a GridMesh holds each "
+                         "rank's blocks as trees; save the fused plan's flat state")
     items: List[Tuple[str, Any]] = []
     _items(tree, "", mesh, items)
     if mesh is None or mesh.rank == 0:
@@ -232,6 +245,9 @@ def _restore(data, like, prefix: str):
     if isinstance(like, FlatParams):
         buf = _flat_from(data, prefix, like.layout, torch.float32, like.device)
         return FlatParams.from_flat(buf, like.layout, like.n_groups)
+    if isinstance(like, GridParams):  # the whole leaves read, the rank's blocks kept
+        buf = _flat_from(data, prefix, like.layout, torch.float32, like.device)
+        return GridParams.from_whole(buf, like.shard, like.placement)
     if is_flat(like):
         buf = _flat_from(data, prefix, like.layout, like.dtype, like.data.device)
         if like.shard is not None:  # the rank's rows, in storage of their own

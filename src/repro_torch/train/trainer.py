@@ -57,7 +57,22 @@ and the global batch, and takes its rows of it.
     (or the per-leaf stack) and runs the tree math on every rank, and so do
     the baselines on either plan (one all-reduce of the flat gradient x
     1/W).
-Not yet ported: TP/FSDP sharding of the model's weights.
+
+FSDP + TP of the model's weights (``mesh=``, a launch/mesh.py::GridMesh of
+D x M ranks; the reference's GSPMD placement by its sharding rules): each
+rank holds its spec block of every leaf (core/layout.py::GridParams) and
+the forward gathers the weights on use (models/transformer.py::
+forward_grid, sharding/placement.py).  VR-LAMB, fresh and stale, with the
+microbatch source and the scan method: the data ranks split each group's
+rows, the backward leaves each rank's blocks of the gradient summed over
+the data axis, and the carry (K3/K9, K4) and the update (K13, an
+all-reduce, K16, an all-reduce, ``trust_apply``; a stale step's chain and
+trust epilogue) run on the rank's local buffer, whose per-leaf sums count
+a replicated leaf once (backend.py::GridSpmd).  The update is added to the
+rank's own blocks in place; nothing is gathered after the step.
+grad_norm, update_norm and gsnr/* come from the blocks and one all-reduce
+each.  The other optimizers, the data-axis source, the vmap method and
+``noise_scale`` raise there (ROADMAP A9's remainder).
 
 ``noise_scale=True`` adds the gradient-noise-scale readings of a fresh VR
 step (core/noise_scale.py: plain reductions over the moments the step has
@@ -69,6 +84,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import Config
@@ -76,10 +92,15 @@ from repro_torch.core import noise_scale as ns
 from repro_torch.core.accumulate import grad_only, grad_stats
 from repro_torch.core.distributed import device_grad_stats_fn
 from repro_torch.core.gsnr import gsnr_scale, gsnr_summary, gsnr_summary_rows
-from repro_torch.core.layout import FlatBuffer, FlatParams, tree_leaves, tree_map
+from repro_torch.core.layout import (FlatBuffer, FlatParams, GridParams, is_flat, stack_groups,
+                                     tree_leaves, tree_map)
 from repro_torch.core.schedule import make_schedule
 from repro_torch.core.vrgd import make_optimizer
+from repro_torch.launch.mesh import GridMesh
 from repro_torch.models import init_params
+from repro_torch.models.transformer import model_layout
+from repro_torch.sharding.placement import ROADMAP_REST, Placement, block_slices
+from repro_torch.sharding.rules import Rules
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train.loss import make_loss_fn
 from repro_torch.train.train_state import TrainState
@@ -113,6 +134,86 @@ def _shard_plan(bk, mesh):
     return None if mesh is None else bk.shard(mesh)
 
 
+def grid_plan(cfg: Config, mesh: GridMesh):
+    """(Placement, GridSpmd) of ``cfg``'s model on the GridMesh: the
+    reference's rules (``cfg.parallel``'s axes and ``fsdp``) over the
+    model's stacked layout."""
+    pc = cfg.parallel
+    if (pc.dp_axis, pc.tp_axis) != tuple(mesh.axis_names):
+        raise ValueError(f"the config's axes ({pc.dp_axis!r}, {pc.tp_axis!r}) are not the "
+                         f"grid's {mesh.axis_names}")
+    rules = Rules(mesh=mesh, fsdp=pc.fsdp, tp_axis=pc.tp_axis, dp_axis=pc.dp_axis,
+                  pod_axis=pc.pod_axis)
+    layout = model_layout(cfg.model)
+    spmd = pc.backend.shard(mesh, rules, layout)
+    shard = spmd.shard(layout)
+    pl = Placement(cfg.model, rules, mesh, dict(zip(layout.paths, shard.specs)),
+                   dict(zip(layout.paths, layout.shapes)))
+    return pl, spmd
+
+
+def _refuse_on_grid(cfg: Config, noise_scale: bool) -> None:
+    o = cfg.optimizer
+    what = None
+    if o.name != "vr_lamb":
+        what = f"the {o.name} optimizer"
+    elif o.gsnr_source != "microbatch":
+        what = f"gsnr_source={o.gsnr_source!r}"
+    elif o.stats_method != "scan":
+        what = f"stats_method={o.stats_method!r}"
+    elif noise_scale:
+        what = "noise_scale=True"
+    if what is not None:
+        raise NotImplementedError(f"{what} on a GridMesh is not ported yet ({ROADMAP_REST})")
+
+
+def _grid_step(cfg: Config, loss_fn: Optional[Callable], log_gsnr: bool, mesh: GridMesh,
+               device, noise_scale: bool):
+    """make_train_step on a GridMesh (the module note)."""
+    _refuse_on_grid(cfg, noise_scale)
+    o, bk = cfg.optimizer, cfg.parallel.backend
+    if bk.resolve("stats", device) != bk.resolve("optimizer", device):
+        raise NotImplementedError("a mixed stats/optimizer plan runs on one device only")
+    pl, spmd = grid_plan(cfg, mesh)
+    loss_fn = loss_fn or make_loss_fn(cfg, placement=pl)
+    if getattr(loss_fn, "placement", None) is None:
+        raise ValueError("on a GridMesh the loss function must run the grid's forward: "
+                         "train/loss.py::make_loss_fn(cfg, placement)")
+    opt = make_optimizer(o, backend=bk, effective_batch=cfg.global_batch, spmd=spmd)
+    fused_opt = bk.fused("optimizer", device)
+    grid = mesh.axis(mesh.axis_names)
+
+    def train_step(state: TrainState, batch, with_stats: bool = True):
+        params: GridParams = state.params
+        batch = _to_device(batch, params.device)
+        loss, aux, stats = grad_stats(loss_fn, params, batch, o.k, squares=with_stats,
+                                      backend=bk, spmd=spmd)
+        grads = stats.mean
+        if not with_stats:
+            stats = None
+        gnorm = spmd.norm(grads)
+        if o.grad_clip > 0:
+            scale = torch.clamp(o.grad_clip / (gnorm + 1e-9), max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        w = FlatBuffer(params.data, params.layout, params.shard) if fused_opt \
+            else params.stacked()
+        with torch.no_grad():
+            upd, opt_state = opt.update(grads, state.opt_state, w, stats=stats)
+            tree_map(lambda p, u: p.add_(u), w, upd)  # the rank's own blocks
+            unorm = spmd.norm(upd)
+        metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": unorm, **aux}
+        if log_gsnr and stats is not None:
+            with torch.no_grad():
+                if not is_flat(stats.mean):  # the reference plan's trees of the blocks
+                    pack = lambda t: FlatBuffer(params.local_layout.pack(t), params.layout,
+                                                params.shard)
+                    stats = stats._replace(mean=pack(stats.mean), sq_mean=pack(stats.sq_mean))
+                metrics.update(gsnr_summary_rows(stats, o.gamma, grid))
+        return state._replace(opt_state=opt_state, step=opt_state["step"]), metrics
+
+    return train_step, opt
+
+
 def make_train_step(
     cfg: Config,
     loss_fn: Optional[Callable] = None,
@@ -140,6 +241,8 @@ def make_train_step(
     sums on the data-axis source."""
     opt_cfg = cfg.optimizer
     device = _device_of(device, mesh)
+    if isinstance(mesh, GridMesh):
+        return _grid_step(cfg, loss_fn, log_gsnr, mesh, device, noise_scale)
     bk = cfg.parallel.backend
     if mesh is not None and bk.resolve("stats", device) != bk.resolve("optimizer", device):
         raise NotImplementedError(
@@ -229,8 +332,16 @@ def init_state(cfg: Config, params: Optional[Dict] = None, device=None,
     init from ``cfg.seed``) copied into a FlatParams on ``device``, and the
     optimizer state of the plan ``cfg.parallel.backend`` resolves to.  Under
     a mesh every rank takes rank 0's params (a broadcast), and a sharded
-    flat state holds the rank's rows."""
+    flat state holds the rank's rows.
+
+    On a GridMesh every rank takes the same whole params (the port's tree,
+    the reference's stacked tree of numpy arrays as ``jax.device_get`` of
+    its ``init_params`` gives it, or the seeded init drawn on the mesh's
+    device) and keeps only its blocks (a GridParams on the mesh's device);
+    the optimizer state holds the rank's blocks."""
     device = _device_of(device, mesh)
+    if isinstance(mesh, GridMesh):
+        return _grid_init(cfg, params, mesh, device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
         params = init_params(cfg.model, gen, device=device)
@@ -241,6 +352,28 @@ def init_state(cfg: Config, params: Optional[Dict] = None, device=None,
     bk = cfg.parallel.backend
     opt = make_optimizer(cfg.optimizer, backend=bk, effective_batch=cfg.global_batch,
                          spmd=_shard_plan(bk, mesh))
+    return TrainState(flat, opt.init(flat), 0)
+
+
+def _grid_init(cfg: Config, params, mesh: GridMesh, device) -> TrainState:
+    pl, spmd = grid_plan(cfg, mesh)
+    shard = spmd.shard(spmd.layout)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        params = init_params(cfg.model, gen, device=device)
+    if isinstance(params.get("groups"), list):  # the port's tree
+        params = stack_groups(params)
+    leaves = spmd.layout.check_tree(params, "init_state params")
+    data = shard.zeros(torch.float32, device)
+    coords, sizes = dict(mesh.coords), dict(mesh.shape)
+    for view, leaf, spec in zip(shard.local_layout.leaf_views(data), leaves, shard.specs):
+        whole = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+            np.asarray(leaf, np.float32))
+        view.copy_(whole[block_slices(view.shape, spec, coords, sizes)])
+    del params, leaves
+    flat = GridParams(data, shard, pl)
+    opt = make_optimizer(cfg.optimizer, backend=cfg.parallel.backend,
+                         effective_batch=cfg.global_batch, spmd=spmd)
     return TrainState(flat, opt.init(flat), 0)
 
 
