@@ -109,9 +109,12 @@ Phases, in order; any failure exits non-zero:
                 cut to 2 layers, on a (2, 2) GridMesh of four gloo ranks
                 sharing the card, each holding its spec blocks of every
                 leaf (sharding/rules.py): global batch 64, seq 128, VR-LAMB
-                k = 4 fresh, stale, fresh on the fused plan, against rank
-                0's one-card run split over the two data ranks' rows
-                (rank_split_loss) within DP_TOL; each rank's held param and
+                k = 4 fresh, stale, fresh on the fused plan in bf16, then
+                one fresh step in f32, against rank 0's one-card runs split
+                over the two data ranks' rows (rank_split_loss): the
+                metrics within DP_TOL, the first step's update, m, v and p
+                whole and leaf by leaf within DP_TOL in f32 and
+                GRID_BF16_TOL in bf16; each rank's held param and
                 state elements beside the whole layout's, no flat buffer of
                 the whole layout on the step's path, its peak memory,
                 launches per step (K1 16, K2 8, K3 4, K4 1, K13 1, K16 1,
@@ -2870,28 +2873,39 @@ def phase_train_dp(records, groups, tag):
 
 # Phase 10d: FSDP+TP of the weights on a (data, model) grid of ranks, bert-
 # large at full width (depth CUT_LAYERS), VR-LAMB k = 4 fresh / stale /
-# fresh, held against the one-card run split over the data ranks' rows
-# within DP_TOL.
+# fresh in bf16 and one fresh step in f32, each held against the one-card
+# run of its precision split over the data ranks' rows.
 GRID_SHAPE = (2, 2)
 GRID_BATCH = 64
 GRID_FRESH = (True, False, True)
+GRID_F32_FRESH = (True,)
 GRID_DEADLINE_S = 300.0
-# The grid's loss, grad_norm and gsnr/* are held to DP_TOL at every step
-# (the first full-width run, H100 80GB HBM3 700 W: 1.2e-5, 3.2e-5, 8.8e-5 at
-# most).  Its first-step update and m, v, p cannot be: the model axis splits
+# The f32 steps (TF32 off) differ from the one-card run only in the order
+# of their sums, so they hold the sharding's arithmetic tightly: every
+# step's metrics and the first step's update, m, v and p within DP_TOL,
+# whole and leaf by leaf.  The bf16 steps' metrics are held to DP_TOL at
+# every step too; their first-step buffers cannot be: the model axis splits
 # each row product's sum and sums the column products' input gradients in
-# f32 across the ranks, which rounds in bf16 otherwise than one card, and
-# the GSNR ratio's leaf means amplify any rounding (PERF.md).  The same
-# first run measured the grid 1.9e-2 / 8.8e-3 / 9.4e-3 / 1.9e-2 (upd, m, v,
-# p) from the one-card run split over the data ranks' rows, where the
-# witness, that one-card run without the split (one backward over each
-# group: another rounding of the same step), is 1.0e-2 / 5.2e-3 / 5.5e-3 /
-# 1.6e-2 from it.  So the buffers are held to TRAIN_TOL, the fused-vs-
-# reference bound for bf16 rounding, whole and, for m and v, leaf by leaf: a
-# gradient counted M times on one leaf (a replicated leaf summed over the
-# model axis) moves that leaf's m by M - 1 and v by M^2 - 1, however small
-# the leaf, so the per-leaf hold catches it where the whole-buffer one
-# would not; the witness's gaps are printed beside.
+# f32 across the ranks (placement.py), which rounds otherwise than one
+# card's GEMMs, and the GSNR ratio's leaf means amplify any rounding.  The
+# witness, the one-card run without the split (another rounding of the same
+# step), shows the size of that rounding.  So the bf16 buffers are held to
+# GRID_BF16_TOL, whole and leaf by leaf: a gradient counted M times on one
+# leaf moves that leaf's m by M - 1 and v by M^2 - 1, and a per-leaf sum of
+# r or of a LAMB norm counted M times moves that leaf's update, however
+# small the leaf, where the whole-buffer gap would not show it.  The
+# largest worst-leaf gaps read on an H100 80GB HBM3 (700 W), with the TP
+# GEMMs in f32 and in bf16, grid or witness: update 4.6e-2 (embed), m
+# 1.25e-2, v 1.40e-2 (wq), p 3.1e-2 (embed); each bound is about 2.5 times
+# its gap.  There the grid's and the one-card run's worst leaves lie as
+# far from the f32 step (6.2e-2, 1.8e-2, 2.0e-2, 3.4e-2), and the f32 grid
+# reads 5.4e-4 on its worst leaf (PERF.md).
+GRID_BF16_TOL = {"upd": 0.1, "m": 0.03, "v": 0.035, "p": 0.08}
+GRID_F32_TOL = {"upd": DP_TOL["upd"], "m": DP_TOL["mv"], "v": DP_TOL["mv"], "p": DP_TOL["p"]}
+# Each leaf of the f32 grid is held to DP_TOL's m and v bound: its worst
+# leaves read 5.4e-4 (update, wq), 5.4e-6 (v) and 5.6e-5 (p, embed) on the
+# H100.
+GRID_F32_LEAF_TOL = {nm: DP_TOL["mv"] for nm in GRID_F32_TOL}
 
 
 def grid_counts(n_layers, k, fresh):
@@ -2908,10 +2922,10 @@ def grid_counts(n_layers, k, fresh):
 
 def grid_rank(rank, init, out_dir):
     """One rank of phase 10d's (2, 2) grid on card 0 (gloo).  Rank 0 first
-    runs the one-card steps; then every rank runs the grid steps (launches
-    held per step), rank 0 holds them within DP_TOL, and each rank writes
-    its counts, walls, collective walls, held elements and peak memory to
-    out_dir."""
+    runs the one-card steps; then every rank runs the bf16 grid steps and
+    the f32 ones (launches held per step), rank 0 holds them (GRID_SHAPE's
+    note), and each rank writes its counts, walls, collective walls, held
+    elements and peak memory to out_dir."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2928,6 +2942,7 @@ def grid_rank(rank, init, out_dir):
     dev = torch.device("cuda", 0)
     mesh = init_grid_mesh("gloo", *GRID_SHAPE, dev, init_method=init, rank=rank)
     cfg = plan_config(cut_train_config(GRID_BATCH), "fused", k=DP_PATHS_K, gsnr_refresh=2)
+    cfg32 = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32"))
     m = cfg.model
     label = f"grid {GRID_SHAPE} rank {rank} {mesh.coords}"
     stream = lm_batches(m.vocab_size, GRID_BATCH, cfg.seq_len, seed=2)
@@ -2940,14 +2955,14 @@ def grid_rank(rank, init, out_dir):
         f = torch.tensor([0.0 if ok else 1.0], device=dev)
         return float(mesh.all_reduce_(f)) == 0.0
 
-    def one_card(loss):
+    def one_card(cfg, loss, fresh_seq):
         """(metrics per step, the first step's update and m, v, p on the
         leaf elements, peak bytes) of the one-card run with ``loss``."""
         state = init_state(cfg, params=params(), device=dev)
         step = make_train_step(cfg, loss, log_gsnr=True, device=dev)[0]
         hist, first = [], {}
         torch.cuda.reset_peak_memory_stats()
-        for i, (batch, fresh) in enumerate(zip(batches, GRID_FRESH)):
+        for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
             w0 = state.params.data.clone() if i == 0 else None
             state, metrics = step(state, batch, fresh)
             hist.append({k: float(v) for k, v in metrics.items()})
@@ -2962,17 +2977,63 @@ def grid_rank(rank, init, out_dir):
         torch.cuda.empty_cache()
         return hist, first, peak
 
-    ref = witness = None
-    if rank == 0:  # the one-card run split over the data ranks' rows, and the witness
-        ref = one_card(rank_split_loss(make_loss_fn(cfg), GRID_SHAPE[0]))
-        witness = one_card(None)
+    ref = witness = ref32 = None
+    if rank == 0:  # the one-card runs split over the data ranks' rows, and the witness
+        def split(c):
+            return rank_split_loss(make_loss_fn(c), GRID_SHAPE[0])
+
+        ref = one_card(cfg, split(cfg), GRID_FRESH)
+        witness = one_card(cfg, None, GRID_FRESH)
+        ref32 = one_card(cfg32, split(cfg32), GRID_F32_FRESH)
     flag_all(True)  # a barrier
-    state = init_state(cfg, params=params(), device=dev, mesh=mesh)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+
+    def grid_run(cfg, fresh_seq, tag, timed):
+        """(state, metrics per step, the first step's update and m, v, p
+        whole on rank 0, step walls, launches, peak bytes after init) of the
+        grid's steps."""
+        state = init_state(cfg, params=params(), device=dev, mesh=mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gp = state.params
+        step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh)[0]
+        mesh.timed = timed
+        hist, first, walls, counts_all = [], {}, [], {}
+        for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
+            w0 = gp.gather() if i == 0 else None
+            reset_counts()
+            (state, metrics), ms = host_ms(lambda: step(state, batch, fresh))
+            counts = read_counts()
+            want = grid_counts(m.n_layers, DP_PATHS_K, fresh)
+            if counts != want:
+                raise RuntimeError(f"{label} {tag} step {i}: launches {counts} != {want}")
+            for k, c in counts.items():
+                counts_all[k] = counts_all.get(k, 0) + c
+            walls.append(ms)
+            vals = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(list(vals.values()))):
+                raise RuntimeError(f"{label} {tag} step {i}: non-finite metrics {vals}")
+            hist.append(vals)
+            if i == 0:  # every rank takes part in the gathers
+                mesh.timed = False
+                upd = (gp.gather() - w0).cpu()
+                gathered = {nm: gp.shard.gather(state.opt_state[nm].data).float().cpu()
+                            for nm in "mvp"}
+                first = {"upd": upd, **gathered} if rank == 0 else {}
+                del w0, upd, gathered
+                mesh.timed = timed
+            if rank == 0:
+                gsnr = f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else \
+                    " (stale)"
+                print(f"  {label} {tag} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
+                      f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e}{gsnr}; "
+                      f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+        mesh.timed = False
+        return state, hist, first, walls, counts_all, torch.cuda.max_memory_allocated()
+
+    state, hist, first, walls, counts_all, peak = grid_run(cfg, GRID_FRESH, "bf16", True)
     gp = state.params
-    sh = gp.shard
-    whole = {"elements": sum(gp.layout.sizes), "rows": gp.layout.n_rows}
+    sh, layout = gp.shard, gp.layout
+    whole = {"elements": sum(layout.sizes), "rows": layout.n_rows}
     bufs = {"params": gp.data, "grad": gp.grad,
             **{nm: state.opt_state[nm].data for nm in "mvp"}}
     if any(tuple(b.shape) != (sh.rows, 128) for b in bufs.values()) or sh.rows >= whole["rows"]:
@@ -2981,38 +3042,6 @@ def grid_rank(rank, init, out_dir):
                            f"{whole['rows']})")
     held = {"param_elements": sh.held, "rows": sh.rows,
             "state_elements": 3 * sh.held, "state_rows": 3 * sh.rows}
-    step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh)[0]
-    mesh.timed = True
-    hist, first, walls, counts_all = [], {}, [], {}
-    for i, (batch, fresh) in enumerate(zip(batches, GRID_FRESH)):
-        w0 = gp.gather() if i == 0 else None
-        reset_counts()
-        (state, metrics), ms = host_ms(lambda: step(state, batch, fresh))
-        counts = read_counts()
-        want = grid_counts(m.n_layers, DP_PATHS_K, fresh)
-        if counts != want:
-            raise RuntimeError(f"{label} step {i}: launches {counts} != {want}")
-        for k, c in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + c
-        walls.append(ms)
-        vals = {k: float(v) for k, v in metrics.items()}
-        if not all(np.isfinite(list(vals.values()))):
-            raise RuntimeError(f"{label} step {i}: non-finite metrics {vals}")
-        hist.append(vals)
-        if i == 0:  # every rank takes part in the gathers
-            mesh.timed = False
-            upd = (gp.gather() - w0).cpu()
-            gathered = {nm: sh.gather(state.opt_state[nm].data).float().cpu() for nm in "mvp"}
-            first = {"upd": upd, **gathered} if rank == 0 else {}
-            del w0, upd, gathered
-            mesh.timed = True
-        if rank == 0:
-            gsnr = f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else " (stale)"
-            print(f"  {label} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
-                  f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e}{gsnr}; "
-                  f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
-    mesh.timed = False
-    peak = torch.cuda.max_memory_allocated()
     # every replica of a leaf block the same: each rank's gathered whole
     # params (assembled from its own replica column) equal rank 0's
     mine = gp.gather()
@@ -3020,18 +3049,25 @@ def grid_rank(rank, init, out_dir):
     mesh.broadcast_(first_rank)
     if not flag_all(torch.equal(first_rank, mine)):
         raise RuntimeError(f"{label}: the replicas of a leaf block differ across the ranks")
-    del mine, first_rank
+    del mine, first_rank, state, gp, bufs
+    torch.cuda.empty_cache()
+    state32, hist32, first32, walls32, _, _ = grid_run(cfg32, GRID_F32_FRESH, "f32", False)
+    del state32
     gaps = None
     if rank == 0:
-        gaps = hold_grid(f"grid {GRID_SHAPE} vs one-card k{DP_PATHS_K} split", hist, first,
-                         ref, witness, gp.layout)
-    summary = {"counts": counts_all, "walls": walls, "held": held, "whole": whole,
-               "peak_bytes": peak, "one_card_peak_bytes": None if ref is None else ref[2],
+        gaps = {"f32": hold_grid(f"grid {GRID_SHAPE} f32 vs one-card k{DP_PATHS_K} split",
+                                 hist32, first32, ref32, layout, GRID_F32_TOL,
+                                 GRID_F32_LEAF_TOL),
+                "bf16": hold_grid(f"grid {GRID_SHAPE} bf16 vs one-card k{DP_PATHS_K} split",
+                                  hist, first, ref, layout, GRID_BF16_TOL, GRID_BF16_TOL,
+                                  witness, ref32)}
+    summary = {"counts": counts_all, "walls": walls, "walls_f32": walls32, "held": held,
+               "whole": whole, "peak_bytes": peak,
+               "one_card_peak_bytes": None if ref is None else ref[2],
                "collectives": {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()},
                "coords": mesh.coords, "tokens": GRID_BATCH * cfg.seq_len, "gaps": gaps}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(summary, f)
-    del state, step
     mesh.close()
 
 
@@ -3047,36 +3083,49 @@ def leaf_gaps(a, b, layout):
                                layout.leaf_views(b.float()))}
 
 
-def hold_grid(label, hist, first, ref, witness, layout):
+def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=None):
     """Phase 10d's hold (GRID_SHAPE's note): the grid's metrics at every
     step within DP_TOL of the one-card split run ``ref``; its first-step
-    buffers within TRAIN_TOL, whole and (m, v) leaf by leaf, each gap
-    printed beside the witness's.  Returns the gaps."""
+    update, m, v and p within ``tol`` whole and ``tol_leaf`` leaf by leaf,
+    each gap printed beside the witness's (when given) and, on the worst
+    leaf, the grid's and ``ref``'s gaps to the one-card f32 run ``f32``
+    (when given: which of the two rounds nearer the f32 step).  Returns
+    the gaps."""
     out = {}
-    for i, (g, r, w) in enumerate(zip(hist, ref[0], witness[0])):
-        gg, gw = step_gaps(g, r), step_gaps(w, r)
+    for i, (g, r) in enumerate(zip(hist, ref[0])):
+        gg = step_gaps(g, r)
+        gw = step_gaps(witness[0][i], r) if witness else None
         out[f"step {i}"] = gg
         print(f"  {label} step {i}: " + "; ".join(
-            f"{k} {gg[k]:.3e} (witness {gw[k]:.3e}, DP_TOL {DP_TOL[k]})" for k in gg),
-            flush=True)
+            f"{k} {gg[k]:.3e} (" + (f"witness {gw[k]:.3e}, " if gw else "") +
+            f"DP_TOL {DP_TOL[k]})" for k in gg), flush=True)
         if any(gg[k] > DP_TOL[k] for k in gg):
             fail(f"{label} step {i}: the grid and one-card runs disagree past DP_TOL")
     for nm in ("upd", "m", "v", "p"):
-        tol = TRAIN_TOL[{"m": "mv", "v": "mv"}.get(nm, nm)]
-        whole = rel_diff(first[nm], ref[1][nm]), rel_diff(witness[1][nm], ref[1][nm])
+        whole = rel_diff(first[nm], ref[1][nm])
         per = leaf_gaps(first[nm], ref[1][nm], layout)
-        per_w = leaf_gaps(witness[1][nm], ref[1][nm], layout)
         worst = max(per, key=per.get)
-        out[nm] = {"whole": whole[0], "witness": whole[1], "worst_leaf": worst,
-                   "leaf": per[worst], "leaf_witness": per_w[worst],
-                   "witness_worst_leaf": max(per_w.values())}
+        out[nm] = {"whole": whole, "worst_leaf": worst, "leaf": per[worst]}
+        note_whole = note_leaf = ""
+        if witness:
+            per_w = leaf_gaps(witness[1][nm], ref[1][nm], layout)
+            out[nm].update(witness=rel_diff(witness[1][nm], ref[1][nm]),
+                           leaf_witness=per_w[worst], witness_worst_leaf=max(per_w.values()))
+            note_whole = f" (witness {out[nm]['witness']:.4e})"
+            note_leaf = (f" (witness {per_w[worst]:.4e}; the witness's worst leaf "
+                         f"{max(per_w.values()):.4e})")
+        if f32:
+            to32 = (leaf_gaps(first[nm], f32[1][nm], layout)[worst],
+                    leaf_gaps(ref[1][nm], f32[1][nm], layout)[worst])
+            out[nm].update(leaf_grid_to_f32=to32[0], leaf_one_card_to_f32=to32[1])
+            note_leaf += (f"; that leaf from the one-card f32 step: grid {to32[0]:.4e}, "
+                          f"one-card {to32[1]:.4e}")
         print(f"  {label} after step 0: ||{nm}_grid - {nm}_one-card|| / ||{nm}_one-card|| = "
-              f"{whole[0]:.4e} (witness {whole[1]:.4e}, TRAIN_TOL {tol}); worst leaf {worst} "
-              f"{per[worst]:.4e} (witness {per_w[worst]:.4e}; the witness's worst leaf "
-              f"{max(per_w.values()):.4e})", flush=True)
-        if whole[0] > tol or (nm in "mv" and per[worst] > tol):
+              f"{whole:.4e}{note_whole}; worst leaf {worst} {per[worst]:.4e}{note_leaf}; tol "
+              f"{tol[nm]} whole, {tol_leaf[nm]} a leaf", flush=True)
+        if whole > tol[nm] or per[worst] > tol_leaf[nm]:
             fail(f"{label}: after step 0, {nm} of the grid and one-card runs disagree past "
-                 f"TRAIN_TOL")
+                 f"{tol[nm]} whole or {tol_leaf[nm]} on a leaf")
     return out
 
 
@@ -3092,7 +3141,8 @@ def phase_train_grid(records):
     print(f"[train grid 10d] {cfg.model.name} at full width, depth cut to {cfg.model.n_layers} "
           f"layers, a ({d}, {mm}) (data, model) grid of {d * mm} gloo ranks on one card, "
           f"global batch {GRID_BATCH}, seq {cfg.seq_len}, fused plan, VR-LAMB k = {DP_PATHS_K} "
-          f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)}", flush=True)
+          f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)} in bf16, then "
+          f"{'/'.join('fresh' if f else 'stale' for f in GRID_F32_FRESH)} in f32", flush=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
@@ -3122,9 +3172,10 @@ def phase_train_grid(records):
                  if res["one_card_peak_bytes"] else "") + ")", flush=True)
         print(f"  rank {r}: launches over the three steps (each step held to grid_counts) "
               f"{ {k: c for k, c in res['counts'].items() if c} }", flush=True)
-        print(f"  rank {r}: step walls (ms, host clock) "
-              f"{', '.join(f'{x:.1f}' for x in res['walls'])}; collectives (host clock, card "
-              f"synchronized; the three steps) {coll}", flush=True)
+        print(f"  rank {r}: bf16 step walls (ms, host clock) "
+              f"{', '.join(f'{x:.1f}' for x in res['walls'])} (f32: "
+              f"{', '.join(f'{x:.1f}' for x in res['walls_f32'])}); collectives (host clock, "
+              f"card synchronized; the three bf16 steps) {coll}", flush=True)
         for k, c in res["counts"].items():
             path_counts[k] = path_counts.get(k, 0) + c
     warm = [x for res in ranks for x in res["walls"][1:]]

@@ -73,6 +73,28 @@ def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def nest_paths(flat: Dict[str, Any]):
+    """{"a/0/b": x, ...} -> {"a": [{"b": x}]}: ``tree_paths``' inverse on
+    the paths themselves (a node whose keys are all digits becomes a list)."""
+    root: Dict[str, Any] = {}
+    for path, val in flat.items():
+        node = root
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[k] for k in sorted(node, key=int)]
+        return node
+
+    return lists(root)
+
+
 def _skeleton(tree):
     if isinstance(tree, dict):
         return {k: _skeleton(v) for k, v in tree.items()}

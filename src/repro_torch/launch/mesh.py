@@ -155,12 +155,12 @@ class GridMesh:
     With ``timed`` set, each collective synchronizes the card around it and
     adds its host wall to ``walls[(kind, bytes)]`` = [ms, calls]."""
 
-    def __init__(self, data: int, model: int, rank: int, device: torch.device, backend: str,
-                 axis_names: Tuple[str, str] = ("data", "model")):
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    def __init__(self, data: int, model: int, rank: int, device: torch.device, backend: str):
         if data * model != dist.get_world_size():
             raise ValueError(f"a {data} x {model} grid needs {data * model} ranks; the process "
                              f"group has {dist.get_world_size()}")
-        self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, (data, model)))
         self.size, self.rank, self.device, self.backend = data * model, rank, device, backend
         self.coords: Dict[str, int] = dict(zip(self.axis_names, divmod(rank, model)))
@@ -261,14 +261,13 @@ class GridMesh:
 
 
 def init_grid_mesh(dist_backend: str, data: int, model: int, device=None, *,
-                   init_method: str = "env://", rank: Optional[int] = None,
-                   axis_names: Tuple[str, str] = ("data", "model")) -> GridMesh:
+                   init_method: str = "env://", rank: Optional[int] = None) -> GridMesh:
     """Join (or reuse) the default process group of ``data * model`` ranks
     over ``dist_backend`` and return this rank's GridMesh (``device`` as
     for ``init_data_mesh``: None means the card)."""
     flat = init_data_mesh(dist_backend, device, init_method=init_method,
                           world_size=None if init_method == "env://" else data * model, rank=rank)
-    return GridMesh(data, model, flat.rank, flat.device, dist_backend, axis_names)
+    return GridMesh(data, model, flat.rank, flat.device, dist_backend)
 
 
 def make_host_mesh(data: int, rank: int, init_method: str) -> DataMesh:

@@ -227,7 +227,8 @@ def attention(
     if tp is not None:
         if mode != "train":
             raise NotImplementedError("tensor-parallel attention runs in train mode only")
-        proj = lambda w: tp.col_product(tp.enter(x), w, dtype)
+        xe = tp.enter(x)
+        proj = lambda w: tp.col_product(xe, w, dtype)
     else:
         proj = lambda w: x @ w.to(dtype)
     q = proj(p["wq"]).reshape(b, s, n_heads, head_dim)

@@ -27,7 +27,8 @@ def mlp_hidden(p: Dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     columns; the input is entered (``tp.col_product``)."""
     dtype = x.dtype
     if tp is not None:
-        proj = lambda w: tp.col_product(tp.enter(x), w, dtype)
+        xe = tp.enter(x)
+        proj = lambda w: tp.col_product(xe, w, dtype)
     else:
         proj = lambda w: x @ w.to(dtype)
     h = proj(p["wi"])

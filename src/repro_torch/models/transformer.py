@@ -38,8 +38,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import BLOCK_KINDS, ModelConfig, ParallelismConfig
-from repro_torch.core.layout import (ParamLayout, _skeleton, _unflatten, stack_groups,
-                                     tree_map, tree_paths)
+from repro_torch.core.layout import (ParamLayout, _skeleton, _unflatten, nest_paths,
+                                     stack_groups, tree_map, tree_paths)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
@@ -115,33 +115,40 @@ def last_product(cfg: ModelConfig, kind: str) -> Optional[Tuple[str, str]]:
     return None if cfg.moe is not None else ("mlp", "wd")
 
 
-def _ffn(cfg: ModelConfig, p: Dict, x):
-    """(x_res, hidden, aux) of the block's feed-forward half."""
+def _ffn(cfg: ModelConfig, p: Dict, x, tp=None):
+    """(x_res, hidden, aux) of the block's feed-forward half (``tp``: the
+    MLP's d_ff split over the model axis, hidden the rank's columns)."""
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
         out, aux = moe_mod.apply_moe(p["moe"], h2, cfg.act, cfg.moe)
         return x + out, None, aux
-    return x, mlp_hidden(p["mlp"], h2, cfg.act), None
+    return x, mlp_hidden(p["mlp"], h2, cfg.act, tp=tp), None
 
 
 def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
                 q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base,
-                memory=None, causal=None):
+                memory=None, causal=None, tp=None):
     """(x_res, hidden, cache, aux) of one block.  Its output is ``x_res +
     hidden @ W`` for W at ``last_product`` (read nowhere here), or x_res
-    when hidden is None; aux holds the MoE readings, or is None."""
+    when hidden is None; aux holds the MoE readings, or is None.  ``tp``:
+    one rank of a GridMesh (a sharding/placement.py::Placement; train, the
+    dense kinds), whose model axis splits the heads and the MLP's d_ff
+    where the placement says so (``attn_tp``, ``mlp_tp``)."""
     causal = cfg.causal if causal is None else causal
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind in ATTN_FAMILY:
         window = cfg.sliding_window if kind in ("swa", "local") else 0
         eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
-        common = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        tp_attn = tp if tp is not None and tp.attn_tp else None
+        m = 1 if tp_attn is None else tp.m
+        common = dict(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
                       head_dim=cfg.resolved_head_dim, q_pos=q_pos, mode=mode,
                       attn_chunk=pcfg.attn_chunk, backend=pcfg.backend)
         out, c_self = attn_mod.attention(
             p["attn"], h, rope_theta=cfg.rope_theta, causal=causal, window=window,
             cache=None if cache is None else cache["self"], cache_len=eff_cache_len,
-            implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base, **common,
+            implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base, tp=tp_attn,
+            **common,
         )
         x = x + out
         new_cache = None if mode == "train" else {"self": c_self}
@@ -153,7 +160,7 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
             x = x + out
             if new_cache is not None:
                 new_cache["cross"] = c_cross
-        x, hidden, aux = _ffn(cfg, p, x)
+        x, hidden, aux = _ffn(cfg, p, x, tp=tp if tp is not None and tp.mlp_tp else None)
         return x, hidden, new_cache, aux
     if kind == "rec":
         out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode)
@@ -172,11 +179,17 @@ def _leaf(p: Dict, path):
     return p
 
 
-def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, **kw):
-    """(x, cache, aux) of one block."""
-    x, hidden, c, aux = _block_body(cfg, pcfg, kind, p, x, **kw)
+def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, tp=None,
+                 **kw):
+    """(x, cache, aux) of one block (``tp`` as for ``_block_body``: the
+    last product is then the row product summed over the model axis)."""
+    x, hidden, c, aux = _block_body(cfg, pcfg, kind, p, x, tp=tp, **kw)
     if hidden is not None:
-        x = x + hidden @ _leaf(p, last_product(cfg, kind)).to(x.dtype)
+        w = _leaf(p, last_product(cfg, kind))
+        if tp is not None and tp.mlp_tp:
+            x = x + tp.row_product(hidden, w)
+        else:
+            x = x + hidden @ w.to(x.dtype)
     return constrain(x, ("batch", None, None)), c, aux
 
 
@@ -375,6 +388,18 @@ def _resolve_memory(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, ext
     return None
 
 
+def _q_pos(tokens: torch.Tensor, positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, S) int32 query positions: arange(S), (B,) offsets plus it, or
+    the given (B, S)."""
+    b, s = tokens.shape
+    ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if positions is None:
+        return ar[None, :].expand(b, s)
+    if positions.ndim == 1:
+        return positions.to(torch.int32)[:, None] + ar[None, :]
+    return positions.to(torch.int32)
+
+
 def forward(
     cfg: ModelConfig,
     pcfg: ParallelismConfig,
@@ -407,15 +432,8 @@ def forward(
     readings {moe_lb_loss, moe_z_loss, moe_util} summed over the layers
     and divided by max(1, n_layers) (zeros without MoE)."""
     dtype = getattr(torch, pcfg.compute_dtype)
-    b, s = tokens.shape
     implicit_layout = positions is None
-    ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    if positions is None:
-        q_pos = ar[None, :].expand(b, s)
-    elif positions.ndim == 1:
-        q_pos = positions.to(torch.int32)[:, None] + ar[None, :]
-    else:
-        q_pos = positions.to(torch.int32)
+    q_pos = _q_pos(tokens, positions)
     use_cache_in = cache is not None and mode in ("decode", "prefill")
     if mode == "decode" and cache is not None and "memory" in cache:
         memory = cache["memory"]
@@ -499,8 +517,9 @@ class _RematGrid(torch.autograd.Function):
     and keeps only its inputs (no gathered weight outlives the call);
     backward reruns it under autograd, gathering again, and pulls ``dy``
     back to x and the blocks, whose gathers' adjoints reduce the weight
-    gradients into the rank's blocks.  Plain autograd only: the grid runs
-    no ``torch.func`` transform."""
+    gradients into the rank's blocks.  Plain autograd only: ``_RematWhole``'s
+    ``torch.func.vjp`` refuses the gathers' autograd Functions (they define
+    no ``setup_context``), and the grid runs no ``torch.func`` transform."""
 
     @staticmethod
     def forward(ctx, fn, x, *leaves):
@@ -519,39 +538,6 @@ class _RematGrid(torch.autograd.Function):
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
 
-def _nest(flat: Dict[str, Any]) -> Dict:
-    """{"pos0/attn/wq": t, ...} -> {"pos0": {"attn": {"wq": t}}}."""
-    root: Dict[str, Any] = {}
-    for path, val in flat.items():
-        node = root
-        *parents, leaf = path.split("/")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = val
-    return root
-
-
-def _block_grid(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, pl, **kw):
-    """One dense block on a GridMesh: the attention's heads and the MLP's
-    d_ff split over the model axis where the placement says so (column
-    products on the entered input, the row product summed over the model
-    axis in f32), the norms and residual computed replicated."""
-    h = apply_norm(p["ln1"], x, cfg.norm)
-    m = pl.m if pl.attn_tp else 1
-    out, _ = attn_mod.attention(
-        p["attn"], h, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
-        window=cfg.sliding_window if kind in ("swa", "local") else 0, mode="train",
-        attn_chunk=pcfg.attn_chunk, backend=pcfg.backend, tp=pl if pl.attn_tp else None, **kw)
-    x = x + out
-    h2 = apply_norm(p["ln2"], x, cfg.norm)
-    if pl.mlp_tp:
-        x = x + pl.row_product(mlp_hidden(p["mlp"], h2, cfg.act, tp=pl), p["mlp"]["wd"])
-    else:
-        x = x + mlp_hidden(p["mlp"], h2, cfg.act) @ p["mlp"]["wd"].to(x.dtype)
-    return constrain(x, ("batch", None, None))
-
-
 def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: torch.Tensor,
                  placement, *, positions: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict]:
@@ -568,15 +554,8 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     MoE readings, zero."""
     pl, whole = placement, tree["whole"]
     dtype = getattr(torch, pcfg.compute_dtype)
-    b, s = tokens.shape
-    if positions is None:
-        q_pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
-    elif positions.ndim == 1:
-        q_pos = positions.to(torch.int32)[:, None] + torch.arange(
-            s, dtype=torch.int32, device=tokens.device)[None, :]
-    else:
-        q_pos = positions.to(torch.int32)
-    kw = dict(q_pos=q_pos, implicit_layout=positions is None, q_seg=None, seg_base=None)
+    kw = dict(q_pos=_q_pos(tokens, positions), cache=None, mode="train", cache_len=0,
+              implicit_layout=positions is None, q_seg=None, seg_base=None, tp=pl)
     use = lambda path: pl.use(whole[path], path)
     x = constrain(pl.embed(use("embed/embed"), tokens, dtype), ("batch", None, None))
 
@@ -593,9 +572,9 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         flat = {name: pl.use(leaf, f"groups/{name}", 1) for name, leaf in zip(names, leaves)}
         for name, t in zip(sorted(held), leaves[n_in:]):
             flat[name] = t if pl.stacked else pl.use(t, held[name])
-        gp = _nest(flat)
+        gp = nest_paths(flat)
         for i, kind in enumerate(cfg.block_pattern):
-            xx = _block_grid(cfg, pcfg, kind, gp[f"pos{i}"], xx, pl, **kw)
+            xx = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **kw)[0]
         return xx
 
     remat_on = pcfg.remat and torch.is_grad_enabled()
@@ -605,10 +584,11 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         x = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
     for ti, kind in enumerate(cfg.tail_kinds()):
         prefix = f"tail/{ti}/"
-        p = _nest({path[len(prefix):]: use(path) for path in whole if path.startswith(prefix)})
-        x = _block_grid(cfg, pcfg, kind, p, x, pl, **kw)
-    x = apply_norm(_nest({path.split("/", 1)[1]: use(path) for path in whole
-                          if path.startswith("final_norm/")}), x, cfg.norm)
+        p = nest_paths({path[len(prefix):]: use(path) for path in whole
+                        if path.startswith(prefix)})
+        x = _block_apply(cfg, pcfg, kind, p, x, **kw)[0]
+    x = apply_norm(nest_paths({path.split("/", 1)[1]: use(path) for path in whole
+                               if path.startswith("final_norm/")}), x, cfg.norm)
     if cfg.tie_embeddings:
         logits = pl.logits(x, use("embed/embed"), tied=True)
     else:

@@ -37,6 +37,14 @@ product's sum of the f32 partial products over the model axis before the
 cast (``reduce``: all-reduce forward, identity backward).  Where the model
 axis cannot split the compute (a head or vocab count it does not divide),
 the weights are gathered whole and the compute is replicated.
+
+Precision.  Every tensor-parallel GEMM takes its operands in the compute
+dtype, as one card's does.  Its result is f32 only where the model axis
+sums partials across the ranks: the row product's forward and the column
+products' input gradient (``mm_f32``: f32 accumulation rounded once to
+f32), so each such sum is rounded to the compute dtype once, as one card's
+single GEMM is.  The column products' forward and every weight gradient
+stay in the compute dtype.
 """
 from __future__ import annotations
 
@@ -215,6 +223,60 @@ class _Reduce(torch.autograd.Function):
         return g, None, None
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a (..., k), b (k, n)) as f32: operands in a lower
+    precision multiply as they are and accumulate in f32, rounded once to
+    f32 (``torch.mm``'s ``out_dtype`` on the card; on the CPU the f32
+    product of the same operands); f32 operands multiply as they are."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+class _ColProduct(torch.autograd.Function):
+    """``x @ w`` of an entered f32 ``x`` (values of ``w``'s dtype) and the
+    rank's columns ``w`` in the compute dtype: the product in that dtype
+    forward, as one card takes it; backward the input gradient's partial
+    product in f32 (``enter`` sums it over the model axis), the weight's in
+    the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xc = x.to(w.dtype)
+        ctx.save_for_backward(xc, w)
+        return xc @ w
+
+    @staticmethod
+    def backward(ctx, dy):
+        xc, w = ctx.saved_tensors
+        return mm_f32(dy, w.T), _rows(xc).T @ _rows(dy)
+
+
+class _RowProduct(torch.autograd.Function):
+    """``h @ w`` of the rank's input columns ``h`` and its rows ``w`` of a
+    row-parallel weight, both in the compute dtype: the f32 partial product
+    forward (summed over the model axis before the cast); backward in the
+    compute dtype, as one card's product."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return mm_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        dy = dy.to(h.dtype)
+        return dy @ w.T, _rows(h).T @ _rows(dy)
+
+
 def _map2(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map2(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
@@ -314,15 +376,16 @@ class Placement:
     # -- the tensor-parallel regions -----------------------------------------
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """The input of a column-parallel region, in f32: its gradient is
-        summed over the model axis in f32, then cast once."""
+        """The input of a column-parallel region, as f32: the f32 partials of
+        its gradient (``col_product``'s) are summed over the model axis,
+        then cast once."""
         return _Enter.apply(x.float(), self.mesh, self.tp)
 
     def col_product(self, x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-        """``x @ w`` for an entered (f32) ``x`` and the rank's columns ``w``
-        rounded to ``dtype`` first (as the single-device product rounds the
-        weight), accumulated in f32 and cast to ``dtype`` once."""
-        return (x @ w.to(dtype).float()).to(dtype)
+        """``x @ w`` for an entered ``x`` and the rank's columns ``w``
+        rounded to ``dtype`` (as the single-device product rounds the
+        weight), in ``dtype`` (``_ColProduct``)."""
+        return _ColProduct.apply(x, w.to(dtype))
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _Reduce.apply(x, self.mesh, self.tp)
@@ -333,8 +396,8 @@ class Placement:
         rows of w (rounded to h's dtype as the single-device product rounds
         the weight), summed over the model axis in f32, cast once."""
         f = w.shape[0] // self.m
-        rows = w.narrow(0, self.j * f, f).to(h.dtype).float()
-        return self.reduce(h.float() @ rows).to(h.dtype)
+        rows = w.narrow(0, self.j * f, f).to(h.dtype)
+        return self.reduce(_RowProduct.apply(h, rows)).to(h.dtype)
 
     def vocab_offset(self) -> int:
         return self.j * (self.cfg.vocab_size // self.m)

@@ -56,7 +56,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import (FlatBuffer, FlatParams, GridParams, ParamLayout, is_flat,
-                                     stack_groups)
+                                     nest_paths, stack_groups)
 
 
 def _tensor(a, device, dtype):
@@ -96,31 +96,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cpu", dtyp
     return out
 
 
-def _nest(flat: Dict[str, np.ndarray]):
-    root: Dict[str, Any] = {}
-    for path, arr in flat.items():
-        node = root
-        *parents, leaf = path.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = arr
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: lists(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
-            return [node[k] for k in sorted(node, key=int)]
-        return node
-
-    return lists(root)
-
-
 def load_npz(path: str, cfg: ModelConfig, device="cpu", dtype=None) -> Dict:
     """Read a reference-format .npz params checkpoint into the port's tree."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return params_from_numpy(_nest(flat), cfg, device=device, dtype=dtype)
+    return params_from_numpy(nest_paths(flat), cfg, device=device, dtype=dtype)
 
 
 def save_npz(path: str, params: Dict, cfg: ModelConfig) -> None:

@@ -167,53 +167,6 @@ def _refuse_on_grid(cfg: Config, noise_scale: bool) -> None:
         raise NotImplementedError(f"{what} on a GridMesh is not ported yet ({ROADMAP_REST})")
 
 
-def _grid_step(cfg: Config, loss_fn: Optional[Callable], log_gsnr: bool, mesh: GridMesh,
-               device, noise_scale: bool):
-    """make_train_step on a GridMesh (the module note)."""
-    _refuse_on_grid(cfg, noise_scale)
-    o, bk = cfg.optimizer, cfg.parallel.backend
-    if bk.resolve("stats", device) != bk.resolve("optimizer", device):
-        raise NotImplementedError("a mixed stats/optimizer plan runs on one device only")
-    pl, spmd = grid_plan(cfg, mesh)
-    loss_fn = loss_fn or make_loss_fn(cfg, placement=pl)
-    if getattr(loss_fn, "placement", None) is None:
-        raise ValueError("on a GridMesh the loss function must run the grid's forward: "
-                         "train/loss.py::make_loss_fn(cfg, placement)")
-    opt = make_optimizer(o, backend=bk, effective_batch=cfg.global_batch, spmd=spmd)
-    fused_opt = bk.fused("optimizer", device)
-    grid = mesh.axis(mesh.axis_names)
-
-    def train_step(state: TrainState, batch, with_stats: bool = True):
-        params: GridParams = state.params
-        batch = _to_device(batch, params.device)
-        loss, aux, stats = grad_stats(loss_fn, params, batch, o.k, squares=with_stats,
-                                      backend=bk, spmd=spmd)
-        grads = stats.mean
-        if not with_stats:
-            stats = None
-        gnorm = spmd.norm(grads)
-        if o.grad_clip > 0:
-            scale = torch.clamp(o.grad_clip / (gnorm + 1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
-        w = FlatBuffer(params.data, params.layout, params.shard) if fused_opt \
-            else params.stacked()
-        with torch.no_grad():
-            upd, opt_state = opt.update(grads, state.opt_state, w, stats=stats)
-            tree_map(lambda p, u: p.add_(u), w, upd)  # the rank's own blocks
-            unorm = spmd.norm(upd)
-        metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": unorm, **aux}
-        if log_gsnr and stats is not None:
-            with torch.no_grad():
-                if not is_flat(stats.mean):  # the reference plan's trees of the blocks
-                    pack = lambda t: FlatBuffer(params.local_layout.pack(t), params.layout,
-                                                params.shard)
-                    stats = stats._replace(mean=pack(stats.mean), sq_mean=pack(stats.sq_mean))
-                metrics.update(gsnr_summary_rows(stats, o.gamma, grid))
-        return state._replace(opt_state=opt_state, step=opt_state["step"]), metrics
-
-    return train_step, opt
-
-
 def make_train_step(
     cfg: Config,
     loss_fn: Optional[Callable] = None,
@@ -230,7 +183,11 @@ def make_train_step(
     ``with_stats=False`` makes a VR step stale.  Metrics are 0-dim tensors:
     loss, grad_norm, update_norm, the loss's own (ce, pack_efficiency) and,
     with ``log_gsnr`` on a fresh VR step, gsnr/mean, gsnr/min and
-    gsnr/frac_floor; under a mesh they are the same on every rank.
+    gsnr/frac_floor; under a mesh they are the same on every rank.  On a
+    GridMesh ``state.params`` is the rank's GridParams, ``loss_fn`` must
+    run the grid's forward (``make_loss_fn(cfg, placement)``, the default)
+    and only VR-LAMB with the microbatch source and the scan method runs
+    (the module note).
 
     ``noise_scale=True`` adds ``lr`` (a float: the schedule at
     ``state.step`` for the effective batch ``cfg.global_batch``) to every
@@ -241,8 +198,9 @@ def make_train_step(
     sums on the data-axis source."""
     opt_cfg = cfg.optimizer
     device = _device_of(device, mesh)
-    if isinstance(mesh, GridMesh):
-        return _grid_step(cfg, loss_fn, log_gsnr, mesh, device, noise_scale)
+    grid = isinstance(mesh, GridMesh)
+    if grid:
+        _refuse_on_grid(cfg, noise_scale)
     bk = cfg.parallel.backend
     if mesh is not None and bk.resolve("stats", device) != bk.resolve("optimizer", device):
         raise NotImplementedError(
@@ -250,9 +208,17 @@ def make_train_step(
             f"({bk.resolve('stats', device)} / {bk.resolve('optimizer', device)}) runs on one "
             "device only: under a mesh the flat carry and update hold a rank's rows, which "
             "do not cross into the tree form (the reference's mixed plans are single-device)")
-    spmd = _shard_plan(bk, mesh)
+    if grid:  # the rank's blocks; per-leaf sums count a replicated leaf once
+        placement, spmd = grid_plan(cfg, mesh)
+        norm, rows_mesh = spmd.norm, mesh.axis(mesh.axis_names)
+    else:
+        placement, spmd = None, _shard_plan(bk, mesh)
+        norm, rows_mesh = (lambda t: global_norm(t, mesh)), mesh
     opt = make_optimizer(opt_cfg, backend=bk, effective_batch=cfg.global_batch, spmd=spmd)
-    loss_fn = loss_fn or make_loss_fn(cfg)
+    loss_fn = loss_fn or make_loss_fn(cfg, placement=placement)
+    if grid and getattr(loss_fn, "placement", None) is None:
+        raise ValueError("on a GridMesh the loss function must run the grid's forward: "
+                         "train/loss.py::make_loss_fn(cfg, placement)")
     is_vr = opt_cfg.is_vr
     # the reference's use_device_stats: data_axis without a mesh falls back
     # to the microbatch source
@@ -269,7 +235,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, with_stats: bool = True
                    ) -> Tuple[TrainState, Dict]:
-        flat: FlatParams = state.params
+        flat = state.params  # a FlatParams, or a GridParams on a GridMesh
         batch = _to_device(batch, flat.device)
         noise = None
         if is_vr and with_stats and device_stats is not None:
@@ -293,25 +259,29 @@ def make_train_step(
             grads = stats.mean
             if not with_stats:
                 stats = None
-        gnorm = global_norm(grads, mesh)
+        gnorm = norm(grads)
         if opt_cfg.grad_clip > 0:
             scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
-        w = FlatBuffer(flat.data, flat.layout) if flat_form else flat.stacked()
+        w = FlatBuffer(flat.data, flat.layout, getattr(flat, "shard", None)) if flat_form \
+            else flat.stacked()
         with torch.no_grad():
             upd, opt_state = opt.update(grads, state.opt_state, w, stats=stats)
+            unorm = norm(upd)
             shard = getattr(upd, "shard", None)
-            if shard is None:
+            if shard is None or grid:  # the whole params, or the rank's own blocks
                 tree_map(lambda p, u: p.add_(u), w, upd)
-                unorm = global_norm(upd)
-            else:  # the rank's rows: one scalar all-reduce, then every rank's rows
-                unorm = global_norm(upd, mesh)
+            else:  # the rank's rows: every rank's rows gathered
                 flat.data.add_(shard.gather(upd.data, mesh))
         metrics = {"loss": loss, "grad_norm": gnorm, "update_norm": unorm, **aux}
         if log_gsnr and stats is not None:
             with torch.no_grad():
+                if grid and not is_flat(stats.mean):  # the reference plan's trees of blocks
+                    pack = lambda t: FlatBuffer(flat.local_layout.pack(t), flat.layout,
+                                                flat.shard)
+                    stats = stats._replace(mean=pack(stats.mean), sq_mean=pack(stats.sq_mean))
                 if getattr(stats.mean, "shard", None) is not None:
-                    metrics.update(gsnr_summary_rows(stats, opt_cfg.gamma, mesh))
+                    metrics.update(gsnr_summary_rows(stats, opt_cfg.gamma, rows_mesh))
                 else:
                     metrics.update(gsnr_summary(gsnr_scale(stats, opt_cfg.gamma),
                                                 opt_cfg.gamma))

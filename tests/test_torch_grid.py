@@ -406,3 +406,55 @@ def test_grid_checkpoint_restores_whole_and_into_the_grid(grid_runs):
     live = pad_mask(back.params.layout)
     for nm in "mvp":
         assert torch.equal(back.opt_state[nm].data[live], last["opt_state"][nm].data[live]), nm
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tensor_parallel_products_round_as_one_card(dtype):
+    """placement.py's column and row products over M = 2 splits, the model
+    axis's sums taken in one process, against one card's products in
+    ``dtype``: the column products' outputs and weight gradients are one
+    card's columns; their input gradients' f32 partials sum to the f32
+    product (rtol 1e-5) and, cast once, to one card's input gradient; the
+    row products' f32 partials sum to the f32 product and, cast once, to
+    one card's output; their gradients are one card's rows.  "One card's"
+    within one rounding of ``dtype`` (assert_close's defaults for it)."""
+    from repro_torch.sharding.placement import _ColProduct, _RowProduct
+
+    g = torch.Generator().manual_seed(0)
+    x, w, dy = (torch.randn(*s, generator=g).to(dtype) for s in ((2, 8, 32), (32, 48), (2, 8, 48)))
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = xr @ wr
+    y.backward(dy)
+    m, n = 2, 48 // 2
+    xe = x.float().requires_grad_(True)
+    for j in range(m):
+        cols = slice(j * n, (j + 1) * n)
+        wj = w[:, cols].clone().requires_grad_(True)
+        yj = _ColProduct.apply(xe, wj)
+        assert yj.dtype == dtype
+        torch.testing.assert_close(yj, y[..., cols].detach())
+        yj.backward(dy[..., cols])
+        torch.testing.assert_close(wj.grad, wr.grad[:, cols])
+    assert xe.grad.dtype == torch.float32
+    torch.testing.assert_close(xe.grad, dy.float() @ w.float().T, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xe.grad.to(dtype), xr.grad)
+
+    h = y.detach()  # (2, 8, 48) into a (48, 32) row-parallel weight
+    wd = torch.randn(48, 32, generator=g).to(dtype)
+    hr, wdr = h.clone().requires_grad_(True), wd.clone().requires_grad_(True)
+    out = hr @ wdr
+    dz = torch.randn(out.shape, generator=g).to(dtype)
+    out.backward(dz)
+    total = 0.0
+    for j in range(m):
+        rows = slice(j * n, (j + 1) * n)
+        hj = h[..., rows].clone().requires_grad_(True)
+        wdj = wd[rows].clone().requires_grad_(True)
+        part = _RowProduct.apply(hj, wdj)
+        assert part.dtype == torch.float32
+        part.backward(dz.float())
+        torch.testing.assert_close(hj.grad, hr.grad[..., rows])
+        torch.testing.assert_close(wdj.grad, wdr.grad[rows])
+        total = total + part.detach()
+    torch.testing.assert_close(total, h.float() @ wd.float(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(total.to(dtype), out.detach())
