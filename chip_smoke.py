@@ -119,7 +119,14 @@ Phases, in order; any failure exits non-zero:
                 the whole layout on the step's path, its peak memory,
                 launches per step (K1 16, K2 8, K3 4, K4 1, K13 1, K16 1,
                 trust_apply 1; stale: K9 4, trust_apply 1), every leaf's
-                replicas equal, each collective's wall by kind and size.
+                replicas equal, each collective's wall by kind and size;
+                then, in f32 in the same ranks, each other optimizer
+                (VR-Adam fresh and stale), VR-LAMB by the vmap method and
+                by the data-axis source with the noise readings, each
+                against its one-card f32 run (GRID_PATHS: launches per
+                step, buffers within DP_TOL or GRID_UPD_ROUNDED, the
+                data-axis moments within GRID_MOMENT_TOL, noise within
+                DP_TOL["gsnr"]).
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -2908,6 +2915,122 @@ GRID_F32_TOL = {"upd": DP_TOL["upd"], "m": DP_TOL["mv"], "v": DP_TOL["mv"], "p":
 GRID_F32_LEAF_TOL = {nm: DP_TOL["mv"] for nm in GRID_F32_TOL}
 
 
+# Phase 10d's other training paths (run after the VR-LAMB steps, in the same
+# four ranks): each of the other nine optimizers on the fused plan (two
+# steps; VR-Adam fresh, stale, fresh), VR-LAMB with the vmap method and
+# VR-LAMB with the data-axis source, one fresh step each with the noise
+# readings, all in f32, each held against the one-card f32 run of the same
+# path as hold_grid holds the VR-LAMB f32 step (GRID_F32_TOL, leaf by leaf
+# GRID_F32_LEAF_TOL): the one-card run takes each group in the data ranks'
+# rows (rank_split_loss), the vmap run by the vmap method, the data-axis
+# run at k = D with plain groups (each data rank's rows are one group).
+# The noise readings g2_small, g2_big and tr_sigma are held to DP_TOL's
+# gsnr bound relative; b_simple is printed beside the one-card value.
+# Each optimizer takes one step and VR-Adam a fresh and a stale one (whose
+# update reads the state the first wrote): with two steps each and VR-Adam
+# fresh, stale, fresh, the new runs took 100-110 s of 10d on the H100
+# (PERF.md), past a 60 s budget; the second steps' reading of
+# the state is held on the CPU (tests/test_torch_grid_paths.py, two steps
+# each against the JAX step).  Each rank runs the one-card references of
+# its share of the cases (rank i the i-th, (i + 4)-th, ...) before the
+# grid's runs, and holds them.
+# The data-axis run (k = D = 2) holds its metrics and its moments: mean
+# and sq_mean gathered whole against the one-card k = 2 step's, whole and
+# leaf by leaf within GRID_MOMENT_TOL (a square taken after the data axis's
+# sum, a missing 1/D or a replicated leaf counted twice moves a leaf's
+# moments by ~100 %).  Its update, m, v and p are printed beside a witness,
+# not held: at k = 2 the GSNR of an element is ((g0 + g1) / (g0 - g1))^2,
+# a few cancelling elements set a leaf's mean of r, and any rounding of the
+# groups' gradients moves that leaf's r.  The witness, the one-card k = 2
+# run with each group taken in the data ranks' halves (rank_split_loss),
+# read final_norm/bias's m 5.84e-2 and ln1/bias's 1.56e-2 from the plain
+# one-card run (the grid 5.85e-2, 7.7e-3; PERF.md).
+GRID_BASELINES = ("sgd", "momentum", "adam", "lars", "lamb")
+GRID_PATHS = {  # case -> (optimizer, OptimizerConfig overrides, fresh flags, noise_scale)
+    **{name: (name, {}, (True,), False)
+       for name in GRID_BASELINES + ("vr_sgd", "vr_momentum", "vr_lars")},
+    "vr_adam": ("vr_adam", {"gsnr_refresh": 2}, (True, False), False),
+    "vr_lamb vmap": ("vr_lamb", {"stats_method": "vmap"}, (True,), True),
+    "vr_lamb data_axis": ("vr_lamb", {"gsnr_source": "data_axis"}, (True,), True),
+}
+GRID_UPDATE = {"vr_sgd": "vr_scale_apply", "vr_momentum": "vr_scale_apply",
+               "vr_adam": "vr_adam_apply", "vr_lamb": "vr_lamb_compute",
+               "vr_lars": "vr_lars_compute"}
+NOISE_HELD = ("g2_small", "g2_big", "tr_sigma")
+# The first update of SGD, Momentum, LARS and their VR forms at warm-up step
+# 0 is ~1e-10 an element, below half an ulp of most weights, so the change
+# of the f32 params is rounding quanta whose flips follow the update's last
+# bits (TRAIN_TOL's note). The first chip run (H100 80GB HBM3, 700 W) read
+# worst leaves 3.07e-3 (SGD, Momentum), 4.66e-3 (LARS) and 4.74e-3 (VR-SGD,
+# VR-Momentum), whole 1.97e-3 at most, within a hair of DP_TOL: their
+# update gets a bound of its own, about three times those; their m (r ga,
+# or LARS's trusted direction) is held to DP_TOL.
+GRID_UPD_ROUNDED = 0.015
+# The data-axis moments against the one-card k = 2 step's: f32 sums in
+# another order (the CPU test reads ~8.5e-7 whole at smoke size).
+GRID_MOMENT_TOL = DP_TOL["p"]
+GRID_ROUNDED = ("sgd", "momentum", "lars", "vr_sgd", "vr_momentum", "vr_lars")
+
+
+def grid_path_counts(n_layers, k, case, fresh):
+    """Launches of one rank's fused step of a GRID_PATHS case: one backward
+    pass for a baseline, the data-axis source and the vmap method (whose
+    groups run without remat on the grid: K1 once per layer), k otherwise;
+    K10 for the vmap method, K11 once for the data-axis source, K3/K4 (K9
+    on a stale step) for the scan; K13 and the update's kernel on a fresh
+    VR step, the trust epilogue for LAMB and LARS; none for a baseline."""
+    name, opt = GRID_PATHS[case][:2]
+    vmap = opt.get("stats_method") == "vmap"
+    data_axis = opt.get("gsnr_source") == "data_axis" and fresh
+    if name in GRID_BASELINES or vmap or data_axis:
+        want = fused_counts(n_layers, k, carry=None, backward_passes=1)
+    else:
+        want = fused_counts(n_layers, k, carry="moments" if fresh else "g")
+    if name in GRID_BASELINES:
+        return want
+    if vmap:
+        want.update(flash_attention_fwd=n_layers, flat_vmap_moments=1)
+    elif data_axis:
+        want["flat_pack_square"] = 1
+    if fresh:
+        want.update(leaf_r_partials=1, **{GRID_UPDATE[name]: 1})
+    if name in ("vr_lamb", "vr_lars"):
+        want["trust_apply"] = 1
+    return want
+
+
+def hold_moments(label, moments, layout):
+    """The data-axis step's moments (mean, sq_mean) gathered whole against
+    the one-card k = D step's, whole and leaf by leaf within
+    GRID_MOMENT_TOL."""
+    out = {}
+    for nm, a, b in zip(("mean", "sq_mean"), *moments):
+        whole, per = rel_diff(a, b), leaf_gaps(a, b, layout)
+        worst = max(per, key=per.get)
+        out[nm] = {"whole": whole, "worst_leaf": worst, "leaf": per[worst]}
+        print(f"  {label} step 0's {nm}: ||grid - one-card|| / ||one-card|| = {whole:.4e}; "
+              f"worst leaf {worst} {per[worst]:.4e}; tol {GRID_MOMENT_TOL} whole and a leaf",
+              flush=True)
+        if whole > GRID_MOMENT_TOL or per[worst] > GRID_MOMENT_TOL:
+            fail(f"{label}: the data-axis moments ({nm}) of the grid and one-card steps "
+                 "disagree")
+    return out
+
+
+def hold_noise(label, got, ref):
+    """The noise readings of a grid step against the one-card run's: the
+    held ones within DP_TOL["gsnr"] relative, b_simple printed beside."""
+    gaps = {k: abs(got[f"noise/{k}"] - ref[f"noise/{k}"]) / abs(ref[f"noise/{k}"])
+            for k in NOISE_HELD}
+    print(f"  {label} noise: " + "; ".join(
+        f"{k} {got[f'noise/{k}']:.6e} (one card {ref[f'noise/{k}']:.6e}, rel {gaps[k]:.3e})"
+        for k in NOISE_HELD) + f"; b_simple {got['noise/b_simple']:.6e} (one card "
+        f"{ref['noise/b_simple']:.6e}; printed, not held); tol {DP_TOL['gsnr']}", flush=True)
+    if any(g > DP_TOL["gsnr"] for g in gaps.values()):
+        fail(f"{label}: the noise readings of the grid and one-card runs disagree")
+    return gaps
+
+
 def grid_counts(n_layers, k, fresh):
     """Launches of one rank's fused grid VR-LAMB step: K1 twice and K2 once
     per layer per microbatch (the rank's heads), K3 per microbatch and K4
@@ -2924,8 +3047,10 @@ def grid_rank(rank, init, out_dir):
     """One rank of phase 10d's (2, 2) grid on card 0 (gloo).  Rank 0 first
     runs the one-card steps; then every rank runs the bf16 grid steps and
     the f32 ones (launches held per step), rank 0 holds them (GRID_SHAPE's
-    note), and each rank writes its counts, walls, collective walls, held
-    elements and peak memory to out_dir."""
+    note); then each of GRID_PATHS the same way, one at a time (its
+    one-card run on rank 0, the grid's steps, rank 0's hold).  Each rank
+    writes its counts, walls, collective walls, held elements and peak
+    memory to out_dir."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2955,11 +3080,12 @@ def grid_rank(rank, init, out_dir):
         f = torch.tensor([0.0 if ok else 1.0], device=dev)
         return float(mesh.all_reduce_(f)) == 0.0
 
-    def one_card(cfg, loss, fresh_seq):
-        """(metrics per step, the first step's update and m, v, p on the
-        leaf elements, peak bytes) of the one-card run with ``loss``."""
+    def one_card(cfg, loss, fresh_seq, noise=False):
+        """(metrics per step, the first step's update and the m, v, p it has
+        on the leaf elements, peak bytes) of the one-card run with
+        ``loss``."""
         state = init_state(cfg, params=params(), device=dev)
-        step = make_train_step(cfg, loss, log_gsnr=True, device=dev)[0]
+        step = make_train_step(cfg, loss, log_gsnr=True, device=dev, noise_scale=noise)[0]
         hist, first = [], {}
         torch.cuda.reset_peak_memory_stats()
         for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
@@ -2970,7 +3096,7 @@ def grid_rank(rank, init, out_dir):
                 live = pad_mask(state.params.layout, dev)
                 first = {"upd": torch.where(live, state.params.data - w0, 0.0).cpu(),
                          **{nm: torch.where(live, flat_state(state, nm), 0.0).cpu()
-                            for nm in "mvp"}}
+                            for nm in "mvp" if nm in state.opt_state}}
                 del w0, live
         peak = torch.cuda.max_memory_allocated()
         del state, step
@@ -2987,23 +3113,26 @@ def grid_rank(rank, init, out_dir):
         ref32 = one_card(cfg32, split(cfg32), GRID_F32_FRESH)
     flag_all(True)  # a barrier
 
-    def grid_run(cfg, fresh_seq, tag, timed):
-        """(state, metrics per step, the first step's update and m, v, p
-        whole on rank 0, step walls, launches, peak bytes after init) of the
-        grid's steps."""
+    def grid_run(cfg, fresh_seq, tag, timed, want_fn=None, noise=False, holder=0):
+        """(state, metrics per step, the first step's update and the m, v, p
+        it has whole on rank ``holder``, step walls, launches, peak bytes
+        after init) of the grid's steps; ``want_fn(fresh)`` gives a step's
+        launches (default: the VR-LAMB scan step's, grid_counts)."""
+        from repro_torch.core.layout import is_flat
+
         state = init_state(cfg, params=params(), device=dev, mesh=mesh)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         gp = state.params
-        step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh)[0]
+        step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh, noise_scale=noise)[0]
         mesh.timed = timed
         hist, first, walls, counts_all = [], {}, [], {}
         for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
-            w0 = gp.gather() if i == 0 else None
+            w0 = gp.data.clone() if i == 0 else None
             reset_counts()
             (state, metrics), ms = host_ms(lambda: step(state, batch, fresh))
             counts = read_counts()
-            want = grid_counts(m.n_layers, DP_PATHS_K, fresh)
+            want = (want_fn or (lambda f: grid_counts(m.n_layers, DP_PATHS_K, f)))(fresh)
             if counts != want:
                 raise RuntimeError(f"{label} {tag} step {i}: launches {counts} != {want}")
             for k, c in counts.items():
@@ -3015,15 +3144,16 @@ def grid_rank(rank, init, out_dir):
             hist.append(vals)
             if i == 0:  # every rank takes part in the gathers
                 mesh.timed = False
-                upd = (gp.gather() - w0).cpu()
-                gathered = {nm: gp.shard.gather(state.opt_state[nm].data).float().cpu()
-                            for nm in "mvp"}
-                first = {"upd": upd, **gathered} if rank == 0 else {}
+                upd = gp.shard.gather(gp.data - w0).cpu()
+                gathered = {nm: gp.shard.gather(
+                    x.data if is_flat(x) else gp.local_layout.pack(x)).float().cpu()
+                    for nm, x in state.opt_state.items() if nm in "mvp"}
+                first = {"upd": upd, **gathered} if rank == holder else {}
                 del w0, upd, gathered
                 mesh.timed = timed
             if rank == 0:
                 gsnr = f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else \
-                    " (stale)"
+                    " (stale)" if not fresh else ""
                 print(f"  {label} {tag} step {i}: {ms:.1f} ms, loss {vals['loss']:.5f} "
                       f"|g| {vals['grad_norm']:.4f} |upd| {vals['update_norm']:.4e}{gsnr}; "
                       f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
@@ -3061,9 +3191,88 @@ def grid_rank(rank, init, out_dir):
                 "bf16": hold_grid(f"grid {GRID_SHAPE} bf16 vs one-card k{DP_PATHS_K} split",
                                   hist, first, ref, layout, GRID_BF16_TOL, GRID_BF16_TOL,
                                   witness, ref32)}
+    one_card_peak = None if ref is None else ref[2]
+    del ref, witness, ref32
+    def data_axis_moments(c, holder):
+        """The data-axis source's step-0 moments on the grid, gathered whole,
+        and the one-card k = D step's, on ``holder`` (None elsewhere)."""
+        from repro_torch.core.accumulate import grad_stats
+        from repro_torch.core.distributed import device_grad_stats_fn
+        from repro_torch.train.trainer import grid_plan
+
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+        st = init_state(c, params=params(), device=dev, mesh=mesh)
+        pl, spmd = grid_plan(c, mesh)
+        stats = device_grad_stats_fn(make_loss_fn(c, pl), mesh, backend=c.parallel.backend,
+                                     spmd=spmd)(st.params, batch)[2]
+        grid = [st.params.shard.gather(x.data).cpu() for x in stats[:2]]
+        del st, stats
+        if rank != holder:
+            return None
+        ck = c.replace(optimizer=dataclasses.replace(c.optimizer, k=GRID_SHAPE[0]))
+        one = init_state(ck, params=params(), device=dev)
+        stats = grad_stats(make_loss_fn(ck), one.params, batch, GRID_SHAPE[0],
+                           backend=ck.parallel.backend)[2]
+        out = (grid, [x.data.cpu() for x in stats[:2]])
+        del one, stats
+        torch.cuda.empty_cache()
+        return out
+
+    # the other paths (GRID_PATHS' note): each rank's share of the one-card
+    # references, then each path's grid run and its holder's hold
+    t_paths = time.perf_counter()
+    d = GRID_SHAPE[0]
+    cases = {case: (i % mesh.size, cfg32.replace(optimizer=dataclasses.replace(
+        cfg32.optimizer, name=name, **opt))) for i, (case, (name, opt, _, _)) in
+        enumerate(GRID_PATHS.items())}
+    refs = {}
+    for case, (holder, c) in cases.items():
+        if holder != rank:
+            continue
+        _, opt, fresh_seq, noise = GRID_PATHS[case]
+        if opt.get("gsnr_source") == "data_axis":  # k = D groups, the data ranks' rows
+            ck = c.replace(optimizer=dataclasses.replace(c.optimizer, k=d))
+            refs[case] = (one_card(ck, None, fresh_seq, noise),
+                          one_card(ck, rank_split_loss(make_loss_fn(ck), d), fresh_seq, noise))
+        else:
+            refs[case] = (one_card(c, rank_split_loss(make_loss_fn(c), d), fresh_seq, noise),
+                          None)
+    flag_all(True)
+    paths = {}
+    for case, (holder, c) in cases.items():
+        name, opt, fresh_seq, noise = GRID_PATHS[case]
+        if opt.get("gsnr_source") == "data_axis":
+            moments = data_axis_moments(c, holder)
+        st, hist_c, first_c, walls_c, counts_c, peak_c = grid_run(
+            c, fresh_seq, f"f32 {case}", False,
+            lambda f, case=case: grid_path_counts(m.n_layers, DP_PATHS_K, case, f), noise,
+            holder)
+        del st
+        torch.cuda.empty_cache()
+        rec = {"walls": walls_c, "peak_bytes": peak_c, "counts": counts_c}
+        if rank == holder:
+            one, wit = refs.pop(case)
+            what = "k = D" if opt.get("gsnr_source") == "data_axis" else \
+                f"k{DP_PATHS_K} split"
+            label_c = f"grid {GRID_SHAPE} f32 {case} vs one-card {what}"
+            tol, tol_leaf = GRID_F32_TOL, GRID_F32_LEAF_TOL
+            if name in GRID_ROUNDED:
+                tol, tol_leaf = ({**t, "upd": GRID_UPD_ROUNDED} for t in (tol, tol_leaf))
+            rec["gaps"] = hold_grid(label_c, hist_c, first_c, one, layout, tol, tol_leaf,
+                                    wit, hold_buffers=wit is None)
+            if noise:
+                rec["noise"] = hold_noise(label_c, hist_c[0], one[0][0])
+                rec["b_simple"] = (hist_c[0]["noise/b_simple"], one[0][0]["noise/b_simple"])
+            if opt.get("gsnr_source") == "data_axis":
+                rec["moments"] = hold_moments(label_c, moments, layout)
+            del one, wit
+        paths[case] = rec
+        del first_c
+    paths_wall = time.perf_counter() - t_paths
     summary = {"counts": counts_all, "walls": walls, "walls_f32": walls32, "held": held,
+               "paths": paths, "paths_wall": paths_wall,
                "whole": whole, "peak_bytes": peak,
-               "one_card_peak_bytes": None if ref is None else ref[2],
+               "one_card_peak_bytes": one_card_peak,
                "collectives": {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()},
                "coords": mesh.coords, "tokens": GRID_BATCH * cfg.seq_len, "gaps": gaps}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3083,13 +3292,16 @@ def leaf_gaps(a, b, layout):
                                layout.leaf_views(b.float()))}
 
 
-def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=None):
+def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=None,
+              hold_buffers=True):
     """Phase 10d's hold (GRID_SHAPE's note): the grid's metrics at every
     step within DP_TOL of the one-card split run ``ref``; its first-step
     update, m, v and p within ``tol`` whole and ``tol_leaf`` leaf by leaf,
     each gap printed beside the witness's (when given) and, on the worst
     leaf, the grid's and ``ref``'s gaps to the one-card f32 run ``f32``
-    (when given: which of the two rounds nearer the f32 step).  Returns
+    (when given: which of the two rounds nearer the f32 step).  Without
+    ``hold_buffers`` the buffers' gaps are printed, every leaf past its
+    bound beside the witness's, and not held (GRID_PATHS' note).  Returns
     the gaps."""
     out = {}
     for i, (g, r) in enumerate(zip(hist, ref[0])):
@@ -3101,7 +3313,7 @@ def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=
             f"DP_TOL {DP_TOL[k]})" for k in gg), flush=True)
         if any(gg[k] > DP_TOL[k] for k in gg):
             fail(f"{label} step {i}: the grid and one-card runs disagree past DP_TOL")
-    for nm in ("upd", "m", "v", "p"):
+    for nm in [n for n in ("upd", "m", "v", "p") if n in ref[1]]:
         whole = rel_diff(first[nm], ref[1][nm])
         per = leaf_gaps(first[nm], ref[1][nm], layout)
         worst = max(per, key=per.get)
@@ -3123,7 +3335,14 @@ def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=
         print(f"  {label} after step 0: ||{nm}_grid - {nm}_one-card|| / ||{nm}_one-card|| = "
               f"{whole:.4e}{note_whole}; worst leaf {worst} {per[worst]:.4e}{note_leaf}; tol "
               f"{tol[nm]} whole, {tol_leaf[nm]} a leaf", flush=True)
-        if whole > tol[nm] or per[worst] > tol_leaf[nm]:
+        if not hold_buffers:
+            past = {p: g for p, g in per.items() if g > tol_leaf[nm]}
+            out[nm]["past"] = past
+            print(f"  {label} after step 0: {nm}'s leaves past {tol_leaf[nm]} (printed, not "
+                  "held): " + ("; ".join(f"{p} {g:.4e}" + (f" (witness {per_w[p]:.4e})"
+                                                           if witness else "")
+                                         for p, g in past.items()) or "none"), flush=True)
+        elif whole > tol[nm] or per[worst] > tol_leaf[nm]:
             fail(f"{label}: after step 0, {nm} of the grid and one-card runs disagree past "
                  f"{tol[nm]} whole or {tol_leaf[nm]} on a leaf")
     return out
@@ -3142,7 +3361,8 @@ def phase_train_grid(records):
           f"layers, a ({d}, {mm}) (data, model) grid of {d * mm} gloo ranks on one card, "
           f"global batch {GRID_BATCH}, seq {cfg.seq_len}, fused plan, VR-LAMB k = {DP_PATHS_K} "
           f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)} in bf16, then "
-          f"{'/'.join('fresh' if f else 'stale' for f in GRID_F32_FRESH)} in f32", flush=True)
+          f"{'/'.join('fresh' if f else 'stale' for f in GRID_F32_FRESH)} in f32, then in f32 "
+          f"{', '.join(GRID_PATHS)} (GRID_PATHS)", flush=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
@@ -3182,6 +3402,23 @@ def phase_train_grid(records):
     print(f"  warm grid step wall over the ranks: {np.mean(warm):.1f} ms = "
           f"{ranks[0]['tokens'] / np.mean(warm) * 1e3:.0f} tokens/s on one card (gloo through "
           "the host: no claim of speed)", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    for case in GRID_PATHS:
+        runs = [res["paths"][case] for res in ranks]
+        for res, run in zip(ranks, runs):
+            for k, c in run["counts"].items():
+                path_counts[k] = path_counts.get(k, 0) + c
+        steps = "; ".join(f"rank {r} {', '.join(f'{w:.1f}' for w in run['walls'])} ms, peak "
+                          f"{run['peak_bytes'] / 2**30:.3f} GiB" for r, run in enumerate(runs))
+        print(f"  {case} (f32, fused; {smi}): step walls (host clock) {steps}; launches per "
+              f"rank over its steps { {k: c for k, c in runs[0]['counts'].items() if c} }",
+              flush=True)
+        if "b_simple" in runs[0]:
+            print(f"  {case}: noise/b_simple grid {runs[0]['b_simple'][0]:.6e} beside one card "
+                  f"{runs[0]['b_simple'][1]:.6e}", flush=True)
+    print(f"  the other paths (GRID_PATHS, their one-card runs and holds included): "
+          f"{max(res['paths_wall'] for res in ranks):.1f} s ({smi})", flush=True)
     add_path(records, "train_grid", path_counts)
 
 

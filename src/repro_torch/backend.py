@@ -311,16 +311,18 @@ class GridSpmd(FlatSpmd):
     the rank's local buffer of its spec blocks (core/layout.py::GridShard
     of ``layout``), the params w included.
 
-    The carries' sweeps (K3, K9, K4) run on the local buffer as they are.
-    The gradient of each microbatch arrives summed over the data axis by the
-    backward of the weights' gathers (sharding/placement.py), so
-    ``reduce_rows`` only scales it by 1/D, in place.  The per-leaf partial
-    sums (K13's Sigma r, K16's norm sums) are weighted by each leaf's owner
-    and all-reduced over the grid, so a leaf replicated over an axis counts
-    once; the trust epilogue applies on the rank's blocks.  The reference
-    plan's tree math runs on the rank's local leaves with the same sums
-    (``tree_leaf_means``, ``tree_lamb_trust``), and ``norm`` is a global
-    norm counted the same way."""
+    The carries' sweeps (K3, K9, K4, K10) run on the local buffer as they
+    are.  The gradient of each microbatch (each slice of the vmap method's
+    stack) arrives summed over the data axis by the backward of the
+    weights' gathers (sharding/placement.py), so ``reduce_rows`` and
+    ``reduce_stack_rows`` only scale it by 1/D, in place.  The per-leaf
+    partial sums (K13's Sigma r, K16's and K17's norm sums) are weighted by
+    each leaf's owner and all-reduced over the grid, so a leaf replicated
+    over an axis counts once; the trust epilogue applies on the rank's
+    blocks.  The reference plan's tree math and the baselines run on the
+    rank's local leaves with the same sums (``tree_leaf_means``,
+    ``tree_lamb_trust``, ``tree_lars_trust``, ``leaf_totals``), and ``norm``
+    is a global norm counted the same way."""
 
     def __init__(self, mesh, rules, layout):
         super().__init__(mesh, rules)
@@ -353,12 +355,14 @@ class GridSpmd(FlatSpmd):
 
         return g.mul_(inv_k(self._batch.size))
 
-    def reduce_stack_rows(self, gstack, layout):
-        from repro_torch.sharding.placement import ROADMAP_REST
+    def reduce_stack_rows(self, gstack: torch.Tensor, layout) -> torch.Tensor:
+        """The vmap method's (k, rows, LANE) stack of the rank's blocks x
+        1/D, in place (each slice's data-axis sum is already taken)."""
+        from repro_torch.kernels.flat_stats import inv_k
 
-        raise NotImplementedError(f"the vmap stats method on a GridMesh ({ROADMAP_REST})")
+        return gstack.mul_(inv_k(self._batch.size))
 
-    def _leaf_totals(self, per_leaf) -> torch.Tensor:
+    def leaf_totals(self, per_leaf) -> torch.Tensor:
         """(n, n_leaves) f64 per-leaf sums of the rank's blocks -> the sums
         over the grid, each leaf from its owners only."""
         sh = self.shard(self.layout)
@@ -370,20 +374,47 @@ class GridSpmd(FlatSpmd):
         from repro_torch.core.layout import tree_leaves
 
         leaves = tree_leaves(tree)
-        sums = self._leaf_totals(torch.stack([x.double().sum() for x in leaves])[None])[0]
+        sums = self.leaf_totals(torch.stack([x.double().sum() for x in leaves])[None])[0]
         return [(sums[i] / n).float() for i, n in enumerate(self.layout.sizes)]
+
+    def flat_leaf_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """(n_leaves,) f64 sums of each leaf's elements of the rank's local
+        buffer ``x`` (rows, LANE), each row summed in f32 (zero padding adds
+        nothing)."""
+        meta = self.shard(self.layout).device_meta(x.device)
+        out = torch.zeros(self.layout.n_leaves, dtype=torch.float64, device=x.device)
+        return out.index_add_(0, meta["row_ids"], x.float().sum(dim=1).double())
+
+    def _trust_norms(self, u, p) -> torch.Tensor:
+        """(2, n_leaves) f32 whole-leaf norms of two trees of the rank's
+        blocks."""
+        from repro_torch.core.layout import tree_leaves
+
+        sums = self.leaf_totals(torch.stack([
+            torch.stack([x.double().square().sum() for x in tree_leaves(t)]) for t in (u, p)]))
+        return torch.sqrt(sums).float()
+
+    def tree_lars_trust(self, g, p, trust: float, wd: float):
+        """LARS's trust-scaled direction of a tree of the rank's blocks:
+        ratio (g + wd p) with ratio = trust ||p|| / ||g + wd p|| from the
+        whole leaves' norms (core/baselines.py::lars_trust per leaf)."""
+        from repro_torch.core.layout import tree_map
+
+        u = tree_map(lambda g_, p_: g_ + wd * p_, g, p)
+        un, pn = self._trust_norms(u, p)
+        ratio = torch.where((pn > 0) & (un > 0), trust * pn / (un + 1e-12),
+                            torch.ones_like(pn))
+        scale = iter(ratio)
+        return tree_map(lambda x: next(scale) * x, u)
 
     def tree_lamb_trust(self, d, p, lr, wd):
         """LAMB's trust-scaled update of a tree of the rank's blocks (the
         whole leaves' norms of u = d + wd p and of p)."""
         from repro_torch.core.baselines import _lamb_phi
-        from repro_torch.core.layout import tree_leaves, tree_map
+        from repro_torch.core.layout import tree_map
 
         u = tree_map(lambda d_, p_: d_ + wd * p_, d, p)
-        sums = self._leaf_totals(torch.stack([
-            torch.stack([x.double().square().sum() for x in tree_leaves(t)])
-            for t in (u, p)]))
-        un, pn = torch.sqrt(sums).float()
+        un, pn = self._trust_norms(u, p)
         ratio = torch.where((pn > 0) & (un > 0), _lamb_phi(pn) / (un + 1e-12),
                             torch.ones_like(pn))
         scale = iter(-lr * ratio)
@@ -401,4 +432,4 @@ class GridSpmd(FlatSpmd):
                                  self.layout.leaf_slots)[: self.layout.n_leaves].double()
         else:
             per = torch.stack([t.double().square().sum() for t in tree_leaves(x)])
-        return torch.sqrt(self._leaf_totals(per[None])[0].sum()).float()
+        return torch.sqrt(self.leaf_totals(per[None])[0].sum()).float()

@@ -49,7 +49,14 @@ rows), each backward leaves the rank's blocks of the gradient already
 summed over the data axis (the weights' gathers, sharding/placement.py),
 and the 1/D scale is the only step between it and the carry: K3 (K9) and
 K4 over the rank's local buffer on the fused plan, the tree carry over its
-blocks on the reference plan.
+blocks on the reference plan.  The vmap method runs ``torch.func`` through
+the gathers' autograd Functions (each with a vmap rule: the weights enter
+unbatched, so each layer's weights are gathered once for all k groups, and
+a batched cotangent goes through one collective) with the grid's layer
+groups not rematerialised (``Placement.without_remat``: the grid's remat
+Function reruns its group under plain autograd); the (k, rows, 128) stack
+of the rank's blocks is scaled by 1/D in place and K10 reduces it.
+``grad_only`` scales the rank's blocks by 1/D as well.
 """
 from __future__ import annotations
 
@@ -198,9 +205,8 @@ def grad_stats(
     from repro_torch.kernels import ops as kops
 
     if method == "vmap":
-        if grid:
-            spmd.reduce_stack_rows(None, params.layout)  # raises: not ported on a grid
-        return _vmap_stats(loss_fn, params, mb, k, squares, fused, mesh, plan)
+        return _vmap_stats(loss_fn, params, mb, k, squares, fused, mesh, plan, spmd if grid
+                           else None)
 
     layout = params.layout
     if fused and squares:
@@ -251,14 +257,33 @@ def grad_stats(
 
 
 def _vmap_stats(loss_fn, params: FlatParams, mb: Dict, k: int, squares: bool, fused: bool,
-                mesh, plan):
+                mesh, plan, grid=None):
     """grad_stats(method="vmap") over the split batch ``mb`` (the rank's
-    rows of each group under a mesh)."""
+    rows of each group under a mesh; on a GridMesh, ``grid``, the stack
+    holds the rank's blocks)."""
     from repro_torch.kernels import ops as kops
 
     layout = params.layout
     gfn = torch.func.grad_and_value(loss_fn, has_aux=True)
-    grads, (loss, aux) = torch.func.vmap(gfn, in_dims=(None, 0))(params.detached_tree(), mb)
+    vgfn = torch.func.vmap(gfn, in_dims=(None, 0))
+    if grid is not None:  # the grid's forward without remat (Placement.without_remat)
+        with loss_fn.placement.without_remat():
+            grads, (loss, aux) = vgfn(params.detached_tree(), mb)
+        gstack = grid.reduce_stack_rows(params.pack_stack(grads, k), layout)
+        del grads
+        if fused and squares:
+            stats = kops.vmap_moments_flat(gstack, k, layout, plan)
+        elif fused:
+            stats = GradStats(mean=FlatBuffer(gstack.mean(dim=0), layout, params.shard),
+                              sq_mean=None, k=k)
+        else:  # trees of the rank's blocks
+            unpack = params.local_layout.unpack
+            stats = GradStats(mean=unpack(gstack.mean(dim=0)),
+                              sq_mean=unpack(gstack.square().mean(dim=0)) if squares else None,
+                              k=k)
+        return (*mean_over_ranks(mesh, loss.detach().mean(),
+                                 {n: v.detach().mean(dim=0) for n, v in aux.items()}), stats)
+    grads, (loss, aux) = vgfn(params.detached_tree(), mb)
     if fused:
         sh = None if plan is None else plan.shard(layout)
         gstack = params.pack_stack(grads, k)
@@ -294,7 +319,11 @@ def grad_only(loss_fn: Callable, params: FlatParams, batch: Dict, spmd=None):
     stacked tree of views of ``params.grad``.  Under a mesh of W > 1 ranks
     (``spmd``) each rank takes its rows with the global denominator, one
     all-reduce of the flat gradient x 1/W gives every rank the whole
-    batch's, and the loss and aux are the ranks' means."""
+    batch's, and the loss and aux are the ranks' means.  On a GridMesh the
+    data ranks split the rows, the gradient is the rank's blocks already
+    summed over the data axis (the gathers' adjoint), so it is only scaled
+    by 1/D (``GridSpmd.reduce_rows``); no all-reduce would add the data
+    ranks' different blocks together."""
     mesh = _mesh_of(spmd)
     if mesh is not None:
         one = _rank_groups(loss_fn, {name: x[None] for name, x in batch.items()}, mesh)
@@ -303,7 +332,10 @@ def grad_only(loss_fn: Callable, params: FlatParams, batch: Dict, spmd=None):
     loss, aux = loss_fn(params.tree, batch)
     loss.backward()
     loss, aux = loss.detach(), {n: v.detach() for n, v in aux.items()}
-    if mesh is not None:
+    if isinstance(spmd, GridSpmd):
+        spmd.reduce_rows(params.grad, params.layout)
+    elif mesh is not None:
         mesh.all_reduce_(params.grad).mul_(inv_k(mesh.size))
+    if mesh is not None:
         loss, aux = mean_over_ranks(mesh, loss, aux)
     return loss, aux, params.stacked("grad")

@@ -119,24 +119,32 @@ def adam(lr_fn: Callable, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Transform(init, update)
 
 
-def lars(lr_fn: Callable, mu: float = 0.9, wd: float = 1e-4, trust: float = 0.001) -> Transform:
-    """You et al. 2017 [arXiv:1708.03888]: layer-wise (per-tensor) trust ratio."""
+def lars(lr_fn: Callable, mu: float = 0.9, wd: float = 1e-4, trust: float = 0.001,
+         grid=None) -> Transform:
+    """You et al. 2017 [arXiv:1708.03888]: layer-wise (per-tensor) trust ratio.
+    ``grid`` (backend.GridSpmd): the trees hold a rank's blocks and the trust
+    ratio takes the whole leaves' norms (``GridSpmd.tree_lars_trust``)."""
 
     def init(params):
         return {"step": 0, "m": zeros_tree(params)}
 
     def update(grads, state, params, stats=None):
         lr = lr_fn(state["step"])
-        m = tree_map(lambda g, m_, p: mu * m_ + lars_trust(g, p, trust, wd), grads, state["m"],
-                     params)
+        if grid is not None:
+            m = tree_map(lambda m_, t: mu * m_ + t, state["m"],
+                         grid.tree_lars_trust(grads, params, trust, wd))
+        else:
+            m = tree_map(lambda g, m_, p: mu * m_ + lars_trust(g, p, trust, wd), grads,
+                         state["m"], params)
         return tree_map(lambda m_: -lr * m_, m), {"step": state["step"] + 1, "m": m}
 
     return Transform(init, update)
 
 
 def lamb(lr_fn: Callable, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-         wd: float = 0.01) -> Transform:
-    """You et al. 2020 [arXiv:1904.00962] (paper Alg. 6)."""
+         wd: float = 0.01, grid=None) -> Transform:
+    """You et al. 2020 [arXiv:1904.00962] (paper Alg. 6).  ``grid`` as for
+    ``lars`` (``GridSpmd.tree_lamb_trust``)."""
 
     def init(params):
         return {"step": 0, "m": zeros_tree(params), "v": zeros_tree(params)}
@@ -144,7 +152,10 @@ def lamb(lr_fn: Callable, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
     def update(grads, state, params, stats=None):
         lr = lr_fn(state["step"])
         d, m, v = _adam_dir(grads, state, b1, b2, eps)
-        upd = tree_map(lambda d_, p: lamb_trust(d_, p, lr, wd), d, params)
+        if grid is not None:
+            upd = grid.tree_lamb_trust(d, params, lr, wd)
+        else:
+            upd = tree_map(lambda d_, p: lamb_trust(d_, p, lr, wd), d, params)
         return upd, {"step": state["step"] + 1, "m": m, "v": v}
 
     return Transform(init, update)

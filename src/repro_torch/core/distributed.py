@@ -25,6 +25,24 @@ loss and its aux metrics are averaged across the ranks the same way.
 estimator consumes (core/noise_scale.py), [|G_big|^2, |G_small|^2], summed
 from the already-reduced moments, which every rank holds alike: no further
 collective and no kernel.
+
+On a GridMesh (``spmd`` a backend.GridSpmd, the weights' FSDP+TP
+sharding) k = D, the data axis's size: data rank d takes its rows and g_d
+is its whole gradient of them.  The gathers' backward would sum the data
+ranks' gradients before anyone could square them, so the step runs it with
+the data axis's sum deferred (sharding/placement.py::PayloadSink): the
+model-axis sums (the replicated compute's own block, the row products'
+reduce-scatters) still happen, and each rank keeps its model-axis block of
+every leaf whole over the data axis, one (D, rows, 128) f32 buffer in its
+local layout (slot d: data rank d's blocks).  K11 builds [g; g^2] of it in
+one launch, and ONE reduce-scatter over the data axis sums the payload into
+the rank's own blocks, x 1/D (a leaf not split over the data axis stands in
+every slot, so it arrives summed whole); ``fused=False`` reduce-scatters
+g and g^2 apart.  That is one whole-over-data gradient block per rank,
+D times the rank's blocks for a leaf split over the data axis: the regime
+of the reference's source, which keeps the params replicated.  The noise
+terms are the reduced moments' sums, each leaf from its owners only (one
+all-reduce of the per-leaf sums over the grid).
 """
 from __future__ import annotations
 
@@ -32,9 +50,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.backend import Backend
+from repro_torch.backend import Backend, GridSpmd
 from repro_torch.core.gsnr import GradStats
-from repro_torch.core.layout import FlatBuffer, FlatParams, tree_map
+from repro_torch.core.layout import LANE, FlatBuffer, FlatParams, tree_map
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.kernels.flat_stats import flat_pack_square, inv_k
 
@@ -84,6 +102,8 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
     the FlatBuffers are the rank's rows of the reduced moments, as the
     sharded update takes them."""
     bk = backend if backend is not None else Backend()
+    if isinstance(spmd, GridSpmd):
+        return _grid_stats_fn(loss_fn, spmd, fused, bk, with_noise_terms)
     k = mesh.size
     inv = inv_k(k)
 
@@ -124,6 +144,54 @@ def device_grad_stats_fn(loss_fn: Callable, mesh, fused: bool = True,
             with torch.no_grad():
                 m = mean.reshape(-1)
                 out += (torch.stack([torch.dot(m, m), torch.sum(sq)]),)
+        return out
+
+    return fn
+
+
+def _grid_stats_fn(loss_fn: Callable, spmd: GridSpmd, fused: bool, bk: Backend,
+                   with_noise_terms: bool) -> Callable:
+    """``device_grad_stats_fn`` on a GridMesh (module note): the moments are
+    the rank's blocks (FlatBuffers of its GridShard on the fused plan,
+    trees of its blocks on the reference plan)."""
+    from repro_torch.sharding.placement import PayloadSink
+
+    mesh, data = spmd.mesh, spmd.batch_mesh
+    dp = mesh.axis_names[0]
+    k = data.size
+    inv = inv_k(k)
+
+    def fn(params, batch: Dict):
+        shard, layout = params.shard, params.layout
+        flat = bk.fused("stats", params.device)
+        sink = PayloadSink(torch.zeros((k, shard.rows, LANE), dtype=torch.float32,
+                                       device=params.device), params.data)
+        params.zero_grad()
+        with loss_fn.placement.deferred(sink):
+            loss, aux = loss_fn(params.tree, shard_batch(batch, data))
+            loss.backward()
+        g = sink.buf
+        del sink
+        if flat and fused:  # one kernel, one collective
+            payload = flat_pack_square(g.view(-1, LANE)).view(2, k, shard.rows, LANE)
+            red = mesh.reduce_scatter_(payload.transpose(0, 1), dp).mul_(inv)
+        elif fused:  # the plain [g; g^2] stack, one collective
+            red = mesh.reduce_scatter_(torch.stack((g, g * g), dim=1), dp).mul_(inv)
+        else:  # the paper's two collectives
+            red = torch.stack([mesh.reduce_scatter_(x, dp).mul_(inv) for x in (g, g * g)])
+        del g
+        mean, sq = red[0], red[1]
+        if flat:
+            stats = GradStats(FlatBuffer(mean, layout, shard), FlatBuffer(sq, layout, shard), k)
+        else:
+            unpack = params.local_layout.unpack
+            stats = GradStats(unpack(mean), unpack(sq), k)
+        out = (*mean_over_ranks(data, loss.detach(), {n: v.detach() for n, v in aux.items()}),
+               stats)
+        if with_noise_terms:
+            with torch.no_grad():
+                per = torch.stack([spmd.flat_leaf_sums(mean * mean), spmd.flat_leaf_sums(sq)])
+                out += (spmd.leaf_totals(per).sum(dim=1).float(),)
         return out
 
     return fn

@@ -523,16 +523,22 @@ class FlatParams:
         leaf's (k, *leaf) gradient is written into the element range its
         parameter occupies in ``data``; the padded tail of every stacked
         leaf is zero."""
-        layout = self.layout
-        stack = torch.empty((k, layout.n_rows, LANE), dtype=torch.float32, device=self.device)
-        flat = stack.view(k, -1)
-        for off, size, rows in zip(layout.row_offsets, layout.sizes, layout.leaf_rows):
-            flat[:, off * LANE + size: (off + rows) * LANE].zero_()
-        base = self.data.storage_offset()
-        for leaf, g in zip(tree_leaves(self.tree), tree_leaves(grads)):
-            start = leaf.storage_offset() - base
-            flat[:, start: start + leaf.numel()].copy_(g.reshape(k, -1))
-        return stack
+        return _pack_stack(self.layout, self.data, self.tree, grads, k)
+
+
+def _pack_stack(layout: ParamLayout, data: torch.Tensor, tree, grads, k: int) -> torch.Tensor:
+    """A new (k, n_rows, LANE) f32 stack of ``layout``: each leaf of
+    ``grads`` (k, *leaf of ``tree``) written at the element range its leaf
+    occupies in ``data``, the padded tails zero."""
+    stack = torch.empty((k, layout.n_rows, LANE), dtype=torch.float32, device=data.device)
+    flat = stack.view(k, -1)
+    for off, size, rows in zip(layout.row_offsets, layout.sizes, layout.leaf_rows):
+        flat[:, off * LANE + size: (off + rows) * LANE].zero_()
+    base = data.storage_offset()
+    for leaf, g in zip(tree_leaves(tree), tree_leaves(grads)):
+        start = leaf.storage_offset() - base
+        flat[:, start: start + leaf.numel()].copy_(g.reshape(k, -1))
+    return stack
 
 
 def pad_mask(layout: ParamLayout, device="cpu") -> torch.Tensor:
@@ -643,15 +649,21 @@ class GridShard:
         return self.local_layout.zeros(dtype, device)
 
     def gather(self, local: torch.Tensor, mesh=None) -> torch.Tensor:
-        """The whole (n_rows, LANE) buffer on every rank (a collective per
-        leaf over the grid)."""
-        from repro_torch.sharding.placement import gather_params
+        """The whole (n_rows, LANE) buffer on every rank: one all-gather of
+        the ranks' local buffers (every rank's has the same layout), each
+        leaf assembled from its blocks (a replicated leaf's replicas are
+        the same)."""
+        from repro_torch.sharding.placement import block_slices
 
         mesh = self.mesh if mesh is None else mesh
         out = self.layout.zeros(local.dtype, local.device)
-        leaves = gather_params(self.local_layout.leaf_views(local), list(self.specs), mesh)
-        for dst, src in zip(self.layout.leaf_views(out), leaves):
-            dst.copy_(src)
+        sizes = dict(mesh.shape)
+        parts = mesh.all_gather(local, mesh.axis_names)
+        for r, part in zip(mesh.members(mesh.axis_names), parts):
+            coords = mesh.coords_of(r)
+            for dst, src, spec in zip(self.layout.leaf_views(out),
+                                      self.local_layout.leaf_views(part), self.specs):
+                dst[block_slices(src.shape, spec, coords, sizes)] = src
         return out
 
 
@@ -719,6 +731,16 @@ class GridParams:
 
     def zero_grad(self) -> None:
         self.grad.zero_()
+
+    def detached_tree(self) -> Dict:
+        """``tree`` with every leaf detached (what ``torch.func``
+        differentiates, as FlatParams.detached_tree)."""
+        return tree_map(lambda x: x.detach(), self.tree)
+
+    def pack_stack(self, grads: Dict, k: int) -> torch.Tensor:
+        """A gradient tree shaped like ``tree`` with a leading k axis ->
+        one new (k, rows, LANE) f32 stack of the rank's local layout."""
+        return _pack_stack(self.local_layout, self.data, self.tree, grads, k)
 
     def gather(self) -> torch.Tensor:
         """The whole (n_rows, LANE) params buffer on every rank (a

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.gsnr import GradStats
-from repro_torch.core.layout import is_flat, tree_leaves
+from repro_torch.core.layout import GridShard, is_flat, tree_leaves
 
 
 def ema(avg, beta, yi, i):
@@ -67,22 +67,51 @@ class NoiseTerms(NamedTuple):
     per_leaf: Optional[torch.Tensor] = None
 
 
-def noise_terms(stats: GradStats, *, per_leaf: bool = False, mesh=None) -> NoiseTerms:
+def _grid_sums(per_leaf: torch.Tensor, grid) -> torch.Tensor:
+    """(n, n_leaves) f64 per-leaf sums of a rank's blocks -> the sums over
+    the grid, each leaf from its owners only (backend.GridSpmd)."""
+    return grid.leaf_totals(per_leaf)
+
+
+def _grid_terms(stats: GradStats, per_leaf: bool, grid) -> NoiseTerms:
+    """``noise_terms`` of a carry of a rank's blocks on a GridMesh: per-leaf
+    sums of the blocks, owner-weighted and all-reduced over the grid (a
+    plain sum of every rank's blocks would count a leaf replicated over M
+    model ranks M times)."""
+    if is_flat(stats.mean):
+        sums = [grid.flat_leaf_sums(stats.mean.data.square()),
+                grid.flat_leaf_sums(stats.sq_mean.data)]
+    else:
+        sums = [torch.stack([x.double().square().sum() for x in tree_leaves(stats.mean)]),
+                torch.stack([x.double().sum() for x in tree_leaves(stats.sq_mean)])]
+    leaf = _grid_sums(torch.stack(sums), grid).T.float()
+    return NoiseTerms(g2_small=torch.sum(leaf[:, 1]), g2_big=torch.sum(leaf[:, 0]),
+                      per_leaf=leaf if per_leaf else None)
+
+
+def noise_terms(stats: GradStats, *, per_leaf: bool = False, mesh=None, grid=None
+                ) -> NoiseTerms:
     """Read |G_small|^2 and |G_big|^2 off a GradStats carry: flat carries in
     one pass over the packed buffers (one segment-sum when ``per_leaf``),
     tree carries leaf by leaf (the same values up to summation order).  A
     flat carry of a rank's rows (FlatBuffers with a ``shard``) sums its
     rows, then one all-reduce over ``mesh`` adds the ranks' sums (padding
-    rows are zero)."""
+    rows are zero).  A carry of a rank's blocks on a GridMesh (``grid``, its
+    backend.GridSpmd; flat or trees) sums per leaf, each leaf from its
+    owners only."""
     if stats.sq_mean is None:
         raise ValueError(
             "noise_terms needs second moments (GradStats.sq_mean is None — "
             "this is a squares=False stale-step carry; estimate on refresh "
             "steps only)"
         )
+    if grid is not None:
+        return _grid_terms(stats, per_leaf, grid)
     if is_flat(stats.mean):
         mean, sq = stats.mean, stats.sq_mean
         shard = mean.shard
+        if isinstance(shard, GridShard):
+            raise ValueError("noise_terms: the carry holds a rank's blocks; pass its grid plan")
         if shard is not None and mesh is None:
             raise ValueError("noise_terms: the carry holds a rank's rows; pass its mesh")
         if not per_leaf:  # one read of each buffer, no temporary
@@ -134,10 +163,11 @@ def estimate_from_terms(g2_small, g2_big, b_small: float, b_big: float) -> Noise
                               b_simple=b_simple)
 
 
-def estimate(stats: GradStats, b_small: float, b_big: float, mesh=None) -> NoiseScaleEstimate:
+def estimate(stats: GradStats, b_small: float, b_big: float, mesh=None,
+             grid=None) -> NoiseScaleEstimate:
     """GradStats carry -> NoiseScaleEstimate (see the module note); ``mesh``
-    for a carry of a rank's rows."""
-    terms = noise_terms(stats, mesh=mesh)
+    for a carry of a rank's rows, ``grid`` for one of a rank's blocks."""
+    terms = noise_terms(stats, mesh=mesh, grid=grid)
     return estimate_from_terms(terms.g2_small, terms.g2_big, b_small, b_big)
 
 

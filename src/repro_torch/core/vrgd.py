@@ -39,7 +39,12 @@ Under a data mesh the fused VR optimizers take the ``spmd`` plan of
 ``Backend.shard(mesh)`` (backend.FlatSpmd), as in the reference: ``init``
 then holds only the rank's rows of the flat state (core/layout.py::
 RowShard) and ``update`` returns the rank's rows of the update, which the
-trainer gathers.
+trainer gathers.  On a GridMesh (backend.GridSpmd) every buffer and tree
+holds the rank's spec blocks: the fused updates run the same pipelines on
+the rank's local buffer, and the reference plan's per-leaf GSNR means and
+LARS's and LAMB's norms (the baselines' too) are the whole leaves', each
+leaf summed from its owners (``GridSpmd.tree_leaf_means``,
+``tree_lars_trust``, ``tree_lamb_trust``).
 
 Amortized-GSNR "stale" steps (``stats=None``, VR-Adam and VR-LAMB only):
 the GSNR momentum p is left untouched and the stale p̂ rescales the fresh
@@ -135,6 +140,18 @@ def bias_corrections(state, b1: float, b2: float, b3: float, fresh: bool = True)
             B.bias_correction(b3, pt))
 
 
+def _grid(spmd) -> Optional[GridSpmd]:
+    """The plan when it is a GridMesh's: the reference plan's trees then
+    hold a rank's blocks, whose per-leaf means and norms are the whole
+    leaves' (backend.GridSpmd)."""
+    return spmd if isinstance(spmd, GridSpmd) else None
+
+
+def _leaf_means(spmd):
+    grid = _grid(spmd)
+    return None if grid is None else grid.tree_leaf_means
+
+
 def _scaled_grads(grads, stats, gamma, eps, fused, spmd=None):
     """(r * grads, r): one kernel call on the fused plan (the rank's rows
     under a sharding plan), tree math otherwise."""
@@ -143,7 +160,7 @@ def _scaled_grads(grads, stats, gamma, eps, fused, spmd=None):
         from repro_torch.kernels import ops as kops
 
         return kops.vr_scale_tree(stats, grads, gamma, eps, spmd)
-    r = gsnr_scale(stats, gamma, eps)
+    r = gsnr_scale(stats, gamma, eps, _leaf_means(spmd))
     return tree_map(lambda r_, g: r_ * g, r, grads), r
 
 
@@ -238,7 +255,7 @@ def vr_adam(
             return kops.vr_adam_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
                                        gsnr_eps, params, state_dtype, spmd)
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
-                                    state_dtype)
+                                    state_dtype, _leaf_means(spmd))
         if wd and params is not None:
             d = tree_map(lambda d_, p_: d_ + wd * p_, d, _like(params, d))
         return tree_map(lambda d_: -lr * d_, d), new_state
@@ -257,7 +274,7 @@ def vr_lars(
     spmd=None,
 ) -> B.Transform:
     bk = backend if backend is not None else Backend()
-    base = B.lars(lr_fn, mu=mu, wd=wd, trust=trust)
+    base = B.lars(lr_fn, mu=mu, wd=wd, trust=trust, grid=_grid(spmd))
 
     def init(params: FlatParams):
         return {"step": 0, "m": _zeros(bk, params, spmd=spmd)}
@@ -269,7 +286,7 @@ def vr_lars(
 
             return kops.vr_lars_update(grads, state, _require(stats), lr_fn(state["step"]), mu,
                                        wd, trust, gamma, eps, params, spmd)
-        sg, _r = _scaled_grads(grads, stats, gamma, eps, False)
+        sg, _r = _scaled_grads(grads, stats, gamma, eps, False, spmd)
         return base.update(sg, state, params)
 
     return B.Transform(init, update)
@@ -308,11 +325,9 @@ def vr_lamb(
         if fused and stats is not None:
             return kops.vr_lamb_update(grads, state, stats, lr, b1, b2, b3, eps, wd, gamma,
                                        gsnr_eps, params, state_dtype, spmd)
-        # on a grid the reference plan's trees hold a rank's blocks: their
-        # per-leaf means and norms are the whole leaves' (GridSpmd)
-        grid = spmd if isinstance(spmd, GridSpmd) else None
+        grid = _grid(spmd)
         d, new_state = _vr_adam_dir(grads, state, stats, b1, b2, b3, eps, gamma, gsnr_eps,
-                                    state_dtype, None if grid is None else grid.tree_leaf_means)
+                                    state_dtype, _leaf_means(spmd))
         if fused:
             return kops.lamb_trust_flat(d, params, lr, wd, spmd), new_state
         if grid is not None:
@@ -328,7 +343,9 @@ def make_optimizer(cfg, backend: Optional[Backend] = None,
     resolves for the parameters' device at ``init``.  effective_batch: the
     live global batch (the schedule peak rescales through cfg.lr_scale_rule
     when cfg.base_batch is set).  spmd: a ``Backend.shard(mesh)`` plan; the
-    fused VR updates then run per row shard (the baselines ignore it)."""
+    fused VR updates then run per row shard (the baselines ignore it), and
+    on a GridMesh's plan (backend.GridSpmd) every optimizer's per-leaf means
+    and norms are the whole leaves' (LARS's and LAMB's trust ratios too)."""
     from repro_torch.core.schedule import make_schedule
 
     lr_fn = make_schedule(cfg, effective_batch=effective_batch)
@@ -337,8 +354,9 @@ def make_optimizer(cfg, backend: Optional[Backend] = None,
         "sgd": lambda: B.sgd(lr_fn),
         "momentum": lambda: B.momentum(lr_fn, cfg.momentum),
         "adam": lambda: B.adam(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
-        "lars": lambda: B.lars(lr_fn, cfg.momentum, cfg.weight_decay),
-        "lamb": lambda: B.lamb(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
+        "lars": lambda: B.lars(lr_fn, cfg.momentum, cfg.weight_decay, grid=_grid(spmd)),
+        "lamb": lambda: B.lamb(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay,
+                               grid=_grid(spmd)),
         "vr_sgd": lambda: vr_sgd(lr_fn, g, ge, bk, spmd),
         "vr_momentum": lambda: vr_momentum(lr_fn, cfg.momentum, g, ge, bk, spmd),
         "vr_adam": lambda: vr_adam(lr_fn, cfg.b1, cfg.b2, cfg.b3, cfg.eps, cfg.weight_decay, g,

@@ -31,7 +31,8 @@ the microbatch source runs, as in the reference.
 ``--mesh D,M`` (with ``--dist-backend``) trains on a (data, model) grid of
 the D x M ranks torchrun starts instead, the weights sharded FSDP+TP by the
 reference's rules (launch/mesh.py::GridMesh, sharding/placement.py):
-VR-LAMB with the microbatch source and the scan method.
+every ``--optimizer``, both ``--gsnr-source``s (the data-axis source at
+k = D, the data axis's size) and both ``--stats-method``s.
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.
@@ -118,7 +119,10 @@ def main(argv=None) -> None:
     rank0 = mesh is None or mesh.rank == 0
     if rank0:
         o = cfg.optimizer
-        if isinstance(mesh, GridMesh):
+        if isinstance(mesh, GridMesh) and o.is_vr and o.gsnr_source == "data_axis":
+            d = mesh.shape[mesh.axis_names[0]]
+            k = f"{d} (data_axis source) on a {mesh.shape} grid ({mesh.backend})"
+        elif isinstance(mesh, GridMesh):
             k = f"{o.k} (microbatch source) on a {mesh.shape} grid ({mesh.backend})"
         elif mesh is not None and o.is_vr and o.gsnr_source == "data_axis":
             k = f"{mesh.size} ({mesh.size} ranks, {mesh.backend}: data_axis source)"

@@ -517,9 +517,15 @@ class _RematGrid(torch.autograd.Function):
     and keeps only its inputs (no gathered weight outlives the call);
     backward reruns it under autograd, gathering again, and pulls ``dy``
     back to x and the blocks, whose gathers' adjoints reduce the weight
-    gradients into the rank's blocks.  Plain autograd only: ``_RematWhole``'s
-    ``torch.func.vjp`` refuses the gathers' autograd Functions (they define
-    no ``setup_context``), and the grid runs no ``torch.func`` transform."""
+    gradients into the rank's blocks.  Plain autograd only (its backward
+    calls ``torch.autograd.grad``): the vmap stats method, whose
+    ``torch.func`` transforms run through the gathers' Functions and their
+    vmap rules, takes the groups without remat on the grid
+    (``Placement.without_remat``).  Its k groups then hold their
+    activations at once, where one card's ``_RematGroup`` (a Function with
+    a generated vmap rule, whose recompute runs vmapped) keeps only each
+    group's input: the grid's forward gathers each layer's weights once for
+    all k groups either way."""
 
     @staticmethod
     def forward(ctx, fn, x, *leaves):
@@ -547,8 +553,8 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     sharding/placement.py::Placement.  The logits are the rank's vocab
     columns when the placement splits the vocab (``placement.vocab_tp``;
     train/loss.py's vocab-parallel cross-entropy takes them), else the whole
-    vocab.  The layer groups run under ``_RematGrid`` (with autograd on and
-    ``pcfg.remat``), each group's weights gathered on use; a stacked leaf
+    vocab.  The layer groups run under ``_RematGrid`` (with autograd on,
+    ``pcfg.remat`` and ``placement.remat``), each group's weights gathered on use; a stacked leaf
     whose layer dim is split is gathered whole once per call.  The dense
     attention kinds only (``Placement`` refuses the others); aux holds the
     MoE readings, zero."""
@@ -577,7 +583,7 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
             xx = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **kw)[0]
         return xx
 
-    remat_on = pcfg.remat and torch.is_grad_enabled()
+    remat_on = pcfg.remat and pl.remat and torch.is_grad_enabled()
     for g, gp in enumerate(tree["groups"]):
         extra = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
         args = [gp[n] for n in names] + extra

@@ -10,8 +10,9 @@ Geometry.  A spec splits each dim over the product of its entry's axes (the
 first axis major); the rank at coordinates c holds one block per dim
 (``block_slices``).  ``shard_params`` takes a rank's blocks of a whole
 tree, ``assemble_params`` puts the blocks of every rank back together (no
-collective), and ``gather_params`` is the collective form: every rank
-gets the whole leaves (the checkpoint and the tests use it).
+collective), and core/layout.py::GridShard.gather is the collective form
+(one all-gather of the ranks' local buffers; the checkpoint and the tests
+use it).
 
 Gather on use.  ``gather(x, spec, mesh, axes, same)`` is an autograd
 Function: its forward all-gathers the block ``x`` over ``axes`` (the
@@ -26,6 +27,16 @@ the weight's gradient in the rank's block:
     that no replicated contribution is counted M times;
   * an axis over which the leaf is replicated and whose ranks sum has its
     share all-reduced.
+
+The gathers and the tensor-parallel operators below are autograd
+Functions with ``setup_context`` and explicit vmap rules, so that the vmap
+stats method's ``torch.func.vmap(grad(...))`` runs through them: the
+weights enter unbatched (each gathered once for all k groups), and a
+batched cotangent or activation goes through ONE collective of the stacked
+tensor, its batch dim moved clear of the gathered dim.  Under
+``Placement.deferred(sink)`` (the data-axis GSNR source) a gather's
+backward leaves the data axis's sum undone: each rank adds its model-axis
+block of the gradient, whole over the data axis, to a ``PayloadSink``.
 
 ``Placement`` is the model's side of a GridMesh: which leaves a rank
 gathers whole ("rep", computed replicated), over the data axis only
@@ -48,6 +59,7 @@ stay in the compute dtype.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,8 +70,8 @@ from repro_torch.sharding.rules import Rules, Spec, entry_axes
 # The dense block kinds whose compute the model axis splits (attention + MLP).
 TP_KINDS = ("attn", "swa", "local")
 ROADMAP_REST = ("ROADMAP A9's remainder: expert parallelism, the RG-LRU/xLSTM/cross-attention "
-                "blocks under a model axis, the data_axis source, vmap and the other optimizers "
-                "on a grid, sharded serving and DLRM's tables")
+                "blocks and the encoder and image stub under a model axis, sharded serving and "
+                "DLRM's tables")
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +164,6 @@ def gather_leaf(x: torch.Tensor, spec: Spec, mesh, axes: Sequence[str]) -> torch
     return out
 
 
-def gather_params(shards, specs, mesh):
-    """Every leaf whole on every rank (a collective per leaf)."""
-    return _map2(lambda x, spec: gather_leaf(x, spec, mesh, mesh.axis_names), shards, specs)
-
-
 def _adjoint(ct: torch.Tensor, block: Tuple[int, ...], spec: Spec, mesh, axes: Sequence[str],
              same: Sequence[str]) -> torch.Tensor:
     """The gradient of a rank's block from the cotangent ``ct`` of its
@@ -177,50 +184,168 @@ def _adjoint(ct: torch.Tensor, block: Tuple[int, ...], spec: Spec, mesh, axes: S
     return g
 
 
+def _payload_adjoint(ct: torch.Tensor, block: Tuple[int, ...], spec: Spec, mesh,
+                     axes: Sequence[str], same: Sequence[str], dst: torch.Tensor) -> None:
+    """``_adjoint`` with the data axis's sum deferred (``PayloadSink``):
+    adds to ``dst`` (D, *block) the block of each data rank of this rank's
+    model column, summed over the model axis as ``_adjoint`` sums it (the
+    rank's own block in every slot where the leaf is not split over the
+    data axis)."""
+    dp, tp = mesh.axis_names
+    axes = [a for a in mesh.axis_names if a in axes and a in spec.axes()]
+    column = mesh.members(dp)
+
+    def blocks(j: int) -> torch.Tensor:  # the column's data ranks' blocks at model index j
+        return torch.stack([ct[block_slices(block, spec, {**mesh.coords_of(r), tp: j},
+                                            mesh.shape, axes)] for r in column])
+
+    if tp in axes and tp not in same:
+        x = mesh.reduce_scatter_(torch.stack([blocks(j) for j in range(mesh.shape[tp])]), tp)
+    else:
+        x = blocks(mesh.coords[tp])
+        if tp not in same and tp not in spec.axes() and mesh.shape[tp] > 1:
+            x = mesh.all_reduce_(x.contiguous(), tp)
+    dst.add_(x)
+
+
+class PayloadSink:
+    """Where the gathers' backward leaves the gradient of a rank's blocks
+    with the data axis's sum deferred (the data-axis GSNR source on a grid,
+    core/distributed.py): ``buf`` (D, rows, LANE) f32, whose slot d holds
+    the blocks of data rank d of this rank's model column in the rank's
+    local layout, each leaf block at the element offset its parameter has
+    in ``data`` (the GridParams buffer the leaves are views of)."""
+
+    def __init__(self, buf: torch.Tensor, data: torch.Tensor):
+        self.buf, self.data = buf, data
+
+    def view_for(self, x: torch.Tensor) -> torch.Tensor:
+        """The (D, *x.shape) view of ``buf`` at the elements of ``x``, a
+        contiguous view of ``data``."""
+        if x.untyped_storage().data_ptr() != self.data.untyped_storage().data_ptr() \
+                or not x.is_contiguous():
+            raise ValueError("PayloadSink: the gathered block is not a view of the params")
+        off = x.storage_offset() - self.data.storage_offset()
+        d = self.buf.shape[0]
+        return self.buf.view(d, -1)[:, off: off + x.numel()].view(d, *x.shape)
+
+
+def _batched(spec: Spec) -> Spec:
+    """``spec`` with a leading unsplit dim: a vmapped dim moved to the front
+    stays whole through every gather and reduction."""
+    return Spec(None, *spec)
+
+
+# The autograd Functions below take their context in ``setup_context`` and
+# carry an explicit ``vmap`` rule, so that ``torch.func.grad`` and ``vmap``
+# (the vmap stats method, core/accumulate.py) run through them: a vmapped
+# tensor moves its batch dim to the front and goes through ONE collective of
+# the stacked tensor (an all-reduce commutes with the batch dim; a gather
+# or a reduce-scatter along a spec dim keeps it out of that dim,
+# ``_batched``).  A collective has no batching rule, so none is generated.
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spec, mesh, axes, same):
-        ctx.meta = (tuple(x.shape), spec, mesh, tuple(axes), tuple(same))
+    def forward(x, spec, mesh, axes, same, sink):
         out = gather_leaf(x, spec, mesh, axes)
         return out.view_as(out) if out is x else out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, spec, mesh, axes, same, sink = inputs
+        ctx.meta = (tuple(x.shape), spec, mesh, tuple(axes), tuple(same))
+        ctx.dst = None if sink is None else sink.view_for(x)
+
+    @staticmethod
     def backward(ctx, ct):
         block, spec, mesh, axes, same = ctx.meta
-        return _adjoint(ct, block, spec, mesh, axes, same), None, None, None, None
+        if ctx.dst is not None:  # the data axis's sum deferred to the payload
+            _payload_adjoint(ct, block, spec, mesh, axes, same, ctx.dst)
+            return None, None, None, None, None, None
+        return _Adjoint.apply(ct, block, spec, mesh, axes, same), None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, spec, mesh, axes, same, sink):
+        if sink is not None:
+            raise NotImplementedError("a payload sink under torch.func.vmap")
+        return _Gather.apply(x.movedim(in_dims[0], 0), _batched(spec), mesh, axes, same,
+                             None), 0
+
+
+class _Adjoint(torch.autograd.Function):
+    """``_adjoint`` as a Function of its own, so that a batched cotangent
+    (the vmap stats method's k groups) reduces in one collective.  First
+    order only."""
+
+    @staticmethod
+    def forward(ct, block, spec, mesh, axes, same):
+        return _adjoint(ct, block, spec, mesh, axes, same)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("the gathers' adjoint is first order only")
+
+    @staticmethod
+    def vmap(info, in_dims, ct, block, spec, mesh, axes, same):
+        return _Adjoint.apply(ct.movedim(in_dims[0], 0), (info.batch_size, *block),
+                              _batched(spec), mesh, axes, same), 0
 
 
 def gather(x: torch.Tensor, spec: Spec, mesh, axes: Sequence[str],
-           same: Sequence[str] = ()) -> torch.Tensor:
+           same: Sequence[str] = (), sink: Optional[PayloadSink] = None) -> torch.Tensor:
     """``gather_leaf`` with autograd's adjoint in the backward (module
-    note): ``same`` lists the axes whose ranks compute the same cotangent."""
-    return _Gather.apply(x, spec, mesh, tuple(axes), tuple(same))
+    note): ``same`` lists the axes whose ranks compute the same cotangent.
+    With a ``sink`` the backward defers the data axis's sum and adds the
+    data ranks' blocks to the sink instead (``_payload_adjoint``); the
+    block then takes no gradient of its own."""
+    return _Gather.apply(x, spec, mesh, tuple(axes), tuple(same), sink)
 
 
 class _Enter(torch.autograd.Function):
     """Identity forward; the gradient all-reduced over the model axis."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.meta = (mesh, axis)
+    def forward(x, mesh, axis):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.meta = inputs[1:]
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis = ctx.meta
-        return mesh.all_reduce_(g.contiguous().clone(), axis), None, None
+        return _Reduce.apply(g, mesh, axis, "sum"), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis):
+        return _Enter.apply(x, mesh, axis), in_dims[0]
 
 
 class _Reduce(torch.autograd.Function):
-    """All-reduce (sum) over the model axis forward; identity backward."""
+    """All-reduce (sum, or ``op="max"``) over the model axis forward;
+    identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return mesh.all_reduce_(x.contiguous().clone(), axis)
+    def forward(x, mesh, axis, op):
+        return mesh.all_reduce_(x.contiguous().clone(), axis, op=op)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis, op):
+        return _Reduce.apply(x, mesh, axis, op), in_dims[0]
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -236,6 +361,34 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
+def _unbatched(in_dims, what: str) -> None:
+    if in_dims[1] is not None:
+        raise NotImplementedError(f"{what} of a vmapped weight: the weights enter the vmap "
+                                  "stats method unbatched")
+
+
+class _MmF32(torch.autograd.Function):
+    """``mm_f32`` whose vmap rule takes the rows of every vmapped group in
+    one product (``a`` batched, ``b`` not).  First order only."""
+
+    @staticmethod
+    def forward(a, b):
+        return mm_f32(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("mm_f32 in a backward is first order only")
+
+    @staticmethod
+    def vmap(info, in_dims, a, b):
+        _unbatched(in_dims, "mm_f32")
+        return _MmF32.apply(a.movedim(in_dims[0], 0), b), 0
+
+
 def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1])
 
@@ -245,18 +398,26 @@ class _ColProduct(torch.autograd.Function):
     rank's columns ``w`` in the compute dtype: the product in that dtype
     forward, as one card takes it; backward the input gradient's partial
     product in f32 (``enter`` sums it over the model axis), the weight's in
-    the compute dtype."""
+    the compute dtype (from ``x`` cast again: a Function under
+    ``torch.func`` saves only its inputs and outputs)."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        xc = x.to(w.dtype)
-        ctx.save_for_backward(xc, w)
-        return xc @ w
+    def forward(x, w):
+        return x.to(w.dtype) @ w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
-        xc, w = ctx.saved_tensors
-        return mm_f32(dy, w.T), _rows(xc).T @ _rows(dy)
+        x, w = ctx.saved_tensors
+        return _MmF32.apply(dy, w.T), _rows(x.to(w.dtype)).T @ _rows(dy)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        _unbatched(in_dims, "a column product")
+        return _ColProduct.apply(x.movedim(in_dims[0], 0), w), 0
 
 
 class _RowProduct(torch.autograd.Function):
@@ -266,15 +427,23 @@ class _RowProduct(torch.autograd.Function):
     compute dtype, as one card's product."""
 
     @staticmethod
-    def forward(ctx, h, w):
-        ctx.save_for_backward(h, w)
+    def forward(h, w):
         return mm_f32(h, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
         h, w = ctx.saved_tensors
         dy = dy.to(h.dtype)
         return dy @ w.T, _rows(h).T @ _rows(dy)
+
+    @staticmethod
+    def vmap(info, in_dims, h, w):
+        _unbatched(in_dims, "a row product")
+        return _RowProduct.apply(h.movedim(in_dims[0], 0), w), 0
 
 
 def _map2(fn, tree, *rest):
@@ -306,7 +475,12 @@ class Placement:
     ``specs`` maps each reference path of the stacked tree to its Spec and
     ``shapes`` to its whole shape.  ``attn_tp`` / ``mlp_tp`` / ``vocab_tp``
     say whether the model axis splits the attention heads, the MLP's d_ff
-    and the vocab; ``role(path)`` is "col", "row" or "rep" for each leaf."""
+    and the vocab; ``role(path)`` is "col", "row" or "rep" for each leaf.
+
+    Two modes a step sets around one forward and backward: ``deferred(sink)``
+    (the data-axis GSNR source) hands every gather a ``PayloadSink``, and
+    ``without_remat()`` (the vmap stats method) runs the layer groups of
+    models/transformer.py::forward_grid without recomputation."""
 
     def __init__(self, model_cfg, rules: Rules, mesh, specs: Dict[str, Spec],
                  shapes: Dict[str, Tuple[int, ...]]):
@@ -316,6 +490,8 @@ class Placement:
         self.m, self.j = mesh.shape[self.tp], mesh.coords[self.tp]
         cfg = model_cfg
         self.stacked = cfg.n_groups() > 1
+        self.sink: Optional[PayloadSink] = None
+        self.remat = True
         bad = [k for k in cfg.pattern_layers() if k not in TP_KINDS]
         if cfg.moe is not None or cfg.encoder is not None or cfg.n_image_tokens or bad:
             what = "a mixture of experts" if cfg.moe is not None else \
@@ -336,6 +512,27 @@ class Placement:
         table = specs["embed/embed"]
         self.vocab_tp = m > 1 and table[0] == self.tp and (
             cfg.tie_embeddings or specs["head"][-1] == self.tp)
+
+    @contextlib.contextmanager
+    def deferred(self, sink: PayloadSink):
+        """Gathers made inside the block defer the data axis's sum of their
+        backward to ``sink`` (``_payload_adjoint``)."""
+        self.sink = sink
+        try:
+            yield
+        finally:
+            self.sink = None
+
+    @contextlib.contextmanager
+    def without_remat(self):
+        """The grid's forward inside the block keeps its activations:
+        ``torch.func`` cannot run through the remat Function, whose backward
+        reruns the group under plain autograd."""
+        self.remat = False
+        try:
+            yield
+        finally:
+            self.remat = True
 
     # -- roles and gathers ---------------------------------------------------
 
@@ -362,7 +559,7 @@ class Placement:
         if not axes and not any(self.mesh.shape[a] > 1 for a in self.mesh.axis_names
                                 if a not in same and a not in spec.axes()):
             return x
-        return gather(x, spec, self.mesh, axes, same)
+        return gather(x, spec, self.mesh, axes, same, self.sink)
 
     def group_dims(self, path: str) -> int:
         """1 when a layer group takes the ``[g]`` slice of the rank's block
@@ -387,8 +584,10 @@ class Placement:
         weight), in ``dtype`` (``_ColProduct``)."""
         return _ColProduct.apply(x, w.to(dtype))
 
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return _Reduce.apply(x, self.mesh, self.tp)
+    def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` summed (or its maximum, ``op="max"``; take no gradient
+        through that) over the model axis; identity backward."""
+        return _Reduce.apply(x, self.mesh, self.tp, op)
 
     def row_product(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``h @ w`` of the rank's input columns ``h`` (..., F/M) and the

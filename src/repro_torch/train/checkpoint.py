@@ -30,8 +30,10 @@ the other:
     core/layout.py::GridParams) and the flat state (FlatBuffers of a
     GridShard) are gathered whole to every rank the same way, rank 0 writes
     the reference's file, and at restore each rank reads the whole leaves
-    and keeps its own blocks.  The reference plan's tree state of a rank's
-    blocks is refused.
+    and keeps its own blocks.  Tree state of a rank's blocks (the
+    baselines', and the reference plan's VR state) goes through the same
+    flat form: packed into the rank's local layout, gathered whole, and at
+    restore unpacked from the rank's blocks in the template's dtype.
 
 Files are written to ``path + ".tmp"`` and moved into place with
 ``os.replace``.
@@ -56,7 +58,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import (FlatBuffer, FlatParams, GridParams, ParamLayout, is_flat,
-                                     nest_paths, stack_groups)
+                                     nest_paths, stack_groups, tree_leaves)
 
 
 def _tensor(a, device, dtype):
@@ -179,15 +181,45 @@ def _items(tree, prefix: str, mesh, out: List[Tuple[str, Any]]) -> None:
         out.append((prefix[:-1], tree))
 
 
+_STATE_BUFFERS = ("m", "v", "p")
+
+
+def _grid_flat_state(tree: Any) -> Any:
+    """A TrainState on a GridMesh with its tree state of the rank's blocks
+    as FlatBuffers of its GridShard (in the trees' dtype); any other tree
+    as it is."""
+    params = getattr(tree, "params", None)
+    if not isinstance(params, GridParams):
+        return tree
+    sh = params.shard
+    opt = {}
+    for k, v in tree.opt_state.items():
+        if k in _STATE_BUFFERS and not is_flat(v):
+            dtype = tree_leaves(v)[0].dtype
+            v = FlatBuffer(sh.local_layout.pack(v, dtype, params.device), sh.layout, sh)
+        opt[k] = v
+    return tree._replace(opt_state=opt)
+
+
+def _grid_trees(back: Any, like: Any) -> Any:
+    """``back`` (restored through ``_grid_flat_state(like)``) with each
+    state buffer that is a tree in ``like`` unpacked from the rank's blocks
+    (views of the restored local buffer)."""
+    if not isinstance(getattr(like, "params", None), GridParams):
+        return back
+    opt = dict(back.opt_state)
+    for k, v in like.opt_state.items():
+        if k in _STATE_BUFFERS and not is_flat(v):
+            opt[k] = like.params.local_layout.unpack(opt[k].data)
+    return back._replace(opt_state=opt)
+
+
 def save(path: str, tree: Any, mesh=None) -> None:
     """Write ``tree`` to ``path`` in the reference's .npz format.  Under a
     data mesh every rank calls it (the sharded state is gathered, a
     collective), rank 0 writes, and every rank returns once the file is in
     place."""
-    if isinstance(getattr(tree, "params", None), GridParams) and any(
-            not is_flat(v) for k, v in tree.opt_state.items() if k in ("m", "v", "p")):
-        raise ValueError("save: the reference plan's optimizer state on a GridMesh holds each "
-                         "rank's blocks as trees; save the fused plan's flat state")
+    tree = _grid_flat_state(tree)
     items: List[Tuple[str, Any]] = []
     _items(tree, "", mesh, items)
     if mesh is None or mesh.rank == 0:
@@ -255,4 +287,4 @@ def restore(path: str, like: Any) -> Any:
     ``path`` (see the module note); raises KeyError on a missing leaf and
     ValueError on a shape mismatch."""
     with np.load(path) as data:
-        return _restore(data, like, "")
+        return _grid_trees(_restore(data, _grid_flat_state(like), ""), like)

@@ -40,8 +40,7 @@ def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, placement) -
     log(sum exp(z - max)) + max - z_target, as ``torch.logsumexp`` forms it."""
     z = logits.float()
     v = z.shape[-1]
-    top = placement.mesh.all_reduce_(z.detach().amax(dim=-1).contiguous(), placement.tp,
-                                     op="max")
+    top = placement.reduce(z.detach().amax(dim=-1), op="max")
     sumexp = placement.reduce(torch.exp(z - top[..., None]).sum(dim=-1))
     local = targets.long() - placement.vocab_offset()
     inside = (local >= 0) & (local < v)

@@ -62,17 +62,30 @@ FSDP + TP of the model's weights (``mesh=``, a launch/mesh.py::GridMesh of
 D x M ranks; the reference's GSPMD placement by its sharding rules): each
 rank holds its spec block of every leaf (core/layout.py::GridParams) and
 the forward gathers the weights on use (models/transformer.py::
-forward_grid, sharding/placement.py).  VR-LAMB, fresh and stale, with the
-microbatch source and the scan method: the data ranks split each group's
-rows, the backward leaves each rank's blocks of the gradient summed over
-the data axis, and the carry (K3/K9, K4) and the update (K13, an
-all-reduce, K16, an all-reduce, ``trust_apply``; a stale step's chain and
-trust epilogue) run on the rank's local buffer, whose per-leaf sums count
-a replicated leaf once (backend.py::GridSpmd).  The update is added to the
-rank's own blocks in place; nothing is gathered after the step.
-grad_norm, update_norm and gsnr/* come from the blocks and one all-reduce
-each.  The other optimizers, the data-axis source, the vmap method and
-``noise_scale`` raise there (ROADMAP A9's remainder).
+forward_grid, sharding/placement.py).  Every optimizer runs there, on both
+plans and both GSNR sources, with either stats method:
+  * the microbatch source: the data ranks split each group's rows, the
+    backward leaves each rank's blocks of the gradient summed over the data
+    axis (x 1/D), and the carry (K3/K9, K4) runs on the rank's local
+    buffer; the vmap method takes the k groups through one vmapped
+    backward (each layer's weights gathered once for all k, the groups
+    without remat) and K10 over the (k, rows, 128) stack of its blocks;
+  * the data-axis source: k = D, each data rank's whole gradient of its
+    rows squared after the model-axis sums and before the data-axis sum,
+    K11 once and one reduce-scatter of the payload into the rank's blocks
+    (core/distributed.py);
+  * the baselines: one backward, the rank's blocks x 1/D, tree math on the
+    blocks with LARS's and LAMB's trust ratios from the whole leaves'
+    norms;
+  * the VR updates (K13, an all-reduce, then K14, K15, K16 or K17; LAMB and
+    LARS a second all-reduce and ``trust_apply``; a stale step's chain) on
+    the rank's local buffer, whose per-leaf sums count a replicated leaf
+    once (backend.py::GridSpmd), and the reference plan's tree math on the
+    rank's blocks with the same sums.
+The update is added to the rank's own blocks in place; nothing is gathered
+after the step.  grad_norm, update_norm, gsnr/* and noise/* come from the
+blocks and one all-reduce each.  Only the block kinds of ROADMAP A9.2/A9.3
+(sharding/placement.py::Placement) raise there.
 
 ``noise_scale=True`` adds the gradient-noise-scale readings of a fresh VR
 step (core/noise_scale.py: plain reductions over the moments the step has
@@ -99,7 +112,7 @@ from repro_torch.core.vrgd import make_optimizer
 from repro_torch.launch.mesh import GridMesh
 from repro_torch.models import init_params
 from repro_torch.models.transformer import model_layout
-from repro_torch.sharding.placement import ROADMAP_REST, Placement, block_slices
+from repro_torch.sharding.placement import Placement, block_slices
 from repro_torch.sharding.rules import Rules
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train.loss import make_loss_fn
@@ -152,21 +165,6 @@ def grid_plan(cfg: Config, mesh: GridMesh):
     return pl, spmd
 
 
-def _refuse_on_grid(cfg: Config, noise_scale: bool) -> None:
-    o = cfg.optimizer
-    what = None
-    if o.name != "vr_lamb":
-        what = f"the {o.name} optimizer"
-    elif o.gsnr_source != "microbatch":
-        what = f"gsnr_source={o.gsnr_source!r}"
-    elif o.stats_method != "scan":
-        what = f"stats_method={o.stats_method!r}"
-    elif noise_scale:
-        what = "noise_scale=True"
-    if what is not None:
-        raise NotImplementedError(f"{what} on a GridMesh is not ported yet ({ROADMAP_REST})")
-
-
 def make_train_step(
     cfg: Config,
     loss_fn: Optional[Callable] = None,
@@ -184,23 +182,21 @@ def make_train_step(
     loss, grad_norm, update_norm, the loss's own (ce, pack_efficiency) and,
     with ``log_gsnr`` on a fresh VR step, gsnr/mean, gsnr/min and
     gsnr/frac_floor; under a mesh they are the same on every rank.  On a
-    GridMesh ``state.params`` is the rank's GridParams, ``loss_fn`` must
-    run the grid's forward (``make_loss_fn(cfg, placement)``, the default)
-    and only VR-LAMB with the microbatch source and the scan method runs
-    (the module note).
+    GridMesh ``state.params`` is the rank's GridParams and ``loss_fn`` must
+    run the grid's forward (``make_loss_fn(cfg, placement)``, the default);
+    every optimizer, source and stats method runs (the module note).
 
     ``noise_scale=True`` adds ``lr`` (a float: the schedule at
     ``state.step`` for the effective batch ``cfg.global_batch``) to every
     step and, on a fresh VR step, noise/g2_small, noise/g2_big,
     noise/tr_sigma, noise/g2 and noise/b_simple, with B_small = B/k and
     B_big = B: from the moment carry on the microbatch source (its rows
-    summed over the ranks under a mesh), from the reduced payload's two
-    sums on the data-axis source."""
+    summed over the ranks under a mesh, its blocks' per-leaf sums from
+    their owners on a GridMesh), from the reduced payload's two sums on
+    the data-axis source."""
     opt_cfg = cfg.optimizer
     device = _device_of(device, mesh)
     grid = isinstance(mesh, GridMesh)
-    if grid:
-        _refuse_on_grid(cfg, noise_scale)
     bk = cfg.parallel.backend
     if mesh is not None and bk.resolve("stats", device) != bk.resolve("optimizer", device):
         raise NotImplementedError(
@@ -251,7 +247,8 @@ def make_train_step(
             if with_stats and noise_scale:
                 with torch.no_grad():
                     noise = ns.estimate(stats, b_small=cfg.global_batch / stats.k,
-                                        b_big=cfg.global_batch, mesh=mesh)
+                                        b_big=cfg.global_batch, mesh=mesh,
+                                        grid=spmd if grid else None)
         else:
             loss, aux, grads = grad_only(loss_fn, flat, batch, spmd=spmd)
             stats = None

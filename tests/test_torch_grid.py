@@ -27,9 +27,10 @@ thread each, a rendezvous file under the test's tmp dir) runs:
   bert smoke's placement, against the plain loss on the whole logits; the
   loss within rtol 1e-6 and each rank's logit gradient within atol 1e-7 of
   its columns of the whole gradient.
-* The refusals on the grid: every other optimizer, the data-axis source,
-  the vmap method, ``noise_scale`` and each unported block kind raise
-  NotImplementedError naming ROADMAP A9.
+* The refusals on the grid: each unported block kind (a mixture of
+  experts, the RG-LRU, xLSTM, cross-attention with its encoder or image
+  stub) raises NotImplementedError naming ROADMAP A9; every optimizer,
+  source and stats method runs there (tests/test_torch_grid_paths.py).
 * The checkpoint: the fused bert run's state saved from the grid (gathered,
   rank 0 writes) restores whole into a one-card template, equal
   (``torch.equal``, on the leaf elements) to the state gathered whole, and
@@ -60,18 +61,12 @@ ARCHS = ("bert-large", "internlm2-1.8b")
 PLANS = ("fused", "reference")
 FRESH = (True, False, True)
 OPT = dict(k=4, gsnr_refresh=2)
-# each refused case: (arch, OptimizerConfig overrides, make_train_step keywords)
-REFUSED = {
-    **{name: ("bert-large", {"name": name}, {}) for name in
-       ("sgd", "momentum", "adam", "lars", "lamb", "vr_sgd", "vr_momentum", "vr_adam",
-        "vr_lars")},
-    "data_axis": ("bert-large", {"gsnr_source": "data_axis"}, {}),
-    "vmap": ("bert-large", {"stats_method": "vmap"}, {}),
-    "noise_scale": ("bert-large", {}, {"noise_scale": True}),
-    **{arch: (arch, {}, {}) for arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b",
-                                         "recurrentgemma-9b", "xlstm-1.3b", "whisper-small",
-                                         "llama-3.2-vision-11b")},
-}
+# each refused case: (arch, OptimizerConfig overrides, make_train_step keywords);
+# the other optimizers, sources and stats methods run on the grid
+# (tests/test_torch_grid_paths.py)
+REFUSED = {arch: (arch, {}, {}) for arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b",
+                                             "recurrentgemma-9b", "xlstm-1.3b", "whisper-small",
+                                             "llama-3.2-vision-11b")}
 
 
 def _opt(arch):
