@@ -126,7 +126,15 @@ Phases, in order; any failure exits non-zero:
                 against its one-card f32 run (GRID_PATHS: launches per
                 step, buffers within DP_TOL or GRID_UPD_ROUNDED, the
                 data-axis moments within GRID_MOMENT_TOL, noise within
-                DP_TOL["gsnr"]).
+                DP_TOL["gsnr"]); then expert parallelism (GRID_MOE): the
+                mixtral smoke (4 experts over the model axis), its
+                3-expert variant at capacity factor 0.5 (each expert's
+                d_ff over the model axis, half the choices dropped) and
+                the llama4 smoke (a shared expert), at global batch 64,
+                seq 128, k = 4: one fresh f32 step each against the
+                one-card f32 step over whole groups (DP_TOL, launches as
+                above, the routing decisions compared) and one bf16 step
+                beside a witness, its routing flips held to ROUTE_GATE.
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -2972,6 +2980,113 @@ GRID_MOMENT_TOL = DP_TOL["p"]
 GRID_ROUNDED = ("sgd", "momentum", "lars", "vr_sgd", "vr_momentum", "vr_lars")
 
 
+# Phase 10d's MoE run (after the other paths, in the same four ranks):
+# expert parallelism on the grid at the MoE smokes' widths (d_model 256, 4
+# experts, 2 layers: configs/base.py::smoke_variant), global batch
+# GRID_BATCH, seq 128, VR-LAMB k = 4 on the fused plan, one fresh step in
+# f32 and one in bf16 each: mixtral's 4 experts (the model axis splits the
+# experts), its 3-expert variant at capacity factor 0.5 (each expert's d_ff
+# split, about half the choices dropped) and llama4's (top-1 and a shared
+# expert).  mixtral at its published width does not fit one card even at
+# one layer (~81 GB of f32 step state for its 2.91 G params; PERF.md), and
+# the grid's ranks share this card over gloo, so the full-width MoE grid
+# waits on a four-card cell.  The f32 step is held against the one-card f32
+# step over whole groups (the reference routes each microbatch whole:
+# core/accumulate.py::rank_split_loss refuses a MoE model) as hold_grid
+# holds the VR-LAMB f32 step (DP_TOL, GRID_F32_TOL, GRID_F32_LEAF_TOL), its
+# routing decisions beside the one-card run's (every MoE call, forward and
+# recompute, the data ranks' rows in rank order), which may flip at most
+# ROUTE_GATE's floor of them.  The bf16 step is printed beside a witness,
+# the one-card bf16 step from the params moved one f32 ulp (nudge_ulp), and
+# its routing flips are held to ROUTE_GATE against the witness's
+# (hold_grid_moe).
+GRID_MOE = {  # label -> (arch, MoEConfig overrides)
+    "mixtral-8x22b smoke": ("mixtral-8x22b", {}),
+    "mixtral-8x22b smoke, 3 experts at cf 0.5": ("mixtral-8x22b",
+                                                 {"n_experts": 3, "capacity_factor": 0.5}),
+    "llama4-maverick-400b-a17b smoke": ("llama4-maverick-400b-a17b", {}),
+}
+GRID_MOE_SEQ = 128
+
+
+def grid_moe_config(arch, over, dtype):
+    """A GRID_MOE config: the smoke at GRID_BATCH x GRID_MOE_SEQ, fused,
+    k = DP_PATHS_K, in ``dtype``."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(arch)
+    m = cfg.model
+    cfg = cfg.replace(global_batch=GRID_BATCH, seq_len=GRID_MOE_SEQ,
+                      model=dataclasses.replace(m, moe=dataclasses.replace(m.moe, **over)))
+    cfg = plan_config(cfg, "fused", k=DP_PATHS_K)
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype=dtype))
+
+
+def grid_moe_dropped(cfg, util):
+    """The choices a step dropped past the capacity, from its moe_util (the
+    kept share of the E cap slots, each MoE call's averaged over the layers
+    and the k groups): k L n top_k - util k L E cap."""
+    from repro_torch.models.moe import capacity
+
+    m, k = cfg.model, cfg.optimizer.k
+    n = cfg.global_batch // k * cfg.seq_len
+    calls = k * m.n_layers
+    return calls * n * m.moe.top_k - round(util * calls * m.moe.n_experts *
+                                           capacity(n, m.moe))
+
+
+def hold_grid_moe(label, cfg, grid, ones, every, layout, smi):
+    """Rank 0's hold of one GRID_MOE config (GRID_MOE's note): ``grid``
+    {f32, bf16: (metrics per step, first buffers, walls, launches, peak,
+    routing calls)}, ``ones`` {f32, bf16, witness: (one_card's result, its
+    routing calls)}, ``every`` each rank's routed experts per call.
+    Returns the gaps."""
+    import torch
+
+    d, m = GRID_SHAPE
+    top_k = cfg.model.moe.top_k
+    out = {}
+    routed = {}
+    for run in ("f32", "bf16"):
+        for r in range(len(every)):  # the model ranks of a data row route alike
+            row = every[r - r % m][run]
+            if len(every[r][run]) != len(row) or not all(
+                    torch.equal(a, b) for a, b in zip(every[r][run], row)):
+                fail(f"{label} {run}: the model ranks of a data row routed differently")
+        routed[run] = [dict(idx=torch.cat([every[i * m][run][c] for i in range(d)]).cuda())
+                       for c in range(len(every[0][run]))]
+    hist32, first32 = grid["f32"][:2]
+    out["f32"] = hold_grid(f"grid {GRID_SHAPE} f32 {label} vs one-card k{DP_PATHS_K}", hist32,
+                           first32, ones["f32"][0], layout, GRID_F32_TOL, GRID_F32_LEAF_TOL)
+    r32 = route_gaps(routed["f32"], ones["f32"][1], top_k)
+    limit32 = ROUTE_GATE["floor"] * r32["decisions"]
+    print(f"  {label} f32 routing, grid vs one card: {r32['flips']} of {r32['decisions']} "
+          f"decisions flipped (at most {limit32:.0f}, ROUTE_GATE's floor) ({smi})", flush=True)
+    if r32["flips"] > limit32:
+        fail(f"{label}: the f32 grid's routing flips past ROUTE_GATE's floor")
+    r16 = route_gaps(routed["bf16"], ones["bf16"][1], top_k)
+    rw = route_gaps(ones["witness"][1], ones["bf16"][1], top_k)
+    limit16 = max(ROUTE_GATE["flips"] * rw["flips"], ROUTE_GATE["floor"] * r16["decisions"])
+    ref, wit = ones["bf16"][0], ones["witness"][0]
+    gg, gw = step_gaps(grid["bf16"][0][0], ref[0][0]), step_gaps(wit[0][0], ref[0][0])
+    bufs = {nm: (rel_diff(grid["bf16"][1][nm], ref[1][nm]), rel_diff(wit[1][nm], ref[1][nm]))
+            for nm in ("upd", "m", "v", "p")}
+    print(f"  {label} bf16 step vs the one-card bf16 step (printed beside the witness, the "
+          f"one-card step from params one f32 ulp away; not held): " + "; ".join(
+              f"{k} {gg[k]:.3e} (witness {gw[k]:.3e})" for k in gg) + "; " + "; ".join(
+              f"{nm} {a:.3e} (witness {b:.3e})" for nm, (a, b) in bufs.items()) + f" ({smi})",
+          flush=True)
+    print(f"  {label} bf16 routing: grid {r16['flips']} of {r16['decisions']} decisions "
+          f"flipped against the one-card step, the witness {rw['flips']}; ROUTE_GATE: at most "
+          f"{limit16:.0f} ({smi})", flush=True)
+    if r16["flips"] > limit16:
+        fail(f"{label}: the bf16 grid's routing flips past ROUTE_GATE")
+    out.update(f32_flips=(r32["flips"], r32["decisions"]),
+               bf16=dict(metrics=gg, witness=gw, buffers=bufs, flips=r16["flips"],
+                         witness_flips=rw["flips"], decisions=r16["decisions"]))
+    return out
+
+
 def grid_path_counts(n_layers, k, case, fresh):
     """Launches of one rank's fused step of a GRID_PATHS case: one backward
     pass for a baseline, the data-axis source and the vmap method (whose
@@ -3048,7 +3163,9 @@ def grid_rank(rank, init, out_dir):
     runs the one-card steps; then every rank runs the bf16 grid steps and
     the f32 ones (launches held per step), rank 0 holds them (GRID_SHAPE's
     note); then each of GRID_PATHS the same way, one at a time (its
-    one-card run on rank 0, the grid's steps, rank 0's hold).  Each rank
+    one-card run on rank 0, the grid's steps, rank 0's hold); then each of
+    GRID_MOE (rank 0's one-card runs, the grid's f32 and bf16 steps with
+    every rank's routing recorded, rank 0's hold_grid_moe).  Each rank
     writes its counts, walls, collective walls, held elements and peak
     memory to out_dir."""
     import torch
@@ -3065,6 +3182,8 @@ def grid_rank(rank, init, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
     mesh = init_grid_mesh("gloo", *GRID_SHAPE, dev, init_method=init, rank=rank)
     cfg = plan_config(cut_train_config(GRID_BATCH), "fused", k=DP_PATHS_K, gsnr_refresh=2)
     cfg32 = cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype="float32"))
@@ -3080,15 +3199,18 @@ def grid_rank(rank, init, out_dir):
         f = torch.tensor([0.0 if ok else 1.0], device=dev)
         return float(mesh.all_reduce_(f)) == 0.0
 
-    def one_card(cfg, loss, fresh_seq, noise=False):
+    def one_card(cfg, loss, fresh_seq, noise=False, draw=params, data=None, before=None):
         """(metrics per step, the first step's update and the m, v, p it has
         on the leaf elements, peak bytes) of the one-card run with
-        ``loss``."""
-        state = init_state(cfg, params=params(), device=dev)
+        ``loss`` (from ``draw()``'s params on ``data``, by default bert's;
+        ``before(state)`` runs before the first step)."""
+        state = init_state(cfg, params=draw(), device=dev)
+        if before is not None:
+            before(state)
         step = make_train_step(cfg, loss, log_gsnr=True, device=dev, noise_scale=noise)[0]
         hist, first = [], {}
         torch.cuda.reset_peak_memory_stats()
-        for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
+        for i, (batch, fresh) in enumerate(zip(data or batches, fresh_seq)):
             w0 = state.params.data.clone() if i == 0 else None
             state, metrics = step(state, batch, fresh)
             hist.append({k: float(v) for k, v in metrics.items()})
@@ -3113,21 +3235,23 @@ def grid_rank(rank, init, out_dir):
         ref32 = one_card(cfg32, split(cfg32), GRID_F32_FRESH)
     flag_all(True)  # a barrier
 
-    def grid_run(cfg, fresh_seq, tag, timed, want_fn=None, noise=False, holder=0):
+    def grid_run(cfg, fresh_seq, tag, timed, want_fn=None, noise=False, holder=0, draw=params,
+                 data=None):
         """(state, metrics per step, the first step's update and the m, v, p
         it has whole on rank ``holder``, step walls, launches, peak bytes
-        after init) of the grid's steps; ``want_fn(fresh)`` gives a step's
+        after init) of the grid's steps (from ``draw()``'s params on
+        ``data``, by default bert's); ``want_fn(fresh)`` gives a step's
         launches (default: the VR-LAMB scan step's, grid_counts)."""
         from repro_torch.core.layout import is_flat
 
-        state = init_state(cfg, params=params(), device=dev, mesh=mesh)
+        state = init_state(cfg, params=draw(), device=dev, mesh=mesh)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         gp = state.params
         step = make_train_step(cfg, log_gsnr=True, device=dev, mesh=mesh, noise_scale=noise)[0]
         mesh.timed = timed
         hist, first, walls, counts_all = [], {}, [], {}
-        for i, (batch, fresh) in enumerate(zip(batches, fresh_seq)):
+        for i, (batch, fresh) in enumerate(zip(data or batches, fresh_seq)):
             w0 = gp.data.clone() if i == 0 else None
             reset_counts()
             (state, metrics), ms = host_ms(lambda: step(state, batch, fresh))
@@ -3269,8 +3393,56 @@ def grid_rank(rank, init, out_dir):
         paths[case] = rec
         del first_c
     paths_wall = time.perf_counter() - t_paths
+
+    # the MoE smokes (GRID_MOE's note): rank 0's one-card runs, then the
+    # grid's f32 and bf16 steps, each rank's routing recorded
+    t_moe = time.perf_counter()
+    moe_runs = {}
+    for label_m, (arch, over) in GRID_MOE.items():
+        mc, mc32 = grid_moe_config(arch, over, "bfloat16"), grid_moe_config(arch, over, "float32")
+        mm = mc.model
+        mstream = lm_batches(mm.vocab_size, GRID_BATCH, mc.seq_len, seed=2)
+        mdata = [next(mstream)]
+        mdraw = lambda mm=mm: init_params(mm, torch.Generator(device=dev).manual_seed(0),
+                                          device=dev)
+        ones = {}
+        with RouteRecorder() as rec:
+            rec.on = True
+            if rank == 0:
+                for run, c, before in (("f32", mc32, None), ("bf16", mc, None),
+                                       ("witness", mc, lambda st: nudge_ulp(st, WITNESS_SEED))):
+                    ones[run] = (one_card(c, None, (True,), draw=mdraw, data=mdata,
+                                          before=before), rec.take())
+            flag_all(True)
+            grid = {}
+            for run, c in (("f32", mc32), ("bf16", mc)):
+                st, hist_m, first_m, walls_m, counts_m, peak_m = grid_run(
+                    c, (True,), f"{run} {label_m}", False, draw=mdraw, data=mdata)
+                held_m = {"param_elements": st.params.shard.held,
+                          "elements": sum(st.params.layout.sizes)}
+                layout_m = st.params.layout
+                del st
+                torch.cuda.empty_cache()
+                grid[run] = (hist_m, first_m, walls_m, counts_m, peak_m, rec.take())
+        routes = os.path.join(out_dir, f"moe_routes{rank}.pt")
+        torch.save({run: [c["idx"].cpu() for c in g[5]] for run, g in grid.items()}, routes)
+        flag_all(True)
+        rec_m = {run: {"walls": g[2], "peak_bytes": g[4], "counts": g[3],
+                       "dropped": grid_moe_dropped(mc, g[0][0]["moe_util"])}
+                 for run, g in grid.items()}
+        rec_m["held"] = held_m
+        if rank == 0:
+            every = [torch.load(os.path.join(out_dir, f"moe_routes{r}.pt")) for r in
+                     range(mesh.size)]
+            rec_m["gaps"] = hold_grid_moe(label_m, mc, grid, ones, every, layout_m, smi)
+        flag_all(True)
+        os.remove(routes)
+        moe_runs[label_m] = rec_m
+        del grid, ones
+        torch.cuda.empty_cache()
+    moe_wall = time.perf_counter() - t_moe
     summary = {"counts": counts_all, "walls": walls, "walls_f32": walls32, "held": held,
-               "paths": paths, "paths_wall": paths_wall,
+               "paths": paths, "paths_wall": paths_wall, "moe": moe_runs, "moe_wall": moe_wall,
                "whole": whole, "peak_bytes": peak,
                "one_card_peak_bytes": one_card_peak,
                "collectives": {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()},
@@ -3362,7 +3534,8 @@ def phase_train_grid(records):
           f"global batch {GRID_BATCH}, seq {cfg.seq_len}, fused plan, VR-LAMB k = {DP_PATHS_K} "
           f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)} in bf16, then "
           f"{'/'.join('fresh' if f else 'stale' for f in GRID_F32_FRESH)} in f32, then in f32 "
-          f"{', '.join(GRID_PATHS)} (GRID_PATHS)", flush=True)
+          f"{', '.join(GRID_PATHS)} (GRID_PATHS), then one f32 and one bf16 step of "
+          f"{', '.join(GRID_MOE)} at seq {GRID_MOE_SEQ} (GRID_MOE)", flush=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
@@ -3419,6 +3592,23 @@ def phase_train_grid(records):
                   f"{runs[0]['b_simple'][1]:.6e}", flush=True)
     print(f"  the other paths (GRID_PATHS, their one-card runs and holds included): "
           f"{max(res['paths_wall'] for res in ranks):.1f} s ({smi})", flush=True)
+    for label_m in GRID_MOE:
+        runs = [res["moe"][label_m] for res in ranks]
+        held_m = runs[0]["held"]
+        for prec in ("f32", "bf16"):
+            for run in runs:
+                for k, c in run[prec]["counts"].items():
+                    path_counts[k] = path_counts.get(k, 0) + c
+            steps = "; ".join(
+                f"rank {r} {', '.join(f'{w:.1f}' for w in run[prec]['walls'])} ms, peak "
+                f"{run[prec]['peak_bytes'] / 2**30:.3f} GiB" for r, run in enumerate(runs))
+            print(f"  MoE {label_m} {prec} (fused; {smi}): step walls (host clock) {steps}; "
+                  f"launches per rank { {k: c for k, c in runs[0][prec]['counts'].items() if c} }"
+                  f"; dropped choices {runs[0][prec]['dropped']:,}; each rank holds "
+                  f"{held_m['param_elements']:,} of {held_m['elements']:,} param elements "
+                  f"({held_m['param_elements'] / held_m['elements']:.4f})", flush=True)
+    print(f"  the MoE runs (GRID_MOE, their one-card runs and holds included): "
+          f"{max(res['moe_wall'] for res in ranks):.1f} s ({smi})", flush=True)
     add_path(records, "train_grid", path_counts)
 
 
@@ -4886,12 +5076,13 @@ def hold_with_witness(label, hist, bufs):
 
 class RouteRecorder:
     """Records every MoE routing decision while ``on`` (models/moe.py's
-    ``_route``, wrapped): each call's chosen experts, router logits, router
-    input and the router's largest column norm.  Given ``forced`` (an
-    earlier run's records, in call order) it routes each call's tokens to
-    those experts instead, weighting them by this run's own router
-    probabilities renormalised over them, its load-balance reading taken
-    over the forced choice as ``_route`` takes it over its own."""
+    ``_router``, wrapped, which the one-card and the grid forms both call):
+    each call's chosen experts, router logits, router input and the router's
+    largest column norm.  Given ``forced`` (an earlier run's records, in
+    call order) it routes each call's tokens to those experts instead,
+    weighting them by this run's own router probabilities renormalised over
+    them; the caller then takes its load-balance reading over the forced
+    choice as over its own."""
 
     def __init__(self):
         self.calls, self.on, self.forced = [], False, None
@@ -4901,18 +5092,18 @@ class RouteRecorder:
 
         from repro_torch.models import moe
 
-        self.saved = moe._route
+        self.saved = moe._router
 
-        def route(p, xf, cfg):
+        def router(p, xf, cfg):
             if self.forced is None:
-                w, idx, sel, aux = self.saved(p, xf, cfg)
+                out = self.saved(p, xf, cfg)
                 if self.on:
                     with torch.no_grad():
                         wr = p["router"].to(xf.dtype)
-                        self.calls.append(dict(idx=idx.detach(), logits=(xf @ wr).float(),
+                        self.calls.append(dict(idx=out[3].detach(), logits=out[0].detach(),
                                                x=xf.detach(),
                                                wmax=wr.float().norm(dim=0).max()))
-                return w, idx, sel, aux
+                return out
             if not self.forced or self.forced[0]["idx"].shape[0] != xf.shape[0]:
                 fail("a forced run's MoE calls do not follow the recorded run's")
             idx = self.forced.pop(0)["idx"]
@@ -4921,18 +5112,15 @@ class RouteRecorder:
             w = probs.gather(-1, idx)
             w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
             sel = moe._one_hot(idx, cfg.n_experts, torch.float32).sum(dim=1)
-            lb = cfg.n_experts * torch.sum(sel.mean(dim=0) / cfg.top_k * probs.mean(dim=0))
-            z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-            return w, idx, sel, {"moe_lb_loss": cfg.router_aux_weight * lb,
-                                 "moe_z_loss": cfg.router_z_weight * z}
+            return logits, probs, w, idx, sel
 
-        moe._route = route
+        moe._router = router
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
 
-        moe._route = self.saved
+        moe._router = self.saved
 
     def take(self):
         calls, self.calls = self.calls, []

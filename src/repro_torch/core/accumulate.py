@@ -152,7 +152,19 @@ def rank_split_loss(loss_fn: Callable, world: int) -> Callable:
     blocks' mean.  Its gradient is rounded as the mesh's is (each block's
     backward alone, the blocks summed in f32, times 1/world), so a one-card
     step with it is a mesh step's reference up to summation order, where
-    one backward over the whole group rounds its gradient once."""
+    one backward over the whole group rounds its gradient once.
+
+    A model with MoE blocks is refused: each block of rows would route
+    alone, with the capacity, slots and load-balance fractions of its own
+    tokens, where the mesh step routes the whole group as the reference
+    does (models/moe.py::apply_moe_grid); its reference is the one-card
+    step over whole groups."""
+    if getattr(loss_fn, "moe", False):
+        raise ValueError(
+            "rank_split_loss: a mixture of experts routes each group as a whole (its "
+            "capacity, slots and load-balance fractions count every token of the group); "
+            "one forward per rank's block of rows would route each block alone. Hold a mesh "
+            "step of a MoE model against the one-card step over whole groups")
     denom_of = _denominator(loss_fn)
 
     def fn(params, batch):

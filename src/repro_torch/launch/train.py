@@ -11,6 +11,8 @@
       --device cpu --gsnr-source data_axis --dist-backend gloo
   torchrun --nproc_per_node 4 -m repro_torch.launch.train --arch bert-large --smoke \
       --device cpu --dist-backend gloo --mesh 2,2
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train --arch mixtral-8x22b --smoke \
+      --device cpu --dist-backend gloo --mesh 2,2
 
 Every registered architecture trains; an encoder-decoder's batches carry
 "frames" (B, n_frames, d_model) and a vlm's "image" (B, n_image_tokens,
@@ -32,7 +34,9 @@ the microbatch source runs, as in the reference.
 the D x M ranks torchrun starts instead, the weights sharded FSDP+TP by the
 reference's rules (launch/mesh.py::GridMesh, sharding/placement.py):
 every ``--optimizer``, both ``--gsnr-source``s (the data-axis source at
-k = D, the data axis's size) and both ``--stats-method``s.
+k = D, the data axis's size) and both ``--stats-method``s, and the MoE
+configs with their experts split over the model axis (``--arch
+mixtral-8x22b --smoke --mesh 2,2``).
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are random
 (from ``torch.Generator`` seeded with the config's seed): no checkpoint
 ships with the repo.

@@ -116,13 +116,19 @@ def last_product(cfg: ModelConfig, kind: str) -> Optional[Tuple[str, str]]:
 
 
 def _ffn(cfg: ModelConfig, p: Dict, x, tp=None):
-    """(x_res, hidden, aux) of the block's feed-forward half (``tp``: the
-    MLP's d_ff split over the model axis, hidden the rank's columns)."""
+    """(x_res, hidden, aux) of the block's feed-forward half (``tp``: one
+    rank of a GridMesh, whose model axis splits the MLP's d_ff where the
+    placement says so, hidden then the rank's columns; a mixture of experts
+    runs in its grid form, models/moe.py::apply_moe_grid)."""
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
-        out, aux = moe_mod.apply_moe(p["moe"], h2, cfg.act, cfg.moe)
+        if tp is not None:
+            out, aux = moe_mod.apply_moe_grid(p["moe"], h2, cfg.act, cfg.moe, tp)
+        else:
+            out, aux = moe_mod.apply_moe(p["moe"], h2, cfg.act, cfg.moe)
         return x + out, None, aux
-    return x, mlp_hidden(p["mlp"], h2, cfg.act, tp=tp), None
+    return x, mlp_hidden(p["mlp"], h2, cfg.act,
+                         tp=tp if tp is not None and tp.mlp_tp else None), None
 
 
 def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
@@ -132,8 +138,9 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
     hidden @ W`` for W at ``last_product`` (read nowhere here), or x_res
     when hidden is None; aux holds the MoE readings, or is None.  ``tp``:
     one rank of a GridMesh (a sharding/placement.py::Placement; train, the
-    dense kinds), whose model axis splits the heads and the MLP's d_ff
-    where the placement says so (``attn_tp``, ``mlp_tp``)."""
+    attention kinds), whose model axis splits the heads and the MLP's d_ff
+    where the placement says so (``attn_tp``, ``mlp_tp``) and the experts by
+    its ``moe_mode``."""
     causal = cfg.causal if causal is None else causal
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind in ATTN_FAMILY:
@@ -160,7 +167,7 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
             x = x + out
             if new_cache is not None:
                 new_cache["cross"] = c_cross
-        x, hidden, aux = _ffn(cfg, p, x, tp=tp if tp is not None and tp.mlp_tp else None)
+        x, hidden, aux = _ffn(cfg, p, x, tp=tp)
         return x, hidden, new_cache, aux
     if kind == "rec":
         out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode)
@@ -513,19 +520,21 @@ def forward(
 class _RematGrid(torch.autograd.Function):
     """A layer group on a GridMesh, recomputed in the backward: ``fn(x,
     *leaves)`` gathers the group's weights from the rank's blocks on use
-    (sharding/placement.py) and returns the group's output.  Forward runs it
-    and keeps only its inputs (no gathered weight outlives the call);
-    backward reruns it under autograd, gathering again, and pulls ``dy``
-    back to x and the blocks, whose gathers' adjoints reduce the weight
-    gradients into the rank's blocks.  Plain autograd only (its backward
-    calls ``torch.autograd.grad``): the vmap stats method, whose
-    ``torch.func`` transforms run through the gathers' Functions and their
-    vmap rules, takes the groups without remat on the grid
-    (``Placement.without_remat``).  Its k groups then hold their
-    activations at once, where one card's ``_RematGroup`` (a Function with
-    a generated vmap rule, whose recompute runs vmapped) keeps only each
-    group's input: the grid's forward gathers each layer's weights once for
-    all k groups either way."""
+    (sharding/placement.py) and returns the group's output, or ``(y, aux)``
+    for a group with MoE blocks (aux their (3,) readings, whose load-balance
+    and z losses enter the loss: both outputs take a gradient, as in
+    ``_RematWhole``).  Forward runs it and keeps only its inputs (no
+    gathered weight outlives the call); backward reruns it under autograd,
+    gathering again, and pulls the outputs' cotangents back to x and the
+    blocks, whose gathers' adjoints reduce the weight gradients into the
+    rank's blocks.  Plain autograd only (its backward calls
+    ``torch.autograd.grad``): the vmap stats method, whose ``torch.func``
+    transforms run through the gathers' Functions and their vmap rules,
+    takes the groups without remat on the grid (``Placement.without_remat``).
+    Its k groups then hold their activations at once, where one card's
+    ``_RematGroup`` (a Function with a generated vmap rule, whose recompute
+    runs vmapped) keeps only each group's input: the grid's forward gathers
+    each layer's weights once for all k groups either way."""
 
     @staticmethod
     def forward(ctx, fn, x, *leaves):
@@ -535,12 +544,13 @@ class _RematGrid(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
+    def backward(ctx, *douts):
         ins = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            y = ctx.fn(*ins)
+            out = ctx.fn(*ins)
         want = [t for t in ins if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, want, dy, allow_unused=True))
+        outs = out if isinstance(out, tuple) else (out,)
+        grads = iter(torch.autograd.grad(outs, want, douts, allow_unused=True))
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
 
@@ -555,15 +565,18 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     train/loss.py's vocab-parallel cross-entropy takes them), else the whole
     vocab.  The layer groups run under ``_RematGrid`` (with autograd on,
     ``pcfg.remat`` and ``placement.remat``), each group's weights gathered on use; a stacked leaf
-    whose layer dim is split is gathered whole once per call.  The dense
-    attention kinds only (``Placement`` refuses the others); aux holds the
-    MoE readings, zero."""
+    whose layer dim is split is gathered whole once per call.  The
+    attention kinds only (``Placement`` refuses the others), with an MLP or
+    a mixture of experts; aux holds the MoE readings of the rank's rows
+    (models/moe.py::apply_moe_grid) summed over the layers and divided by
+    max(1, n_layers), as ``forward`` gives them (zeros without MoE)."""
     pl, whole = placement, tree["whole"]
     dtype = getattr(torch, pcfg.compute_dtype)
     kw = dict(q_pos=_q_pos(tokens, positions), cache=None, mode="train", cache_len=0,
               implicit_layout=positions is None, q_seg=None, seg_base=None, tp=pl)
     use = lambda path: pl.use(whole[path], path)
     x = constrain(pl.embed(use("embed/embed"), tokens, dtype), ("batch", None, None))
+    moe = cfg.moe is not None
 
     from repro_torch.sharding.placement import group_path
 
@@ -579,20 +592,29 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         for name, t in zip(sorted(held), leaves[n_in:]):
             flat[name] = t if pl.stacked else pl.use(t, held[name])
         gp = nest_paths(flat)
+        gaux = _aux_zero(xx.device)
         for i, kind in enumerate(cfg.block_pattern):
-            xx = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **kw)[0]
-        return xx
+            xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **kw)
+            gaux = _aux_add(gaux, a)
+        return (xx, torch.stack([gaux[k] for k in AUX_KEYS])) if moe else xx
 
     remat_on = pcfg.remat and pl.remat and torch.is_grad_enabled()
+    aux = _aux_zero(x.device)
     for g, gp in enumerate(tree["groups"]):
         extra = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
         args = [gp[n] for n in names] + extra
-        x = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
+        out = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
+        if moe:
+            x, gaux = out
+            aux = {k: aux[k] + gaux[i] for i, k in enumerate(AUX_KEYS)}
+        else:
+            x = out
     for ti, kind in enumerate(cfg.tail_kinds()):
         prefix = f"tail/{ti}/"
         p = nest_paths({path[len(prefix):]: use(path) for path in whole
                         if path.startswith(prefix)})
-        x = _block_apply(cfg, pcfg, kind, p, x, **kw)[0]
+        x, _, a = _block_apply(cfg, pcfg, kind, p, x, **kw)
+        aux = _aux_add(aux, a)
     x = apply_norm(nest_paths({path.split("/", 1)[1]: use(path) for path in whole
                                if path.startswith("final_norm/")}), x, cfg.norm)
     if cfg.tie_embeddings:
@@ -601,7 +623,8 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         logits = pl.logits(x, use("head"), tied=False)
         if cfg.logit_softcap > 0:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits, _aux_zero(x.device)
+    n_layers = max(1, cfg.n_layers)
+    return logits, {k: v / n_layers for k, v in aux.items()}
 
 
 def model_layout(cfg: ModelConfig) -> ParamLayout:

@@ -40,14 +40,19 @@ block of the gradient, whole over the data axis, to a ``PayloadSink``.
 
 ``Placement`` is the model's side of a GridMesh: which leaves a rank
 gathers whole ("rep", computed replicated), over the data axis only
-("col": column-parallel, the rank's heads, d_ff columns or vocab rows) or
-whole for its input rows ("row": row-parallel); and the Megatron
+("col": column-parallel, the rank's heads, d_ff columns, vocab rows, or
+experts) or whole for its input rows ("row": row-parallel); and the Megatron
 operators around the tensor-parallel regions: ``enter`` (identity forward,
 all-reduce of the input's gradient over the model axis) and the row
 product's sum of the f32 partial products over the model axis before the
 cast (``reduce``: all-reduce forward, identity backward).  Where the model
 axis cannot split the compute (a head or vocab count it does not divide),
-the weights are gathered whole and the compute is replicated.
+the weights are gathered whole and the compute is replicated.  A mixture
+of experts (models/moe.py::apply_moe_grid) follows the reference's expert
+rule (``moe_mode``): the rank's experts where the model axis splits E, each
+expert's d_ff columns where it splits d_ff (``expert_col_product``,
+``expert_row_product``), and the data ranks' expert counts cross the data
+axis in one all-gather with no gradient (``data_counts``).
 
 Precision.  Every tensor-parallel GEMM takes its operands in the compute
 dtype, as one card's does.  Its result is f32 only where the model axis
@@ -69,9 +74,8 @@ from repro_torch.sharding.rules import Rules, Spec, entry_axes
 
 # The dense block kinds whose compute the model axis splits (attention + MLP).
 TP_KINDS = ("attn", "swa", "local")
-ROADMAP_REST = ("ROADMAP A9's remainder: expert parallelism, the RG-LRU/xLSTM/cross-attention "
-                "blocks and the encoder and image stub under a model axis, sharded serving and "
-                "DLRM's tables")
+ROADMAP_REST = ("ROADMAP A9's remainder: the RG-LRU/xLSTM/cross-attention blocks and the "
+                "encoder and image stub under a model axis, sharded serving and DLRM's tables")
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +450,101 @@ class _RowProduct(torch.autograd.Function):
         return _RowProduct.apply(h.movedim(in_dims[0], 0), w), 0
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` as f32, ``mm_f32``'s batched form (one product
+    per expert)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if not a.is_cuda:
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _experts_batched(t: torch.Tensor, dim: int) -> Tuple[torch.Tensor, int, int]:
+    """A vmapped (E, C, n) operand with its batch at ``dim`` as (E, B C, n),
+    with E and C."""
+    t = t.movedim(dim, 1)
+    return t.reshape(t.shape[0], -1, t.shape[-1]), t.shape[0], t.shape[2]
+
+
+class _BmmColProduct(torch.autograd.Function):
+    """``_ColProduct`` per expert: an entered f32 buffer ``x`` (E, C, d)
+    and the rank's columns ``w`` (E, d, n) in the compute dtype; forward
+    in that dtype, the input gradient's partial product in f32 (``enter``
+    sums it over the model axis), the weight's in the compute dtype."""
+
+    @staticmethod
+    def forward(x, w):
+        return torch.bmm(x.to(w.dtype), w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return bmm_f32(dy, w.transpose(1, 2)), torch.bmm(x.to(w.dtype).transpose(1, 2), dy)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        _unbatched(in_dims, "an expert column product")
+        x, e, c = _experts_batched(x, in_dims[0])
+        y = _BmmColProduct.apply(x, w)
+        return y.reshape(e, info.batch_size, c, y.shape[-1]), 1
+
+
+class _BmmRowProduct(torch.autograd.Function):
+    """``_RowProduct`` per expert: the rank's d_ff columns ``h`` (E, C,
+    F/M) and its rows ``w`` (E, F/M, d) of every expert's down projection,
+    both in the compute dtype: the f32 partial product forward (summed over
+    the model axis with the combine, models/moe.py), backward in the
+    compute dtype."""
+
+    @staticmethod
+    def forward(h, w):
+        return bmm_f32(h, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        dy = dy.to(h.dtype)
+        return torch.bmm(dy, w.transpose(1, 2)), torch.bmm(h.transpose(1, 2), dy)
+
+    @staticmethod
+    def vmap(info, in_dims, h, w):
+        _unbatched(in_dims, "an expert row product")
+        h, e, c = _experts_batched(h, in_dims[0])
+        y = _BmmRowProduct.apply(h, w)
+        return y.reshape(e, info.batch_size, c, y.shape[-1]), 1
+
+
+class _GatherCounts(torch.autograd.Function):
+    """The data ranks' integer counts (..., E), all-gathered over the data
+    axis into (D, ..., E), rank order; no gradient.  Under vmap the stacked
+    counts of every group go through one all-gather."""
+
+    @staticmethod
+    def forward(c, mesh, axis):
+        return torch.stack(mesh.all_gather(c, axis))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, c, mesh, axis):
+        return _GatherCounts.apply(c.movedim(in_dims[0], 0), mesh, axis), 1
+
+
 def _map2(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map2(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
@@ -470,12 +569,14 @@ def group_path(path: str, stacked: bool) -> Optional[str]:
 
 
 class Placement:
-    """How the dense transformer computes on a GridMesh (module note).
+    """How the transformer computes on a GridMesh (module note).
 
     ``specs`` maps each reference path of the stacked tree to its Spec and
     ``shapes`` to its whole shape.  ``attn_tp`` / ``mlp_tp`` / ``vocab_tp``
     say whether the model axis splits the attention heads, the MLP's d_ff
-    and the vocab; ``role(path)`` is "col", "row" or "rep" for each leaf.
+    (a shared expert's too) and the vocab, ``moe_mode`` how it splits the
+    experts (None without MoE); ``role(path)`` is "col", "row" or "rep" for
+    each leaf.
 
     Two modes a step sets around one forward and backward: ``deferred(sink)``
     (the data-axis GSNR source) hands every gather a ``PayloadSink``, and
@@ -493,9 +594,8 @@ class Placement:
         self.sink: Optional[PayloadSink] = None
         self.remat = True
         bad = [k for k in cfg.pattern_layers() if k not in TP_KINDS]
-        if cfg.moe is not None or cfg.encoder is not None or cfg.n_image_tokens or bad:
-            what = "a mixture of experts" if cfg.moe is not None else \
-                "an encoder" if cfg.encoder is not None else \
+        if cfg.encoder is not None or cfg.n_image_tokens or bad:
+            what = "an encoder" if cfg.encoder is not None else \
                 "an image projection" if cfg.n_image_tokens else f"{sorted(set(bad))} blocks"
             raise NotImplementedError(
                 f"{cfg.name}: {what} on a GridMesh is not ported yet ({ROADMAP_REST})")
@@ -512,6 +612,21 @@ class Placement:
         table = specs["embed/embed"]
         self.vocab_tp = m > 1 and table[0] == self.tp and (
             cfg.tie_embeddings or specs["head"][-1] == self.tp)
+        self.moe_mode = self._moe_mode() if cfg.moe is not None else None
+
+    def _moe_mode(self) -> str:
+        """How the model axis splits the experts (the reference's expert
+        rule): "ep" when it splits the expert dim (the rank's E/M experts),
+        "tp" when it splits each expert's d_ff (the rank's columns of every
+        expert), "rep" when it splits neither (every expert whole)."""
+        def specs_of(name):
+            return [spec for p, spec in self.specs.items() if p.split("/")[-1] == name]
+
+        if all(spec[-3] == self.tp for spec in specs_of("expert_wi")):
+            return "ep"
+        if all(spec[-1] == self.tp for n in ("expert_wi", "expert_wg") for spec in specs_of(n)):
+            return "tp"
+        return "rep"
 
     @contextlib.contextmanager
     def deferred(self, sink: PayloadSink):
@@ -538,6 +653,10 @@ class Placement:
 
     def role(self, path: str) -> str:
         name = path.split("/")[-1]
+        if name in ("expert_wi", "expert_wg", "expert_wd"):
+            if self.moe_mode == "ep" or (self.moe_mode == "tp" and name != "expert_wd"):
+                return "col"
+            return "row" if self.moe_mode == "tp" else "rep"
         if self.attn_tp and name in ("wq", "wk", "wv"):
             return "col"
         if self.mlp_tp and name in ("wi", "wg"):
@@ -597,6 +716,31 @@ class Placement:
         f = w.shape[0] // self.m
         rows = w.narrow(0, self.j * f, f).to(h.dtype)
         return self.reduce(_RowProduct.apply(h, rows)).to(h.dtype)
+
+    # -- the mixture of experts (models/moe.py::apply_moe_grid) --------------
+
+    @property
+    def data_index(self) -> int:
+        return self.mesh.coords[self.dp]
+
+    def data_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every data rank's integer counts (E,) as (D, E), rank order: one
+        all-gather over the data axis, no gradient."""
+        return _GatherCounts.apply(counts, self.mesh, self.dp)
+
+    def expert_col_product(self, buf: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+        """``buf @ w`` per expert for an entered f32 dispatch buffer (E, C,
+        d) and the rank's columns ``w`` (E, d, n) rounded to ``dtype``, in
+        ``dtype`` (``_BmmColProduct``)."""
+        return _BmmColProduct.apply(buf, w.to(dtype))
+
+    def expert_row_product(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The f32 partial ``h @ w`` per expert of the rank's d_ff columns
+        ``h`` (E, C, F/M) and the whole gathered ``w`` (E, F, d) narrowed to
+        the rank's rows, rounded to h's dtype; not yet summed over the model
+        axis (the combine sums it, models/moe.py)."""
+        f = w.shape[1] // self.m
+        return _BmmRowProduct.apply(h, w.narrow(1, self.j * f, f).to(h.dtype))
 
     def vocab_offset(self) -> int:
         return self.j * (self.cfg.vocab_size // self.m)

@@ -127,7 +127,8 @@ def make_loss_fn(cfg: Config, placement=None):
     models/transformer.py::forward_grid; the cross-entropy is
     vocab-parallel when the placement splits the vocab, and every loss and
     metric comes out as the single-device loss gives it on the rank's rows.
-    ``loss_fn.placement`` is the placement (None without one)."""
+    ``loss_fn.placement`` is the placement (None without one);
+    ``loss_fn.moe`` whether the model has MoE blocks."""
     m, p = cfg.model, cfg.parallel
     loss_norm = cfg.loss_norm
     if loss_norm not in ("token", "document"):
@@ -178,4 +179,5 @@ def make_loss_fn(cfg: Config, placement=None):
 
     loss_fn.denominator = denominator
     loss_fn.placement = placement
+    loss_fn.moe = m.moe is not None
     return loss_fn

@@ -84,7 +84,9 @@ plans and both GSNR sources, with either stats method:
     rank's blocks with the same sums.
 The update is added to the rank's own blocks in place; nothing is gathered
 after the step.  grad_norm, update_norm, gsnr/* and noise/* come from the
-blocks and one all-reduce each.  Only the block kinds of ROADMAP A9.2/A9.3
+blocks and one all-reduce each.  A mixture of experts runs with its expert
+weights sharded by the reference's expert rule (models/moe.py::
+apply_moe_grid); only the block kinds of ROADMAP A9.3
 (sharding/placement.py::Placement) raise there.
 
 ``noise_scale=True`` adds the gradient-noise-scale readings of a fresh VR

@@ -27,10 +27,11 @@ thread each, a rendezvous file under the test's tmp dir) runs:
   bert smoke's placement, against the plain loss on the whole logits; the
   loss within rtol 1e-6 and each rank's logit gradient within atol 1e-7 of
   its columns of the whole gradient.
-* The refusals on the grid: each unported block kind (a mixture of
-  experts, the RG-LRU, xLSTM, cross-attention with its encoder or image
-  stub) raises NotImplementedError naming ROADMAP A9; every optimizer,
-  source and stats method runs there (tests/test_torch_grid_paths.py).
+* The refusals on the grid: each unported block kind (the RG-LRU, xLSTM,
+  cross-attention with its encoder or image stub) raises
+  NotImplementedError naming ROADMAP A9; every optimizer, source and stats
+  method runs there (tests/test_torch_grid_paths.py), and so do the MoE
+  configs (tests/test_torch_grid_moe.py).
 * The checkpoint: the fused bert run's state saved from the grid (gathered,
   rank 0 writes) restores whole into a one-card template, equal
   (``torch.equal``, on the leaf elements) to the state gathered whole, and
@@ -64,8 +65,7 @@ OPT = dict(k=4, gsnr_refresh=2)
 # each refused case: (arch, OptimizerConfig overrides, make_train_step keywords);
 # the other optimizers, sources and stats methods run on the grid
 # (tests/test_torch_grid_paths.py)
-REFUSED = {arch: (arch, {}, {}) for arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b",
-                                             "recurrentgemma-9b", "xlstm-1.3b", "whisper-small",
+REFUSED = {arch: (arch, {}, {}) for arch in ("recurrentgemma-9b", "xlstm-1.3b", "whisper-small",
                                              "llama-3.2-vision-11b")}
 
 

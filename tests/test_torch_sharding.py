@@ -22,9 +22,10 @@ GridShard).
   once.
 * What a rank of bert-large holds at published width on (2, 2): every leaf
   but the 1-D final norm splits 4 ways, 91.2 M of 364.6 M params.
-* The placement's refusals without ranks: each unported block kind (MoE,
-  RG-LRU, mLSTM/sLSTM, cross-attention with its encoder or image stub)
-  raises NotImplementedError naming ROADMAP A9.
+* The placement's refusals without ranks: each unported block kind
+  (RG-LRU, mLSTM/sLSTM, cross-attention with its encoder or image stub)
+  raises NotImplementedError naming ROADMAP A9; the MoE smokes' expert,
+  router and shared-expert leaves take the roles their specs give them.
 
 The spawned-rank checks of the grid step are in tests/test_torch_grid.py.
 """
@@ -300,13 +301,62 @@ def test_bert_large_rank_holds_a_quarter_on_two_by_two():
     assert held == (total - 2 * 1024) // 4 + 2 * 1024
 
 
+def _placement(model):
+    layout = model_layout(model)
+    rules = Rules(mesh=MeshShape((2, 2), ("data", "model")))
+    specs = {p: rules.leaf_pspec(p, s) for p, s in zip(layout.paths, layout.shapes)}
+    return lambda: plm.Placement(model, rules, _grid(2, 2), specs,
+                                 dict(zip(layout.paths, layout.shapes))), specs
+
+
+def _check_moe_roles(arch, n_experts):
+    """The MoE leaves' roles on (2, 2) against their specs: the expert
+    dim over "model" (M divides E: expert parallelism) makes every expert
+    leaf "col" (the rank's experts, gathered over "data"); else each
+    expert's d_ff over "model" makes expert_wi/wg "col" (the rank's
+    columns) and expert_wd "row" (gathered whole, narrowed to its rows);
+    the router is "rep"; a shared expert takes the dense MLP's roles."""
+    import dataclasses
+
+    model = get_smoke(arch).model
+    model = dataclasses.replace(model, moe=dataclasses.replace(model.moe, n_experts=n_experts))
+    make, specs = _placement(model)
+    pl = make()
+    ep = n_experts % 2 == 0
+    assert pl.moe_mode == ("ep" if ep else "tp")
+    seen = set()
+    for path, spec in specs.items():
+        name = path.split("/")[-1]
+        if "/moe/" not in path:
+            continue
+        seen.add(name)
+        if name.startswith("expert_"):
+            assert spec[-3] == ("model" if ep else None), (path, spec)
+            assert spec[-1] == (None if ep else "model"), (path, spec)
+            want = "row" if (name == "expert_wd" and not ep) else "col"
+        elif name == "router":
+            assert spec[-1] == ("model" if ep else None), (path, spec)
+            want = "rep"
+        else:  # a shared expert's wi, wg, wd
+            assert "/shared_0/" in path and spec[-1] == "model", (path, spec)
+            want = "row" if name == "wd" else "col"
+        assert pl.role(path) == want, (path, spec, pl.role(path))
+    shared = {"wi", "wg", "wd"} if model.moe.n_shared_experts else set()
+    assert seen == {"router", "expert_wi", "expert_wg", "expert_wd"} | shared, seen
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b", "xlstm-1.3b",
                                   "whisper-small", "llama-3.2-vision-11b"])
 def test_unported_block_kinds_raise_on_a_grid(arch):
-    cfg = get_smoke(arch)
-    layout = model_layout(cfg.model)
-    rules = Rules(mesh=MeshShape((2, 2), ("data", "model")))
-    specs = {p: rules.leaf_pspec(p, s) for p, s in zip(layout.paths, layout.shapes)}
+    """The A9.3 kinds raise naming ROADMAP A9.  A mixture of experts (the
+    mixtral case) is placed since A9.2: the mixtral and llama4 smokes' MoE
+    leaves take their roles by the rule's specs at E = 4 and E = 3
+    (``_check_moe_roles``)."""
+    if arch == "mixtral-8x22b":
+        for moe_arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b"):
+            for n_experts in (4, 3):
+                _check_moe_roles(moe_arch, n_experts)
+        return
+    make, _ = _placement(get_smoke(arch).model)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        plm.Placement(cfg.model, rules, _grid(2, 2), specs, dict(zip(layout.paths,
-                                                                     layout.shapes)))
+        make()
