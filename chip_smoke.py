@@ -134,7 +134,21 @@ Phases, in order; any failure exits non-zero:
                 seq 128, k = 4: one fresh f32 step each against the
                 one-card f32 step over whole groups (DP_TOL, launches as
                 above, the routing decisions compared) and one bf16 step
-                beside a witness, its routing flips held to ROUTE_GATE.
+                beside a witness, its routing flips held to ROUTE_GATE;
+                then the RG-LRU, xLSTM and cross-attention blocks
+                (GRID_BLOCKS): whisper-small at published width, depth cut
+                to 2 + 2 layers (its encoder over 1,500 frames, the vocab's
+                odd 51,865 rows keeping the head replicated) and the
+                recurrentgemma, xlstm and vision smokes, each one fresh f32
+                step of its config's optimizer against its holder rank's
+                one-card f32 run split over the data ranks' rows (DP_TOL,
+                GRID_F32_TOL and GRID_F32_LEAF_TOL) and one bf16 step
+                against the one-card bf16 split run (GRID_BF16_TOL, whole
+                and leaf by leaf), each beside witnesses (params one f32
+                ulp away, the unsplit run, the f32 run) and held past its
+                tolerance only within twice their gap; launches per step
+                held, walls, peaks, held shares and collective walls
+                printed.
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -3009,6 +3023,100 @@ GRID_MOE = {  # label -> (arch, MoEConfig overrides)
 GRID_MOE_SEQ = 128
 
 
+# Phase 10d's RG-LRU, xLSTM and cross-attention blocks (after GRID_MOE, in
+# the same four ranks).  whisper-small at its published width (d_model 768,
+# 12 heads, d_ff 3,072, vocab 51,865, an encoder over 1,500 frames; the
+# model axis splits its heads and d_ff, the odd vocab keeps the embedding's
+# rows and the untied head whole over it) at global batch 16, seq 128, its
+# encoder and decoder cut to GRID_WHISPER_LAYERS layers each: at the
+# published 12 + 12 (277.9 M params) a grid step took 28.3 s in f32 and
+# 36.2 s in bf16 over gloo, past the script's budget (PERF.md).  The
+# recurrentgemma, xlstm and vision smokes (configs/base.py::smoke_variant)
+# at GRID_BATCH, seq 128: recurrentgemma-9b's one pattern group at
+# published width is ~1.55 G params, ~43 GB in the grid's seven f32
+# buffers and as much again for the one-card reference, and
+# llama-3.2-vision's five-layer group is as large, so their full widths
+# wait on a four-card cell.  Each runs its config's optimizer (VR-Adam;
+# VR-LAMB for vision) at k = 4 on the fused plan with seeded stub inputs,
+# one fresh f32 and one fresh bf16 step.  Each entry's one-card runs go on
+# a holder rank of its own, the four at once, before the grid's runs: f32
+# and bf16 split over the data ranks' rows (rank_split_loss), the
+# references; the f32 and bf16 runs without the split and the bf16 split
+# run from params one f32 ulp away (nudge_ulp, GRID_MOE's), the witnesses.
+# The f32 step is held as hold_grid holds the VR-LAMB f32 step (DP_TOL,
+# GRID_F32_TOL, GRID_F32_LEAF_TOL), the bf16 step to GRID_BF16_TOL whole
+# and leaf by leaf, with the one-card f32 run as one more witness (how far
+# bf16 rounding alone moves a buffer).  Where a witness is past those
+# bounds, each metric, buffer and leaf is held to GRID_WITNESS_FACTOR x the
+# witnesses' largest gap there (hold_grid's witness_bound; the factor is
+# ROUTE_GATE's): whisper-small's small norm leaves under VR-Adam, whose
+# GSNR ratio turns a ~7e-3 rounding of the mean gradient (the same on the
+# grid and one card) into clip flips of a few elements (the grid's
+# encoder/final_norm/scale m read 3.4e-2 and 4.0e-2 from the one-card bf16
+# run, itself 3.3e-2 and 4.3e-2 from the f32 run), and the xlstm smoke's
+# f32 p (2.36e-4 whole from the split run, past DP_TOL).  A gradient off
+# by a missing sum moves a leaf by tens of per cent (the CPU test's planted
+# faults); a rounding moves it as far as another rounding does.  Each
+# model's launches per rank and step are held (grid_block_counts).
+GRID_WHISPER_LAYERS = 2
+GRID_WITNESS_FACTOR = 2.0  # ROUTE_GATE["flips"]
+GRID_BLOCKS = {  # label -> (arch, published width, global batch, depth cut or None)
+    "whisper-small": ("whisper-small", True, 16, GRID_WHISPER_LAYERS),
+    "recurrentgemma-9b smoke": ("recurrentgemma-9b", False, GRID_BATCH, None),
+    "xlstm-1.3b smoke": ("xlstm-1.3b", False, GRID_BATCH, None),
+    "llama-3.2-vision-11b smoke": ("llama-3.2-vision-11b", False, GRID_BATCH, None),
+}
+GRID_BLOCKS_SEQ = 128
+
+
+def grid_blocks_config(arch, full, batch, layers, dtype):
+    """A GRID_BLOCKS config at ``batch`` x GRID_BLOCKS_SEQ, its decoder and
+    encoder cut to ``layers`` each (None: as published), fused, k =
+    DP_PATHS_K (its own optimizer otherwise), in ``dtype``."""
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = (get_config if full else get_smoke)(arch)
+    m = cfg.model
+    if layers is not None:
+        m = dataclasses.replace(m, n_layers=layers, encoder=None if m.encoder is None else
+                                dataclasses.replace(m.encoder, n_layers=layers))
+    cfg = cfg.replace(global_batch=batch, seq_len=GRID_BLOCKS_SEQ, model=m)
+    cfg = plan_config(cfg, "fused", k=DP_PATHS_K)
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype=dtype))
+
+
+def grid_block_data(cfg, seed=2):
+    """One global batch of ``cfg``: the token stream's and the seeded stub
+    inputs its model takes (frames or image embeddings, f32)."""
+    from repro_torch.data import lm_batches
+
+    m = cfg.model
+    batch = next(lm_batches(m.vocab_size, cfg.global_batch, cfg.seq_len, seed=seed))
+    rs = np.random.default_rng(seed)
+    if m.encoder is not None:
+        batch["frames"] = rs.standard_normal((cfg.global_batch, m.encoder.n_frames, m.d_model),
+                                             dtype=np.float32)
+    if m.n_image_tokens:
+        batch["image"] = rs.standard_normal((cfg.global_batch, m.n_image_tokens, m.d_model),
+                                            dtype=np.float32)
+    return batch
+
+
+def grid_block_counts(cfg):
+    """Launches of one rank's fused fresh step of a GRID_BLOCKS config: per
+    microbatch K1 once per encoder layer and twice per decoder attention
+    (its forward and the group's recompute), K2 once per attention of
+    either (other_fused_counts: the rank's heads, or all of them where the
+    heads do not split), K3 k times, K4 once; K13 and VR-Adam's K15, or
+    VR-LAMB's K16 and the trust epilogue."""
+    lamb = cfg.optimizer.name == "vr_lamb"
+    want = other_fused_counts(cfg.model, cfg.optimizer.k, "leaf_r_partials")
+    want["vr_lamb_compute" if lamb else "vr_adam_apply"] = 1
+    if lamb:
+        want["trust_apply"] = 1
+    return want
+
+
 def grid_moe_config(arch, over, dtype):
     """A GRID_MOE config: the smoke at GRID_BATCH x GRID_MOE_SEQ, fused,
     k = DP_PATHS_K, in ``dtype``."""
@@ -3266,14 +3374,15 @@ def grid_rank(rank, init, out_dir):
             if not all(np.isfinite(list(vals.values()))):
                 raise RuntimeError(f"{label} {tag} step {i}: non-finite metrics {vals}")
             hist.append(vals)
-            if i == 0:  # every rank takes part in the gathers
+            if i == 0:  # every rank's blocks gathered on the holder's host
                 mesh.timed = False
-                upd = gp.shard.gather(gp.data - w0).cpu()
-                gathered = {nm: gp.shard.gather(
-                    x.data if is_flat(x) else gp.local_layout.pack(x)).float().cpu()
-                    for nm, x in state.opt_state.items() if nm in "mvp"}
-                first = {"upd": upd, **gathered} if rank == holder else {}
-                del w0, upd, gathered
+                bufs = {"upd": gp.data - w0,
+                        **{nm: x.data if is_flat(x) else gp.local_layout.pack(x)
+                           for nm, x in state.opt_state.items() if nm in "mvp"}}
+                whole = {nm: gp.shard.gather(x.float().cpu(), dst=holder)
+                         for nm, x in bufs.items()}
+                first = whole if rank == holder else {}
+                del w0, bufs, whole
                 mesh.timed = timed
             if rank == 0:
                 gsnr = f" gsnr mean {vals['gsnr/mean']:.5f}" if "gsnr/mean" in vals else \
@@ -3285,6 +3394,7 @@ def grid_rank(rank, init, out_dir):
         return state, hist, first, walls, counts_all, torch.cuda.max_memory_allocated()
 
     state, hist, first, walls, counts_all, peak = grid_run(cfg, GRID_FRESH, "bf16", True)
+    bert_collectives = {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()}
     gp = state.params
     sh, layout = gp.shard, gp.layout
     whole = {"elements": sum(layout.sizes), "rows": layout.n_rows}
@@ -3441,11 +3551,86 @@ def grid_rank(rank, init, out_dir):
         del grid, ones
         torch.cuda.empty_cache()
     moe_wall = time.perf_counter() - t_moe
+
+    # the RG-LRU, xLSTM and cross-attention blocks (GRID_BLOCKS' note): each
+    # entry's holder (rank i for the i-th) runs its one-card runs (f32 and
+    # bf16 split over the data ranks' rows, and the witnesses), the ranks at
+    # once; then each entry's grid f32 and bf16 steps (the bf16 step's
+    # collectives timed) and its holder's holds
+    t_blocks = time.perf_counter()
+
+    def block_setup(label_b):
+        arch, full, bsz, layers = GRID_BLOCKS[label_b]
+        c16, c32 = (grid_blocks_config(arch, full, bsz, layers, dt)
+                    for dt in ("bfloat16", "float32"))
+        draw = lambda bm=c16.model: init_params(
+            bm, torch.Generator(device=dev).manual_seed(0), device=dev)
+        return c16, c32, [grid_block_data(c16)], draw
+
+    holders = {label_b: i % mesh.size for i, label_b in enumerate(GRID_BLOCKS)}
+    ones_b = {}
+    for label_b, holder in holders.items():
+        if holder != rank:
+            continue
+        bc, bc32, bdata, bdraw = block_setup(label_b)
+        nudge = lambda st: nudge_ulp(st, WITNESS_SEED)
+        ones_b[label_b] = {
+            run: one_card(c, rank_split_loss(make_loss_fn(c), GRID_SHAPE[0]) if split else None,
+                          (True,), draw=bdraw, data=bdata, before=before)
+            for run, c, split, before in (
+                ("f32", bc32, True, None), ("f32 unsplit", bc32, False, None),
+                ("bf16", bc, True, None), ("ulp", bc, True, nudge),
+                ("unsplit", bc, False, None))}
+    flag_all(True)
+    ones_wall = time.perf_counter() - t_blocks
+    block_runs = {}
+    for label_b, holder in holders.items():
+        t_b = time.perf_counter()
+        bc, bc32, bdata, bdraw = block_setup(label_b)
+        rec_b, firsts = {}, {}
+        for run, c in (("f32", bc32), ("bf16", bc)):
+            mesh.walls.clear()
+            st, hist_b, firsts[run], walls_b, counts_b, peak_b = grid_run(
+                c, (True,), f"{run} {label_b}", run == "bf16",
+                lambda f, c=c: grid_block_counts(c), holder=holder, draw=bdraw, data=bdata)
+            held_b = {"param_elements": st.params.shard.held,
+                      "elements": sum(st.params.layout.sizes)}
+            layout_b = st.params.layout
+            del st
+            torch.cuda.empty_cache()
+            rec_b[run] = {"walls": walls_b, "peak_bytes": peak_b, "counts": counts_b,
+                          "hist": hist_b}
+        rec_b["collectives"] = {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()}
+        rec_b["held"] = held_b
+        t_grid = time.perf_counter() - t_b
+        if rank == holder:
+            ones = ones_b.pop(label_b)
+            rec_b["gaps"] = {
+                "f32": hold_grid(f"grid {GRID_SHAPE} f32 {label_b} vs one-card "
+                                 f"k{DP_PATHS_K} split", rec_b["f32"]["hist"], firsts["f32"],
+                                 ones["f32"], layout_b, GRID_F32_TOL, GRID_F32_LEAF_TOL,
+                                 [ones["f32 unsplit"]], witness_bound=True),
+                "bf16": hold_grid(f"grid {GRID_SHAPE} bf16 {label_b} vs one-card "
+                                  f"k{DP_PATHS_K} split", rec_b["bf16"]["hist"],
+                                  firsts["bf16"], ones["bf16"], layout_b, GRID_BF16_TOL,
+                                  GRID_BF16_TOL, [ones["ulp"], ones["unsplit"], ones["f32"]],
+                                  ones["f32"], witness_bound=True)}
+            rec_b["one_card_peak_bytes"] = max(o[2] for o in ones.values())
+            del ones
+        flag_all(True)
+        rec_b["wall"] = time.perf_counter() - t_b
+        if rank == holder:
+            print(f"  {label_b} (rank {rank} holds): {rec_b['wall']:.1f} s (the grid's steps "
+                  f"and gathers {t_grid:.1f} s, the rest the holds)", flush=True)
+        block_runs[label_b] = rec_b
+        del firsts
+        torch.cuda.empty_cache()
+    blocks_wall = time.perf_counter() - t_blocks
     summary = {"counts": counts_all, "walls": walls, "walls_f32": walls32, "held": held,
                "paths": paths, "paths_wall": paths_wall, "moe": moe_runs, "moe_wall": moe_wall,
+               "blocks": block_runs, "blocks_wall": blocks_wall, "blocks_ones_wall": ones_wall,
                "whole": whole, "peak_bytes": peak,
-               "one_card_peak_bytes": one_card_peak,
-               "collectives": {f"{kind} {nb}": w for (kind, nb), w in mesh.walls.items()},
+               "one_card_peak_bytes": one_card_peak, "collectives": bert_collectives,
                "coords": mesh.coords, "tokens": GRID_BATCH * cfg.seq_len, "gaps": gaps}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(summary, f)
@@ -3465,42 +3650,58 @@ def leaf_gaps(a, b, layout):
 
 
 def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=None,
-              hold_buffers=True):
+              hold_buffers=True, witness_bound=False):
     """Phase 10d's hold (GRID_SHAPE's note): the grid's metrics at every
     step within DP_TOL of the one-card split run ``ref``; its first-step
     update, m, v and p within ``tol`` whole and ``tol_leaf`` leaf by leaf,
-    each gap printed beside the witness's (when given) and, on the worst
+    each gap printed beside the witness's (when given; a list of runs: the
+    largest of their gaps, each leaf's and the whole's) and, on the worst
     leaf, the grid's and ``ref``'s gaps to the one-card f32 run ``f32``
     (when given: which of the two rounds nearer the f32 step).  Without
     ``hold_buffers`` the buffers' gaps are printed, every leaf past its
-    bound beside the witness's, and not held (GRID_PATHS' note).  Returns
-    the gaps."""
+    bound beside the witness's, and not held (GRID_PATHS' note).  With
+    ``witness_bound`` each metric, buffer and leaf is held to the larger of
+    its bound and GRID_WITNESS_FACTOR x the witnesses' largest gap there
+    (GRID_BLOCKS' note).  Returns the gaps."""
     out = {}
+    witnesses = witness if isinstance(witness, list) else [witness] if witness else []
     for i, (g, r) in enumerate(zip(hist, ref[0])):
         gg = step_gaps(g, r)
-        gw = step_gaps(witness[0][i], r) if witness else None
+        gw = {k: max(step_gaps(w[0][i], r)[k] for w in witnesses) for k in gg} \
+            if witness else None
         out[f"step {i}"] = gg
+        bound = {k: max(DP_TOL[k], GRID_WITNESS_FACTOR * gw[k]) if witness_bound else DP_TOL[k]
+                 for k in gg}
         print(f"  {label} step {i}: " + "; ".join(
             f"{k} {gg[k]:.3e} (" + (f"witness {gw[k]:.3e}, " if gw else "") +
-            f"DP_TOL {DP_TOL[k]})" for k in gg), flush=True)
-        if any(gg[k] > DP_TOL[k] for k in gg):
+            f"DP_TOL {DP_TOL[k]}" + (f", held to {bound[k]:.3e})" if witness_bound else ")")
+            for k in gg), flush=True)
+        if any(gg[k] > bound[k] for k in gg):
             fail(f"{label} step {i}: the grid and one-card runs disagree past DP_TOL")
     for nm in [n for n in ("upd", "m", "v", "p") if n in ref[1]]:
-        whole = rel_diff(first[nm], ref[1][nm])
-        per = leaf_gaps(first[nm], ref[1][nm], layout)
+        # each buffer on the card once (rel_diff and leaf_gaps take host
+        # snapshots there on every call)
+        got, want = first[nm].cuda(), ref[1][nm].cuda()
+        whole = rel_diff(got, want)
+        per = leaf_gaps(got, want, layout)
         worst = max(per, key=per.get)
         out[nm] = {"whole": whole, "worst_leaf": worst, "leaf": per[worst]}
         note_whole = note_leaf = ""
         if witness:
-            per_w = leaf_gaps(witness[1][nm], ref[1][nm], layout)
-            out[nm].update(witness=rel_diff(witness[1][nm], ref[1][nm]),
+            # several witnesses: each leaf's (and the whole's) largest gap
+            wit = [w[1][nm].cuda() for w in witnesses]
+            per_w = {p: max(g) for p, *g in zip(per, *(
+                leaf_gaps(w, want, layout).values() for w in wit))}
+            out[nm].update(witness=max(rel_diff(w, want) for w in wit),
                            leaf_witness=per_w[worst], witness_worst_leaf=max(per_w.values()))
             note_whole = f" (witness {out[nm]['witness']:.4e})"
             note_leaf = (f" (witness {per_w[worst]:.4e}; the witness's worst leaf "
                          f"{max(per_w.values()):.4e})")
+            del wit
         if f32:
-            to32 = (leaf_gaps(first[nm], f32[1][nm], layout)[worst],
-                    leaf_gaps(ref[1][nm], f32[1][nm], layout)[worst])
+            exact = f32[1][nm].cuda()
+            to32 = (leaf_gaps(got, exact, layout)[worst], leaf_gaps(want, exact, layout)[worst])
+            del exact
             out[nm].update(leaf_grid_to_f32=to32[0], leaf_one_card_to_f32=to32[1])
             note_leaf += (f"; that leaf from the one-card f32 step: grid {to32[0]:.4e}, "
                           f"one-card {to32[1]:.4e}")
@@ -3514,6 +3715,20 @@ def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witness=None, f32=
                   "held): " + ("; ".join(f"{p} {g:.4e}" + (f" (witness {per_w[p]:.4e})"
                                                            if witness else "")
                                          for p, g in past.items()) or "none"), flush=True)
+            continue
+        if witness_bound:
+            bound = {p: max(tol_leaf[nm], GRID_WITNESS_FACTOR * per_w[p]) for p in per}
+            whole_bound = max(tol[nm], GRID_WITNESS_FACTOR * out[nm]["witness"])
+            past = {p: (g, per_w[p]) for p, g in per.items() if g > tol_leaf[nm]}
+            out[nm].update(past=past, whole_bound=whole_bound)
+            print(f"  {label} after step 0: {nm}'s leaves past {tol_leaf[nm]}, each held to "
+                  f"{GRID_WITNESS_FACTOR:g} x the witnesses' largest gap there: " + ("; ".join(
+                      f"{p} {g:.4e} (witness {w:.4e})" for p, (g, w) in past.items())
+                      or "none") + f"; whole held to {whole_bound:.4e}", flush=True)
+            if whole > whole_bound or any(g > bound[p] for p, g in per.items()):
+                fail(f"{label}: after step 0, {nm} of the grid and one-card runs disagree past "
+                     f"{tol[nm]} whole or {tol_leaf[nm]} on a leaf, and past "
+                     f"{GRID_WITNESS_FACTOR:g} x the witnesses' gap there")
         elif whole > tol[nm] or per[worst] > tol_leaf[nm]:
             fail(f"{label}: after step 0, {nm} of the grid and one-card runs disagree past "
                  f"{tol[nm]} whole or {tol_leaf[nm]} on a leaf")
@@ -3535,7 +3750,8 @@ def phase_train_grid(records):
           f"{'/'.join('fresh' if f else 'stale' for f in GRID_FRESH)} in bf16, then "
           f"{'/'.join('fresh' if f else 'stale' for f in GRID_F32_FRESH)} in f32, then in f32 "
           f"{', '.join(GRID_PATHS)} (GRID_PATHS), then one f32 and one bf16 step of "
-          f"{', '.join(GRID_MOE)} at seq {GRID_MOE_SEQ} (GRID_MOE)", flush=True)
+          f"{', '.join(GRID_MOE)} at seq {GRID_MOE_SEQ} (GRID_MOE) and of "
+          f"{', '.join(GRID_BLOCKS)} at seq {GRID_BLOCKS_SEQ} (GRID_BLOCKS)", flush=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
@@ -3609,6 +3825,33 @@ def phase_train_grid(records):
                   f"({held_m['param_elements'] / held_m['elements']:.4f})", flush=True)
     print(f"  the MoE runs (GRID_MOE, their one-card runs and holds included): "
           f"{max(res['moe_wall'] for res in ranks):.1f} s ({smi})", flush=True)
+    for label_b in GRID_BLOCKS:
+        runs = [res["blocks"][label_b] for res in ranks]
+        held_b = runs[0]["held"]
+        for prec in ("f32", "bf16"):
+            for run in runs:
+                for k, c in run[prec]["counts"].items():
+                    path_counts[k] = path_counts.get(k, 0) + c
+            steps = "; ".join(
+                f"rank {r} {', '.join(f'{w:.1f}' for w in run[prec]['walls'])} ms, peak "
+                f"{run[prec]['peak_bytes'] / 2**30:.3f} GiB" for r, run in enumerate(runs))
+            print(f"  {label_b} {prec} (fused; {smi}): step walls (host clock) {steps}; "
+                  f"launches per rank { {k: c for k, c in runs[0][prec]['counts'].items() if c} }"
+                  f"; each rank holds {held_b['param_elements']:,} of {held_b['elements']:,} "
+                  f"param elements ({held_b['param_elements'] / held_b['elements']:.4f})",
+                  flush=True)
+        for r, run in enumerate(runs):
+            coll = "; ".join(f"{k} B: {v[0]:.1f} ms over {v[1]} calls" for k, v in
+                             sorted(run["collectives"].items(), key=lambda kv: -kv[1][0]))
+            print(f"  {label_b} rank {r}: the bf16 step's collectives (host clock, card "
+                  f"synchronized) {coll}", flush=True)
+        peak1 = max(run.get("one_card_peak_bytes", 0) for run in runs)
+        print(f"  {label_b}: {max(run['wall'] for run in runs):.1f} s with its holds; its "
+              f"holder's one-card runs peaked at {peak1 / 2**30:.3f} GiB ({smi})", flush=True)
+    print(f"  the block runs (GRID_BLOCKS, their one-card runs and holds included): "
+          f"{max(res['blocks_wall'] for res in ranks):.1f} s, of which the one-card runs, "
+          f"each entry's on its holder and the ranks at once, "
+          f"{max(res['blocks_ones_wall'] for res in ranks):.1f} s ({smi})", flush=True)
     add_path(records, "train_grid", path_counts)
 
 

@@ -648,17 +648,24 @@ class GridShard:
     def zeros(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
         return self.local_layout.zeros(dtype, device)
 
-    def gather(self, local: torch.Tensor, mesh=None) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, mesh=None,
+               dst: Optional[int] = None) -> Optional[torch.Tensor]:
         """The whole (n_rows, LANE) buffer on every rank: one all-gather of
         the ranks' local buffers (every rank's has the same layout), each
         leaf assembled from its blocks (a replicated leaf's replicas are
-        the same)."""
+        the same).  With ``dst``, one gather to that global rank, which
+        alone gets the buffer (None elsewhere)."""
         from repro_torch.sharding.placement import block_slices
 
         mesh = self.mesh if mesh is None else mesh
+        if dst is None:
+            parts = mesh.all_gather(local, mesh.axis_names)
+        else:
+            parts = mesh.gather(local, dst)
+            if parts is None:
+                return None
         out = self.layout.zeros(local.dtype, local.device)
         sizes = dict(mesh.shape)
-        parts = mesh.all_gather(local, mesh.axis_names)
         for r, part in zip(mesh.members(mesh.axis_names), parts):
             coords = mesh.coords_of(r)
             for dst, src, spec in zip(self.layout.leaf_views(out),

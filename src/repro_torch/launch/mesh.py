@@ -18,7 +18,8 @@ default group, rank ``i * M + j`` at data index i and model index j (the
 reference's devices reshaped to (D, M)).  It builds one sub-group per data
 row (its M model ranks) and one per model column (its D data ranks), and
 its collectives take an axis name or a tuple of them: all-gather,
-reduce-scatter, all-reduce (sum or max) and broadcast.  ``axis(name)`` is
+reduce-scatter, all-reduce (sum or max) and broadcast; ``gather`` brings
+every rank's tensor to one rank.  ``axis(name)`` is
 the DataMesh-like view of one axis (its size, this rank's index, its
 all-reduce), through which the data-parallel code splits and averages over
 the data axis.  NCCL with one card per rank or gloo (ranks sharing a card,
@@ -228,6 +229,14 @@ class GridMesh:
         parts = [torch.empty_like(t) for _ in self.members(axes)]
         group = self._group(axes)
         self._timed("all_gather", t, lambda: dist.all_gather(parts, t, group=group))
+        return parts
+
+    def gather(self, t: torch.Tensor, dst: int) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``t`` on global rank ``dst``, in rank order (new
+        tensors); None on the other ranks."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)] if self.rank == dst else None
+        self._timed("gather", t, lambda: dist.gather(t, parts, dst=dst))
         return parts
 
     def reduce_scatter_(self, stacked: torch.Tensor, axes: Axes) -> torch.Tensor:

@@ -43,6 +43,7 @@ from repro_torch.backend import Backend
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import segment_ids_from_positions
 from repro_torch.models.common import apply_rope, normal_init
+from repro_torch.sharding.placement import ROADMAP_REST
 
 NEG_INF = -1e30
 
@@ -201,19 +202,21 @@ def attention(
     row's numbering).  implicit_layout: q_pos is the broadcast arange(S),
     whose segments are all zero.  Returns (out (B,S,d), cache or None).
     tp: a sharding/placement.py::Placement whose model axis splits the heads
-    (train self-attention): ``n_heads`` / ``n_kv_heads`` are then the rank's,
-    ``p``'s wq/wk/wv its columns and wo whole; the projections take the
-    entered input (``tp.col_product``) and the output is the row product
-    summed over the model axis (``tp.row_product``).
+    (train, self- or cross-attention): ``n_heads`` / ``n_kv_heads`` are then
+    the rank's, ``p``'s wq/wk/wv its columns and wo whole; the projections
+    take the entered input (and memory: ``tp.col_product``) and the output
+    is the row product summed over the model axis (``tp.row_product``).
     """
     plan = backend if backend is not None else Backend()
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
     dtype = x.dtype
+    if tp is not None and mode != "train":
+        raise NotImplementedError(f"tensor-parallel attention in {mode} mode ({ROADMAP_REST})")
     if memory is not None:
         return _cross_attention(p, x, memory, mem_pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
                                 head_dim=head_dim, q_pos=q_pos, cache=cache, mode=mode,
-                                attn_chunk=attn_chunk, plan=plan)
+                                attn_chunk=attn_chunk, plan=plan, tp=tp)
 
     if q_seg is not None:
         seg_q = q_seg.to(torch.int32)
@@ -225,8 +228,6 @@ def attention(
         seg_q = seg_q + seg_base.to(torch.int32)[:, None]
 
     if tp is not None:
-        if mode != "train":
-            raise NotImplementedError("tensor-parallel attention runs in train mode only")
         xe = tp.enter(x)
         proj = lambda w: tp.col_product(xe, w, dtype)
     else:
@@ -288,19 +289,27 @@ def attention(
 
 
 def _cross_attention(p: Dict, x, memory, mem_pos, *, n_heads, n_kv_heads, head_dim, q_pos,
-                     cache, mode, attn_chunk, plan: Backend):
+                     cache, mode, attn_chunk, plan: Backend, tp=None):
+    """``tp`` (train): q from the entered x, k and v from the entered memory
+    (so the memory's gradient is summed over the model axis), each into the
+    rank's heads; the output is the row product."""
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
     dtype = x.dtype
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, n_kv_heads, g, head_dim)
+    if tp is not None:
+        proj = lambda t, w: tp.col_product(t, w, dtype)
+        x = tp.enter(x)
+    else:
+        proj = lambda t, w: t.to(dtype) @ w.to(dtype)
+    q = proj(x, p["wq"]).reshape(b, s, n_kv_heads, g, head_dim)
     if mode == "decode" and cache is not None:
         k, v, k_pos = cache["k"], cache["v"], cache["kpos"]
         new_cache = cache
     else:
-        src = memory.to(dtype)
+        src = memory.to(dtype) if tp is None else tp.enter(memory.to(dtype))
         m = src.shape[1]
-        k = (src @ p["wk"].to(dtype)).reshape(b, m, n_kv_heads, head_dim)
-        v = (src @ p["wv"].to(dtype)).reshape(b, m, n_kv_heads, head_dim)
+        k = proj(src, p["wk"]).reshape(b, m, n_kv_heads, head_dim)
+        v = proj(src, p["wv"]).reshape(b, m, n_kv_heads, head_dim)
         if mem_pos is None:
             k_pos = torch.arange(m, dtype=torch.int32, device=x.device)[None, :].expand(b, m)
         else:
@@ -315,4 +324,7 @@ def _cross_attention(p: Dict, x, memory, mem_pos, *, n_heads, n_kv_heads, head_d
         out = _chunked_sdpa(q, k, v, q_pos, k_pos, False, 0, attn_chunk, attn_chunk)
     else:
         out = _sdpa(q, k, v, _mask(q_pos, k_pos, False, 0))
-    return out.reshape(b, s, n_heads * head_dim) @ p["wo"].to(dtype), new_cache
+    out = out.reshape(b, s, n_heads * head_dim)
+    if tp is not None:
+        return tp.row_product(out, p["wo"]), new_cache
+    return out @ p["wo"].to(dtype), new_cache

@@ -14,6 +14,13 @@ over the sequence (the reference's ``jax.lax.associative_scan`` with the
 same combine ``(a1 a2, a2 b1 + b2)``): ceil(log2 S) element-wise passes.
 Decode carries (h, conv window) in a constant-size cache
 ``{"h": (B, D) f32, "conv": (B, 3, D)}``.  ``a_log`` is kept and used in f32.
+
+On a GridMesh (``tp``, train) the model axis splits the channels: the
+recurrence is diagonal, so each rank scans its own D/M of them.  The gate
+branch and r, i are column products into the rank's channels, ``a_log``
+is read at them, ξ (the input projection and the conv) is computed whole
+on every model rank and entered once, and ``w_out`` is the row product
+summed over the model axis.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
+from repro_torch.sharding.placement import ROADMAP_REST
 
 RG_C = 8.0
 CONV_W = 4
@@ -71,19 +79,31 @@ def linear_scan(a: torch.Tensor, bx: torch.Tensor, h0: Optional[torch.Tensor]):
 
 
 def apply_rglru(p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
-                mode: str = "train") -> Tuple[torch.Tensor, Optional[Dict]]:
+                mode: str = "train", tp=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d_model) -> (out, cache').  Prefill and decode return the
-    cache {"h": (B, D) f32, "conv": (B, 3, D)}; train returns None."""
+    cache {"h": (B, D) f32, "conv": (B, 3, D)}; train returns None.
+    ``tp``: a sharding/placement.py::Placement whose model axis splits the
+    channels (train; module note): w_y, w_rg_a and w_rg_x are then the
+    rank's columns, a_log and w_out whole."""
     dtype = x.dtype
-    gate = F.gelu(x @ p["w_y"].to(dtype), approximate="tanh")
     xi = x @ p["w_gatein"].to(dtype)
     xi, new_conv = causal_conv(p["conv_w"], xi, None if cache is None else cache["conv"])
-
-    r = torch.sigmoid((xi @ p["w_rg_a"].to(dtype)).float())
-    i = torch.sigmoid((xi @ p["w_rg_x"].to(dtype)).float())
-    log_a = -RG_C * F.softplus(p["a_log"].float()) * r  # (B, S, D) f32
+    if tp is not None:
+        if mode != "train":
+            raise NotImplementedError(f"the tensor-parallel RG-LRU in {mode} mode "
+                                      f"({ROADMAP_REST})")
+        proj = lambda v, w: tp.col_product(v, w, dtype)
+        x, xi_all = tp.enter(x), tp.enter(xi)
+        xi_own, a_log = tp.own(xi_all), tp.own(p["a_log"])
+    else:
+        proj = lambda v, w: v @ w.to(dtype)
+        xi_all, xi_own, a_log = xi, xi.float(), p["a_log"]
+    gate = F.gelu(proj(x, p["w_y"]), approximate="tanh")
+    r = torch.sigmoid(proj(xi_all, p["w_rg_a"]).float())
+    i = torch.sigmoid(proj(xi_all, p["w_rg_x"]).float())
+    log_a = -RG_C * F.softplus(a_log.float()) * r  # (B, S, D) f32
     a = torch.exp(log_a)
-    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * xi.float())
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * xi_own)
 
     h0 = None if cache is None else cache["h"]
     if mode == "decode":  # a few steps (typically one): the plain recurrence
@@ -95,7 +115,8 @@ def apply_rglru(p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
         h = torch.stack(hs, dim=1)
     else:
         h = linear_scan(a, bx, h0)
-    out = (h.to(dtype) * gate) @ p["w_out"].to(dtype)
+    hg = h.to(dtype) * gate
+    out = hg @ p["w_out"].to(dtype) if tp is None else tp.row_product(hg, p["w_out"])
     new_cache = {"h": h[:, -1], "conv": new_conv} if mode in ("prefill", "decode") else None
     return out, new_cache
 

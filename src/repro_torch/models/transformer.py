@@ -26,7 +26,8 @@ Public API:
   encode(cfg, pcfg, params, frames)                 -> encoder memory (whisper)
   cache_shapes(cfg, pcfg, batch, prompt_len, cache_len)   -> meta-tensor tree
   Transformer(cfg, params)                          -> nn.Module holding them
-  forward_grid(cfg, pcfg, tree, tokens, placement)  -> (logits, aux) of one rank
+  forward_grid(cfg, pcfg, tree, tokens, placement, extra=)
+                                                    -> (logits, aux) of one rank
                                                        of a GridMesh (train)
   model_layout(cfg)                                 -> the stacked flat layout
 """
@@ -137,20 +138,27 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
     """(x_res, hidden, cache, aux) of one block.  Its output is ``x_res +
     hidden @ W`` for W at ``last_product`` (read nowhere here), or x_res
     when hidden is None; aux holds the MoE readings, or is None.  ``tp``:
-    one rank of a GridMesh (a sharding/placement.py::Placement; train, the
-    attention kinds), whose model axis splits the heads and the MLP's d_ff
-    where the placement says so (``attn_tp``, ``mlp_tp``) and the experts by
-    its ``moe_mode``."""
+    one rank of a GridMesh (a sharding/placement.py::Placement; train),
+    whose model axis splits the self- and cross-attention heads, the MLP's
+    d_ff and the RG-LRU's channels where the placement says so (``attn_tp``,
+    ``xattn_tp``, ``mlp_tp``, ``rec_tp``; hidden is then the rank's d_ff
+    columns) and the experts by its ``moe_mode``; the mLSTM and sLSTM run
+    replicated."""
     causal = cfg.causal if causal is None else causal
     h = apply_norm(p["ln1"], x, cfg.norm)
+
+    def split(on: bool):
+        """(the placement, or None where it splits nothing; head counts)."""
+        part = tp if on else None
+        m = 1 if part is None else tp.m
+        return part, dict(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
+                          head_dim=cfg.resolved_head_dim, q_pos=q_pos, mode=mode,
+                          attn_chunk=pcfg.attn_chunk, backend=pcfg.backend)
+
     if kind in ATTN_FAMILY:
         window = cfg.sliding_window if kind in ("swa", "local") else 0
         eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
-        tp_attn = tp if tp is not None and tp.attn_tp else None
-        m = 1 if tp_attn is None else tp.m
-        common = dict(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-                      head_dim=cfg.resolved_head_dim, q_pos=q_pos, mode=mode,
-                      attn_chunk=pcfg.attn_chunk, backend=pcfg.backend)
+        tp_attn, common = split(tp is not None and tp.attn_tp)
         out, c_self = attn_mod.attention(
             p["attn"], h, rope_theta=cfg.rope_theta, causal=causal, window=window,
             cache=None if cache is None else cache["self"], cache_len=eff_cache_len,
@@ -161,17 +169,19 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
         new_cache = None if mode == "train" else {"self": c_self}
         if kind == "xattn":
             hx = apply_norm(p["lnx"], x, cfg.norm)
+            tp_x, common = split(tp is not None and tp.xattn_tp)
             out, c_cross = attn_mod.attention(
                 p["xattn"], hx, memory=memory,
-                cache=None if cache is None else cache["cross"], **common)
+                cache=None if cache is None else cache["cross"], tp=tp_x, **common)
             x = x + out
             if new_cache is not None:
                 new_cache["cross"] = c_cross
         x, hidden, aux = _ffn(cfg, p, x, tp=tp)
         return x, hidden, new_cache, aux
     if kind == "rec":
-        out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode)
-        x, hidden, aux = _ffn(cfg, p, x + out)
+        out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode,
+                                             tp=tp if tp is not None and tp.rec_tp else None)
+        x, hidden, aux = _ffn(cfg, p, x + out, tp=tp)
         return x, hidden, new_cache, aux
     if kind == "mlstm":
         hidden, new_cache = xl_mod.apply_mlstm(p["mlstm"], h, cfg.n_heads, cache=cache, mode=mode)
@@ -188,12 +198,14 @@ def _leaf(p: Dict, path):
 
 def _block_apply(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, tp=None,
                  **kw):
-    """(x, cache, aux) of one block (``tp`` as for ``_block_body``: the
-    last product is then the row product summed over the model axis)."""
+    """(x, cache, aux) of one block (``tp`` as for ``_block_body``: where
+    hidden is the rank's d_ff columns, the MLP's, the last product is the
+    row product summed over the model axis)."""
     x, hidden, c, aux = _block_body(cfg, pcfg, kind, p, x, tp=tp, **kw)
     if hidden is not None:
-        w = _leaf(p, last_product(cfg, kind))
-        if tp is not None and tp.mlp_tp:
+        path = last_product(cfg, kind)
+        w = _leaf(p, path)
+        if tp is not None and tp.mlp_tp and path == ("mlp", "wd"):
             x = x + tp.row_product(hidden, w)
         else:
             x = x + hidden @ w.to(x.dtype)
@@ -367,26 +379,30 @@ def _layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]):
         yield kind, params["tail"][ti], None if cache is None else cache["tail"][ti]
 
 
-def encode(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, frames: torch.Tensor):
+def encode(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, frames: torch.Tensor,
+           tp=None):
     """The encoder tower (whisper) over the stub frame embeddings (B, F, d):
-    non-causal attn blocks on the implicit layout, then the final norm."""
+    non-causal attn blocks on the implicit layout, then the final norm.
+    ``tp``: one rank of a GridMesh, as for ``_block_body`` (``params``'
+    encoder leaves then gathered as the placement's roles give them)."""
     x = frames.to(getattr(torch, pcfg.compute_dtype))
     b, f, _ = x.shape
     pos = torch.arange(f, dtype=torch.int32, device=x.device)[None, :].expand(b, f)
     for lp in params["encoder"]["layers"]:
-        x, _, _ = _block_apply(cfg, pcfg, "attn", lp, x, q_pos=pos, cache=None, mode="train",
-                               cache_len=0, causal=False, implicit_layout=True, q_seg=None,
-                               seg_base=None)
+        x, _, _ = _block_apply(cfg, pcfg, "attn", lp, x, tp=tp, q_pos=pos, cache=None,
+                               mode="train", cache_len=0, causal=False, implicit_layout=True,
+                               q_seg=None, seg_base=None)
     return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
 
 
-def _resolve_memory(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, extra):
+def _resolve_memory(cfg: ModelConfig, pcfg: ParallelismConfig, params: Dict, extra, tp=None):
     """The cross-attention memory: the encoder over ``extra["frames"]``, or
-    ``extra["image"] @ img_proj``; None for a model without either."""
+    ``extra["image"] @ img_proj``; None for a model without either (``tp``:
+    the encoder on a rank of a GridMesh, ``params`` the gathered leaves)."""
     if cfg.encoder is not None:
         if extra is None or "frames" not in extra:
             raise ValueError("enc-dec model needs extra={'frames': (B,F,d)}")
-        return encode(cfg, pcfg, params, extra["frames"])
+        return encode(cfg, pcfg, params, extra["frames"], tp=tp)
     if cfg.n_image_tokens:
         if extra is None or "image" not in extra:
             raise ValueError("vlm needs extra={'image': (B,N,d)}")
@@ -555,26 +571,33 @@ class _RematGrid(torch.autograd.Function):
 
 
 def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: torch.Tensor,
-                 placement, *, positions: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 placement, *, positions: Optional[torch.Tensor] = None,
+                 extra: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """The train forward of one rank of a GridMesh: tokens (B, S) (the
     rank's rows) -> (f32 logits, aux).  ``tree`` is a core/layout.py::
     GridParams tree of the rank's weight blocks, ``placement`` its
-    sharding/placement.py::Placement.  The logits are the rank's vocab
-    columns when the placement splits the vocab (``placement.vocab_tp``;
-    train/loss.py's vocab-parallel cross-entropy takes them), else the whole
-    vocab.  The layer groups run under ``_RematGrid`` (with autograd on,
-    ``pcfg.remat`` and ``placement.remat``), each group's weights gathered on use; a stacked leaf
-    whose layer dim is split is gathered whole once per call.  The
-    attention kinds only (``Placement`` refuses the others), with an MLP or
-    a mixture of experts; aux holds the MoE readings of the rank's rows
-    (models/moe.py::apply_moe_grid) summed over the layers and divided by
-    max(1, n_layers), as ``forward`` gives them (zeros without MoE)."""
+    sharding/placement.py::Placement; ``extra`` the rank's rows of the
+    cross-attention's source, as for ``forward``.  The logits are the rank's
+    vocab columns when the placement splits the vocab
+    (``placement.vocab_tp``; train/loss.py's vocab-parallel cross-entropy
+    takes them), else the whole vocab.  The layer groups run under
+    ``_RematGrid`` (with autograd on, ``pcfg.remat`` and
+    ``placement.remat``), each group's weights gathered on use; a stacked
+    leaf whose layer dim is split is gathered whole once per call.  The
+    encoder (or the image projection) runs first, outside the groups, as in
+    ``forward``; its memory enters every group as an input, so that its
+    gradient reaches the encoder.  aux holds the MoE readings of the rank's
+    rows (models/moe.py::apply_moe_grid) summed over the layers and divided
+    by max(1, n_layers), as ``forward`` gives them (zeros without MoE)."""
     pl, whole = placement, tree["whole"]
     dtype = getattr(torch, pcfg.compute_dtype)
     kw = dict(q_pos=_q_pos(tokens, positions), cache=None, mode="train", cache_len=0,
               implicit_layout=positions is None, q_seg=None, seg_base=None, tp=pl)
     use = lambda path: pl.use(whole[path], path)
+    memory = _resolve_memory(cfg, pcfg, nest_paths({
+        path: use(path) for path in whole
+        if path.startswith("encoder/") or path == "img_proj"}), extra, tp=pl)
+    mem = () if memory is None else (memory,)
     x = constrain(pl.embed(use("embed/embed"), tokens, dtype), ("batch", None, None))
     moe = cfg.moe is not None
 
@@ -587,22 +610,24 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     names = sorted(tree["groups"][0]) if tree["groups"] else []
     n_in = len(names)
 
-    def body(xx, *leaves):
+    def body(xx, *args):
+        gmem, leaves = args[:len(mem)], args[len(mem):]
         flat = {name: pl.use(leaf, f"groups/{name}", 1) for name, leaf in zip(names, leaves)}
         for name, t in zip(sorted(held), leaves[n_in:]):
             flat[name] = t if pl.stacked else pl.use(t, held[name])
         gp = nest_paths(flat)
+        gkw = {**kw, "memory": gmem[0] if gmem else None}
         gaux = _aux_zero(xx.device)
         for i, kind in enumerate(cfg.block_pattern):
-            xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **kw)
+            xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **gkw)
             gaux = _aux_add(gaux, a)
         return (xx, torch.stack([gaux[k] for k in AUX_KEYS])) if moe else xx
 
     remat_on = pcfg.remat and pl.remat and torch.is_grad_enabled()
     aux = _aux_zero(x.device)
     for g, gp in enumerate(tree["groups"]):
-        extra = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
-        args = [gp[n] for n in names] + extra
+        held_g = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
+        args = [*mem, *(gp[n] for n in names), *held_g]
         out = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
         if moe:
             x, gaux = out
@@ -613,7 +638,7 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         prefix = f"tail/{ti}/"
         p = nest_paths({path[len(prefix):]: use(path) for path in whole
                         if path.startswith(prefix)})
-        x, _, a = _block_apply(cfg, pcfg, kind, p, x, **kw)
+        x, _, a = _block_apply(cfg, pcfg, kind, p, x, memory=memory, **kw)
         aux = _aux_add(aux, a)
     x = apply_norm(nest_paths({path.split("/", 1)[1]: use(path) for path in whole
                                if path.startswith("final_norm/")}), x, cfg.norm)

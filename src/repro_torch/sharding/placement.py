@@ -40,14 +40,17 @@ block of the gradient, whole over the data axis, to a ``PayloadSink``.
 
 ``Placement`` is the model's side of a GridMesh: which leaves a rank
 gathers whole ("rep", computed replicated), over the data axis only
-("col": column-parallel, the rank's heads, d_ff columns, vocab rows, or
-experts) or whole for its input rows ("row": row-parallel); and the Megatron
-operators around the tensor-parallel regions: ``enter`` (identity forward,
+("col": column-parallel, the rank's heads, d_ff columns, RG-LRU channels,
+vocab rows, or experts) or whole for its input rows ("row": row-parallel;
+also a replicated 1-D leaf the model ranks read in parts, the RG-LRU's
+``a_log``, whose gradient the model axis sums); and the Megatron operators
+around the tensor-parallel regions: ``enter`` (identity forward,
 all-reduce of the input's gradient over the model axis) and the row
 product's sum of the f32 partial products over the model axis before the
 cast (``reduce``: all-reduce forward, identity backward).  Where the model
 axis cannot split the compute (a head or vocab count it does not divide),
-the weights are gathered whole and the compute is replicated.  A mixture
+the weights are gathered whole and the compute is replicated; the mLSTM
+and sLSTM blocks and the image projection always run replicated.  A mixture
 of experts (models/moe.py::apply_moe_grid) follows the reference's expert
 rule (``moe_mode``): the rank's experts where the model axis splits E, each
 expert's d_ff columns where it splits d_ff (``expert_col_product``,
@@ -72,10 +75,11 @@ import torch
 
 from repro_torch.sharding.rules import Rules, Spec, entry_axes
 
-# The dense block kinds whose compute the model axis splits (attention + MLP).
-TP_KINDS = ("attn", "swa", "local")
-ROADMAP_REST = ("ROADMAP A9's remainder: the RG-LRU/xLSTM/cross-attention blocks and the "
-                "encoder and image stub under a model axis, sharded serving and DLRM's tables")
+ROADMAP_REST = ("ROADMAP A9's remainder: sharded serving (A9.4) and DLRM's tables on the "
+                "grid (A9.5)")
+# The RG-LRU's leaves whose last dim the model axis splits into the rank's
+# channels (models/recurrent.py::apply_rglru); its w_out is row-parallel.
+REC_COLS = ("w_y", "w_rg_a", "w_rg_x")
 
 
 # ---------------------------------------------------------------------------
@@ -572,11 +576,12 @@ class Placement:
     """How the transformer computes on a GridMesh (module note).
 
     ``specs`` maps each reference path of the stacked tree to its Spec and
-    ``shapes`` to its whole shape.  ``attn_tp`` / ``mlp_tp`` / ``vocab_tp``
-    say whether the model axis splits the attention heads, the MLP's d_ff
-    (a shared expert's too) and the vocab, ``moe_mode`` how it splits the
-    experts (None without MoE); ``role(path)`` is "col", "row" or "rep" for
-    each leaf.
+    ``shapes`` to its whole shape.  ``attn_tp`` / ``xattn_tp`` / ``mlp_tp``
+    / ``rec_tp`` / ``vocab_tp`` say whether the model axis splits the
+    self-attention heads (the encoder's too), the cross-attention heads, the
+    MLP's d_ff (a shared expert's too), the RG-LRU's channels and the vocab,
+    ``moe_mode`` how it splits the experts (None without MoE); ``role(path)``
+    is "col", "row" or "rep" for each leaf.
 
     Two modes a step sets around one forward and backward: ``deferred(sink)``
     (the data-axis GSNR source) hands every gather a ``PayloadSink``, and
@@ -591,28 +596,27 @@ class Placement:
         self.m, self.j = mesh.shape[self.tp], mesh.coords[self.tp]
         cfg = model_cfg
         self.stacked = cfg.n_groups() > 1
-        self.sink: Optional[PayloadSink] = None
-        self.remat = True
-        bad = [k for k in cfg.pattern_layers() if k not in TP_KINDS]
-        if cfg.encoder is not None or cfg.n_image_tokens or bad:
-            what = "an encoder" if cfg.encoder is not None else \
-                "an image projection" if cfg.n_image_tokens else f"{sorted(set(bad))} blocks"
-            raise NotImplementedError(
-                f"{cfg.name}: {what} on a GridMesh is not ported yet ({ROADMAP_REST})")
 
-        def last_is_tp(name):
-            return all(spec[-1] == self.tp for p, spec in specs.items()
-                       if p.split("/")[-1] == name and p.startswith("groups/"))
+        def last_is_tp(names, parent=None):
+            """Some leaf is named one of ``names`` (under ``parent``), and
+            every such leaf's last dim is over the model axis."""
+            found = [spec for p, spec in specs.items() if p.split("/")[-1] in names
+                     and (parent is None or p.split("/")[-2] == parent)]
+            return bool(found) and all(spec[-1] == self.tp for spec in found)
 
         m = self.m
-        self.attn_tp = (m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
-                        and all(last_is_tp(n) for n in ("wq", "wk", "wv")))
-        self.mlp_tp = (m > 1 and cfg.d_ff % m == 0
-                       and all(last_is_tp(n) for n in ("wi", "wg")))
+        heads = m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+        self.attn_tp = heads and last_is_tp(("wq", "wk", "wv"), "attn")
+        self.xattn_tp = heads and last_is_tp(("wq", "wk", "wv"), "xattn")
+        # a block without an MLP (xLSTM: d_ff == 0) splits no d_ff
+        self.mlp_tp = m > 1 and cfg.d_ff > 0 and cfg.d_ff % m == 0 and last_is_tp(("wi", "wg"))
+        self.rec_tp = m > 1 and cfg.d_model % m == 0 and last_is_tp(REC_COLS, "rec")
         table = specs["embed/embed"]
         self.vocab_tp = m > 1 and table[0] == self.tp and (
             cfg.tie_embeddings or specs["head"][-1] == self.tp)
         self.moe_mode = self._moe_mode() if cfg.moe is not None else None
+        self.sink: Optional[PayloadSink] = None
+        self.remat = True
 
     def _moe_mode(self) -> str:
         """How the model axis splits the experts (the reference's expert
@@ -652,17 +656,23 @@ class Placement:
     # -- roles and gathers ---------------------------------------------------
 
     def role(self, path: str) -> str:
-        name = path.split("/")[-1]
+        *_, parent, name = ("",) + tuple(path.split("/"))
         if name in ("expert_wi", "expert_wg", "expert_wd"):
             if self.moe_mode == "ep" or (self.moe_mode == "tp" and name != "expert_wd"):
                 return "col"
             return "row" if self.moe_mode == "tp" else "rep"
-        if self.attn_tp and name in ("wq", "wk", "wv"):
-            return "col"
+        if parent in ("attn", "xattn"):
+            if self.attn_tp if parent == "attn" else self.xattn_tp:
+                return "row" if name == "wo" else "col"
+            return "rep"
         if self.mlp_tp and name in ("wi", "wg"):
             return "col"
-        if (self.attn_tp and name == "wo") or (self.mlp_tp and name == "wd"):
+        if self.mlp_tp and name == "wd":
             return "row"
+        if parent == "rec" and self.rec_tp:
+            # a_log: replicated, read in parts by the model ranks, so its
+            # gradient is summed over the model axis as a row weight's
+            return "col" if name in REC_COLS else "row" if name in ("w_out", "a_log") else "rep"
         if self.vocab_tp and path in ("embed/embed", "head"):
             return "col"
         return "rep"
@@ -708,14 +718,18 @@ class Placement:
         through that) over the model axis; identity backward."""
         return _Reduce.apply(x, self.mesh, self.tp, op)
 
+    def own(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The rank's block of ``x``'s ``dim`` cut in M equal parts (its
+        channels of a tensor the model ranks hold whole)."""
+        n = x.shape[dim] // self.m
+        return x.narrow(dim, self.j * n, n)
+
     def row_product(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``h @ w`` of the rank's input columns ``h`` (..., F/M) and the
         whole gathered ``w`` (F, d): the f32 partial product of the rank's
         rows of w (rounded to h's dtype as the single-device product rounds
         the weight), summed over the model axis in f32, cast once."""
-        f = w.shape[0] // self.m
-        rows = w.narrow(0, self.j * f, f).to(h.dtype)
-        return self.reduce(_RowProduct.apply(h, rows)).to(h.dtype)
+        return self.reduce(_RowProduct.apply(h, self.own(w, 0).to(h.dtype))).to(h.dtype)
 
     # -- the mixture of experts (models/moe.py::apply_moe_grid) --------------
 

@@ -150,13 +150,13 @@ def make_loss_fn(cfg: Config, placement=None):
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
         positions, mask, packed, segments = masks(batch)
+        extra = {name: batch[name] for name in ("image", "frames") if name in batch} or None
         if placement is not None:
             logits, aux = forward_grid(m, p, params, batch["tokens"], placement,
-                                       positions=positions)
+                                       positions=positions, extra=extra)
         else:
-            extra = {name: batch[name] for name in ("image", "frames") if name in batch}
-            logits, aux, _ = forward(m, p, params, batch["tokens"], extra=extra or None,
-                                     mode="train", positions=positions)
+            logits, aux, _ = forward(m, p, params, batch["tokens"], extra=extra, mode="train",
+                                     positions=positions)
         denom = batch.get(LOSS_DENOM)
         if segments is not None:
             ce = document_cross_entropy(logits, batch["targets"], segments, mask, denom,

@@ -27,11 +27,13 @@ thread each, a rendezvous file under the test's tmp dir) runs:
   bert smoke's placement, against the plain loss on the whole logits; the
   loss within rtol 1e-6 and each rank's logit gradient within atol 1e-7 of
   its columns of the whole gradient.
-* The refusals on the grid: each unported block kind (the RG-LRU, xLSTM,
-  cross-attention with its encoder or image stub) raises
-  NotImplementedError naming ROADMAP A9; every optimizer, source and stats
-  method runs there (tests/test_torch_grid_paths.py), and so do the MoE
-  configs (tests/test_torch_grid_moe.py).
+* The refusals on the grid: what is not ported yet raises
+  NotImplementedError naming ROADMAP A9: the tensor-parallel attention
+  outside train mode (prefill and decode: sharded serving, A9.4) and DLRM's
+  training driver given the grid (its tables, A9.5).  Every optimizer,
+  source and stats method runs there (tests/test_torch_grid_paths.py), and
+  so do the MoE configs (tests/test_torch_grid_moe.py) and the RG-LRU,
+  xLSTM and cross-attention blocks (tests/test_torch_grid_blocks.py).
 * The checkpoint: the fused bert run's state saved from the grid (gathered,
   rank 0 writes) restores whole into a one-card template, equal
   (``torch.equal``, on the leaf elements) to the state gathered whole, and
@@ -62,11 +64,10 @@ ARCHS = ("bert-large", "internlm2-1.8b")
 PLANS = ("fused", "reference")
 FRESH = (True, False, True)
 OPT = dict(k=4, gsnr_refresh=2)
-# each refused case: (arch, OptimizerConfig overrides, make_train_step keywords);
-# the other optimizers, sources and stats methods run on the grid
-# (tests/test_torch_grid_paths.py)
-REFUSED = {arch: (arch, {}, {}) for arch in ("recurrentgemma-9b", "xlstm-1.3b", "whisper-small",
-                                             "llama-3.2-vision-11b")}
+# what still raises on the grid: the tensor-parallel attention outside train
+# mode (sharded serving) and DLRM's driver (its tables); every block kind,
+# optimizer, source and stats method trains there
+REFUSED = ("prefill attention", "decode attention", "dlrm")
 
 
 def _opt(arch):
@@ -164,13 +165,36 @@ def _ce_run(mesh, ce_inputs):
 
 
 def _refusals(mesh):
-    from repro_torch.train import make_train_step
+    from repro_torch.configs import dlrm as dlrm_cfg
+    from repro_torch.models import dlrm
+    from repro_torch.models.attention import attention
+    from repro_torch.train.driver import train_optimizer
+    from repro_torch.train.trainer import grid_plan
 
+    cfg = _port_cfg("bert-large", "fused")
+    m = cfg.model
+    pl, _ = grid_plan(cfg, mesh)
+    blocks = pl.mesh.shape["model"]
+    x = torch.zeros(1, 4, m.d_model)
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    attn = {n: torch.zeros(m.d_model, m.d_model // blocks) for n in ("wq", "wk", "wv")}
+    attn["wo"] = torch.zeros(m.d_model, m.d_model)
+    dcfg = dlrm_cfg.smoke()
+    calls = {
+        "prefill attention": lambda: attention(
+            attn, x, n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
+            head_dim=m.resolved_head_dim, q_pos=pos, mode="prefill", cache_len=8, tp=pl),
+        "decode attention": lambda: attention(
+            attn, x[:, :1], n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
+            head_dim=m.resolved_head_dim, q_pos=pos[:, :1], mode="decode", tp=pl),
+        "dlrm": lambda: train_optimizer(
+            dlrm.loss_fn(dcfg), dlrm.init_params(dcfg, torch.Generator().manual_seed(0)),
+            iter(()), dlrm_cfg.optimizer(), 1, device="cpu", mesh=mesh),
+    }
     out = {}
-    for case, (arch, opt, kw) in REFUSED.items():
-        cfg = _port_cfg(arch, "fused", **opt)
+    for case in REFUSED:
         try:
-            make_train_step(cfg, device="cpu", mesh=mesh, **kw)
+            calls[case]()
             out[case] = None
         except NotImplementedError as e:
             out[case] = str(e)
@@ -382,6 +406,7 @@ def test_vocab_parallel_cross_entropy_matches_the_plain_loss(grid_runs):
 def test_unported_paths_raise_on_the_grid(grid_runs):
     ranks, _, _, _ = grid_runs
     for res in ranks:
+        assert set(res["refused"]) == set(REFUSED)
         for case, msg in res["refused"].items():
             assert msg is not None and "ROADMAP A9" in msg, (case, msg)
 

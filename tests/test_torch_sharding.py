@@ -22,10 +22,9 @@ GridShard).
   once.
 * What a rank of bert-large holds at published width on (2, 2): every leaf
   but the 1-D final norm splits 4 ways, 91.2 M of 364.6 M params.
-* The placement's refusals without ranks: each unported block kind
-  (RG-LRU, mLSTM/sLSTM, cross-attention with its encoder or image stub)
-  raises NotImplementedError naming ROADMAP A9; the MoE smokes' expert,
-  router and shared-expert leaves take the roles their specs give them.
+* The placement without ranks: the MoE smokes' expert, router and
+  shared-expert leaves and the RG-LRU, xLSTM, cross-attention, encoder and
+  image-projection leaves take the roles their specs give them.
 
 The spawned-rank checks of the grid step are in tests/test_torch_grid.py.
 """
@@ -345,18 +344,50 @@ def _check_moe_roles(arch, n_experts):
     assert seen == {"router", "expert_wi", "expert_wg", "expert_wd"} | shared, seen
 
 
+def _check_block_roles(arch):
+    """The A9.3 block kinds' leaves on (2, 2) against their specs: the
+    RG-LRU's w_y, w_rg_a, w_rg_x "col" (the rank's channels, last dim over
+    "model"), w_out and the 1-D a_log "row" (whole, the model axis summing
+    their gradients), w_gatein and conv_w "rep"; every mLSTM/sLSTM leaf and
+    the image projection "rep"; the cross-attention's and the encoder's
+    projections the self-attention's roles ("col", wo "row") where the
+    heads split, and attention with one kv head (recurrentgemma's local
+    block) "rep" whole."""
+    make, specs = _placement(get_smoke(arch).model)
+    pl = make()
+    seen = set()
+    for path, spec in specs.items():
+        *_, parent, name = ("",) + tuple(path.split("/"))
+        if parent == "rec":
+            want = ("col" if name in ("w_y", "w_rg_a", "w_rg_x") else
+                    "row" if name in ("w_out", "a_log") else "rep")
+            if want == "col":
+                assert spec[-1] == "model", (path, spec)
+        elif parent in ("mlstm", "slstm") or name == "img_proj":
+            want = "rep"
+        elif parent in ("attn", "xattn"):
+            split = pl.xattn_tp if parent == "xattn" else pl.attn_tp
+            want = ("row" if name == "wo" else "col") if split else "rep"
+        else:
+            continue
+        seen.add(parent or name)
+        assert pl.role(path) == want, (path, spec, pl.role(path))
+    kinds = set(get_smoke(arch).model.block_pattern)
+    assert {"rec", "mlstm", "slstm", "xattn"} & kinds <= seen, seen
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b", "xlstm-1.3b",
                                   "whisper-small", "llama-3.2-vision-11b"])
 def test_unported_block_kinds_raise_on_a_grid(arch):
-    """The A9.3 kinds raise naming ROADMAP A9.  A mixture of experts (the
-    mixtral case) is placed since A9.2: the mixtral and llama4 smokes' MoE
-    leaves take their roles by the rule's specs at E = 4 and E = 3
-    (``_check_moe_roles``)."""
+    """The block kinds that once raised on a grid take their placement: a
+    mixture of experts (the mixtral case, since A9.2): the mixtral and
+    llama4 smokes' MoE leaves take their roles by the rule's specs at E = 4
+    and E = 3 (``_check_moe_roles``); the RG-LRU, mLSTM/sLSTM and
+    cross-attention blocks with the encoder and the image projection (since
+    A9.3, ``_check_block_roles``)."""
     if arch == "mixtral-8x22b":
         for moe_arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b"):
             for n_experts in (4, 3):
                 _check_moe_roles(moe_arch, n_experts)
         return
-    make, _ = _placement(get_smoke(arch).model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        make()
+    _check_block_roles(arch)
