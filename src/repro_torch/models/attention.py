@@ -43,7 +43,6 @@ from repro_torch.backend import Backend
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import segment_ids_from_positions
 from repro_torch.models.common import apply_rope, normal_init
-from repro_torch.sharding.placement import ROADMAP_REST
 
 NEG_INF = -1e30
 
@@ -212,7 +211,8 @@ def attention(
     g = n_heads // n_kv_heads
     dtype = x.dtype
     if tp is not None and mode != "train":
-        raise NotImplementedError(f"tensor-parallel attention in {mode} mode ({ROADMAP_REST})")
+        raise NotImplementedError(f"tensor-parallel attention in {mode} mode (sharded "
+                                  "serving: ROADMAP A9.4)")
     if memory is not None:
         return _cross_attention(p, x, memory, mem_pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
                                 head_dim=head_dim, q_pos=q_pos, cache=cache, mode=mode,

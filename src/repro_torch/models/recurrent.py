@@ -30,7 +30,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
-from repro_torch.sharding.placement import ROADMAP_REST
 
 RG_C = 8.0
 CONV_W = 4
@@ -90,8 +89,8 @@ def apply_rglru(p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
     xi, new_conv = causal_conv(p["conv_w"], xi, None if cache is None else cache["conv"])
     if tp is not None:
         if mode != "train":
-            raise NotImplementedError(f"the tensor-parallel RG-LRU in {mode} mode "
-                                      f"({ROADMAP_REST})")
+            raise NotImplementedError(f"the tensor-parallel RG-LRU in {mode} mode (sharded "
+                                      "serving: ROADMAP A9.4)")
         proj = lambda v, w: tp.col_product(v, w, dtype)
         x, xi_all = tp.enter(x), tp.enter(xi)
         xi_own, a_log = tp.own(xi_all), tp.own(p["a_log"])

@@ -75,8 +75,6 @@ import torch
 
 from repro_torch.sharding.rules import Rules, Spec, entry_axes
 
-ROADMAP_REST = ("ROADMAP A9's remainder: sharded serving (A9.4) and DLRM's tables on the "
-                "grid (A9.5)")
 # The RG-LRU's leaves whose last dim the model axis splits into the rank's
 # channels (models/recurrent.py::apply_rglru); its w_out is row-parallel.
 REC_COLS = ("w_y", "w_rg_a", "w_rg_x")

@@ -29,7 +29,6 @@ from repro_torch.core.accumulate import grad_only, grad_stats
 from repro_torch.core.layout import FlatBuffer, FlatParams, tree_map
 from repro_torch.core.vrgd import make_optimizer
 from repro_torch.serve.engine import resolve_device
-from repro_torch.sharding.placement import ROADMAP_REST
 
 
 def auc(labels: np.ndarray, scores: np.ndarray) -> float:
@@ -64,7 +63,6 @@ def train_optimizer(
     backend: Optional[Backend] = None,
     device=None,
     callback: Optional[Callable] = None,
-    mesh=None,
 ) -> Dict:
     """Train ``steps`` steps; returns {params, losses, final_loss,
     steps_to_target, s_per_step, step_s} and, with ``eval_fn``, eval.
@@ -76,11 +74,7 @@ def train_optimizer(
     and ``step_s`` each step's host wall, from taking the batch to the
     loss on the host (which waits for the device).  ``callback(i, params,
     loss)`` runs after step i, outside the walls; ``eval_fn(params)`` after
-    the last step.  ``mesh``: a mesh is refused (DLRM's tables on a
-    GridMesh are not ported yet)."""
-    if mesh is not None:
-        raise NotImplementedError(f"train_optimizer steps one device; {type(mesh).__name__} "
-                                  f"given ({ROADMAP_REST})")
+    the last step."""
     device = resolve_device(device)
     if isinstance(params, FlatParams):
         if params.device.type != device.type or device.index not in (None, params.device.index):

@@ -29,8 +29,8 @@ thread each, a rendezvous file under the test's tmp dir) runs:
   its columns of the whole gradient.
 * The refusals on the grid: what is not ported yet raises
   NotImplementedError naming ROADMAP A9: the tensor-parallel attention
-  outside train mode (prefill and decode: sharded serving, A9.4) and DLRM's
-  training driver given the grid (its tables, A9.5).  Every optimizer,
+  outside train mode (prefill and decode) and the recurrentgemma smoke's
+  channel-split RG-LRU in prefill mode (sharded serving, A9.4).  Every optimizer,
   source and stats method runs there (tests/test_torch_grid_paths.py), and
   so do the MoE configs (tests/test_torch_grid_moe.py) and the RG-LRU,
   xLSTM and cross-attention blocks (tests/test_torch_grid_blocks.py).
@@ -64,10 +64,10 @@ ARCHS = ("bert-large", "internlm2-1.8b")
 PLANS = ("fused", "reference")
 FRESH = (True, False, True)
 OPT = dict(k=4, gsnr_refresh=2)
-# what still raises on the grid: the tensor-parallel attention outside train
-# mode (sharded serving) and DLRM's driver (its tables); every block kind,
-# optimizer, source and stats method trains there
-REFUSED = ("prefill attention", "decode attention", "dlrm")
+# what still raises on the grid: the tensor-parallel attention and RG-LRU
+# outside train mode (sharded serving); every block kind, optimizer, source
+# and stats method trains there
+REFUSED = ("prefill attention", "decode attention", "prefill rg-lru")
 
 
 def _opt(arch):
@@ -165,10 +165,8 @@ def _ce_run(mesh, ce_inputs):
 
 
 def _refusals(mesh):
-    from repro_torch.configs import dlrm as dlrm_cfg
-    from repro_torch.models import dlrm
     from repro_torch.models.attention import attention
-    from repro_torch.train.driver import train_optimizer
+    from repro_torch.models.recurrent import apply_rglru, rglru_init
     from repro_torch.train.trainer import grid_plan
 
     cfg = _port_cfg("bert-large", "fused")
@@ -179,7 +177,8 @@ def _refusals(mesh):
     pos = torch.arange(4, dtype=torch.int32)[None]
     attn = {n: torch.zeros(m.d_model, m.d_model // blocks) for n in ("wq", "wk", "wv")}
     attn["wo"] = torch.zeros(m.d_model, m.d_model)
-    dcfg = dlrm_cfg.smoke()
+    rec_pl, _ = grid_plan(_port_cfg("recurrentgemma-9b", "fused"), mesh)
+    d_rec = rec_pl.cfg.d_model
     calls = {
         "prefill attention": lambda: attention(
             attn, x, n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
@@ -187,9 +186,9 @@ def _refusals(mesh):
         "decode attention": lambda: attention(
             attn, x[:, :1], n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
             head_dim=m.resolved_head_dim, q_pos=pos[:, :1], mode="decode", tp=pl),
-        "dlrm": lambda: train_optimizer(
-            dlrm.loss_fn(dcfg), dlrm.init_params(dcfg, torch.Generator().manual_seed(0)),
-            iter(()), dlrm_cfg.optimizer(), 1, device="cpu", mesh=mesh),
+        "prefill rg-lru": lambda: apply_rglru(
+            rglru_init(torch.Generator().manual_seed(0), d_rec), torch.zeros(1, 4, d_rec),
+            mode="prefill", tp=rec_pl),
     }
     out = {}
     for case in REFUSED:

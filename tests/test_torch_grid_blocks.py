@@ -61,8 +61,9 @@ gsnr/*, params and m, v, p gathered whole).  Also:
 
 The rank function lives in this module and the ranks import it, so JAX is
 imported inside the test functions only.  The ranks start first and wait
-for their inputs, which the parent draws with JAX meanwhile; the JAX steps
-compile through tests/torch_fast_jit.py.
+for their inputs after the single-block checks, which need none, while the
+parent draws them with JAX; the JAX steps compile through
+tests/torch_fast_jit.py.
 """
 import dataclasses
 import os
@@ -361,15 +362,15 @@ def _rank(rank, init, out):
 
     torch.set_num_threads(1)  # smoke-sized work on a shared machine
     mesh = init_grid_mesh("gloo", *GRID, "cpu", init_method=init, rank=rank)
+    res = {"coords": dict(mesh.coords)}
+    for name, (model, pos) in BLOCKS.items():  # while the parent draws the inputs
+        res["block", name] = _block_check(mesh, model, pos)
     end = time.monotonic() + DEADLINE_S
     while not os.path.exists(f"{out}/inputs.pkl") and time.monotonic() < end:
         time.sleep(0.1)
     with open(f"{out}/inputs.pkl", "rb") as f:
         inputs = pickle.load(f)
     launches = _Launches()
-    res = {"coords": dict(mesh.coords)}
-    for name, (model, pos) in BLOCKS.items():
-        res["block", name] = _block_check(mesh, model, pos)
     for case, (model, plan, opt, fresh, _) in RUNS.items():
         cfg = _port_cfg(model, plan, **opt)
         state, res[case], res[case, "launches"] = _run(mesh, cfg, *inputs[model], fresh,
