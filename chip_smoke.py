@@ -17,7 +17,15 @@ Phases, in order; any failure exits non-zero:
                 L = 1 and 4, in f32, over a 4096-slot cache and with a
                 cluster of one block, also against the plain split and
                 combine composed; its cluster plan (tile, chunk, splits,
-                active clusters) is printed.
+                active clusters) is printed; then K12 with its
+                log-sum-exp (with_lse) at phase 10e's per-rank decode
+                shapes, with a half-empty row and a row that reaches no
+                slot, against the plain split and combine, timed in turns
+                with K12 without it, the plain version and SDPA, and both
+                forms' kernel alone in a profiler trace; K1 with its lse at
+                phase 10e's per-rank prefill shapes (phi4-mini f32 on
+                ragged rows, recurrentgemma-9b bf16 at head dim 256)
+                against its plain version.
   4. engine   — internlm2-1.8b at full width (random weights from a seeded
                 generator) through Engine.generate: batch 8, prompt 512,
                 32 new tokens; launch counts of every kernel in that run
@@ -94,8 +102,8 @@ Phases, in order; any failure exits non-zero:
                 on the ranks and within NOISE_RTOL's bounds of the
                 single-card k = 2 ones), then the row-sharded state saved
                 (gathered) and restored, each rank's rows torch.equal.
-                (c) the other mesh paths, the same frame: two ranks at
-                global batch 64 with the microbatch source at k = 4 (each
+                (c) the other mesh paths, in (b)'s two ranks after their
+                data-axis runs: the microbatch source at k = 4 (each
                 microbatch's gradient reduce-scattered into the ranks'
                 rows, K3/K4 on the rows): two VR-LAMB steps, VR-Adam
                 fresh/stale/fresh (stale: K9 on the rows), one vmap
@@ -151,6 +159,20 @@ Phases, in order; any failure exits non-zero:
                 update, m, v and p printed beside the witnesses (hold_grid's
                 rule, GRID_SHAPE's note); launches per step held, walls,
                 peaks, held shares and collective walls printed.
+                (e) sharded serving on a (2, 2) grid of four gloo ranks
+                (GRID_SERVE): phi4-mini-3.8b (2 of 32 layers, f32, ragged
+                prompts of 64-512 tokens) and recurrentgemma-9b (one
+                pattern group, bf16) at published width, batch 8, 8 new
+                tokens, a 528-slot cache placed by the reference's cache
+                rule; each rank's teacher-forced prefill and decode steps
+                (the one-card Engine.generate's tokens fed) and one
+                Engine.generate call on the grid against rank 0's one-card
+                runs: the logits at every step (f32 within 10x a one-ulp
+                witness's gap, the greedy tokens where the margin is clear;
+                bf16 within SERVE_GATE), every rank's cache blocks against
+                their slices of the one-card cache, K1 and K12 launches per
+                rank; walls, peaks, cache shares and collective walls
+                printed (gloo through the host: no claim of speed).
  11. train vmap — phase 8's model, cut and batches with stats_method="vmap"
                 (one vmapped forward and backward over the k groups, the
                 gradient stack reduced by K10): three fresh VR-LAMB steps and
@@ -218,24 +240,27 @@ Phases, in order; any failure exits non-zero:
                 against their plain versions; the five ported paper-table
                 benches (repro_torch/benchmarks: linreg, cifar_proxy,
                 bert_proxy with its autoscale A/B, gengap, dlrm_proxy) with
-                the reference's fast protocol; then one point of each on
+                the reference's fast protocol, linreg's and gengap's points
+                cut to BENCH_STEPS steps; then one point of each on
                 the fused and the reference plan (BENCH_TOL), each fused
                 step's launches held.
- 16. other block kinds — (a) whisper-small at its published config (12
-                decoder + 12 encoder layers, d 768, 1,500 frames a row of
-                stub embeddings), global batch 32, seq 128, VR-Adam k = 8:
-                three steps on the reference plan, the fused plan (K1 480,
-                K2 288 a fused step: the encoder, the decoder's self- and
-                cross-attention and its recompute), the witness (the
+ 16. other block kinds — (a) whisper-small at its published width,
+                depth cut to 6 decoder + 6 encoder layers (d 768, 1,500
+                frames a row of stub embeddings), global batch 32, seq
+                128, VR-Adam k = 8: two steps on the reference plan, the
+                fused plan (K1 240, K2 144 a fused step: the encoder, the
+                decoder's self- and cross-attention and its recompute),
+                the witness (the
                 reference plan with f32 attention, its weights one f32 ulp
                 apart after step 0) and the fused plan with the backward's
                 delta from an f32 forward, each gap held to TRAIN_TOL
                 wherever the witness's is within it, past it only through
                 the exact-delta run (hold_with_witness); warm step,
                 tokens/s and a profiled step's idle share; (b) xlstm-1.3b
-                at full width on two pattern groups (16 layers), the same
-                way, two steps; (c) mixtral-8x22b (8 of 56 layers, bf16),
-                recurrentgemma-9b and llama-3.2-vision-11b (1,601 image
+                at full width on one pattern group (8 layers: 7 mLSTM, 1
+                sLSTM), the same way, two steps; (c) mixtral-8x22b (8 of
+                56 layers, bf16), recurrentgemma-9b and
+                llama-3.2-vision-11b (1,601 image
                 tokens) at published width and depth through
                 Engine.generate (batch 4, prompt 256, 16 new tokens):
                 launches, prefill ms, decode tok/s, peak memory, the fused
@@ -588,6 +613,160 @@ def phase_kernels(records):
         plain_ms=t["plain"], bound_ms=f_ms, bound_by=f_by, library_ms=t["sdpa"], plan=t["plan"],
         timer_floor_ms=t["floor"],
     )
+    check_decode_lse(records, rng)
+    check_prefill_rank(records, rng)
+
+
+# K1 at the per-rank prefill shapes of phase 10e's (2, 2) grid, whose data
+# ranks each take 4 of the 8 rows: phi4-mini's in f32 on the CUDA cores
+# (B 4, S 512, the rank's 12 of 24 heads over its 4 of 8 kv heads, D 128,
+# causal), on data rank 0's rows of 10e's ragged prompts (one of 64
+# tokens, the rest padded after their length: position -1), and
+# recurrentgemma-9b's local layer in bf16 (MQA replicated: all 16 heads
+# over 1, D 256, window 2048, prompts of 512).  Label -> (GRID_SERVE
+# entry, heads, kv heads, head dim, window).
+PREFILL_RANK_CASES = {"phi4-mini rank f32": ("phi4-mini-3.8b", 12, 4, 128, 0),
+                      "recurrentgemma-9b rank bf16": ("recurrentgemma-9b", 16, 1, 256, 2048)}
+
+
+def check_prefill_rank(records, rng):
+    """K1 (with its lse) against its plain version at PREFILL_RANK_CASES:
+    out within TOL_F32 (f32) or TOL_BF16_OUT (bf16), lse within TOL_F32,
+    a padded query's out exactly 0 and lse -1e30; each case timed beside
+    the plain version."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, s, _ = GRID_SERVE_SHAPE
+    b //= GRID_SHAPE[0]
+    cases = {}
+    for label, (entry, h, kvh, d, window) in PREFILL_RANK_CASES.items():
+        arch, dtype_name, layers, ragged, _ = GRID_SERVE[entry]
+        dtype = getattr(torch, dtype_name)
+        lens = grid_serve_prompts(grid_serve_config(arch, dtype_name, layers), ragged)[1][:b]
+        ar = np.arange(s)[None, :]
+        pos = torch.from_numpy(np.where(ar < lens[:, None], ar, -1).astype(np.int32)).to(dev)
+        seg = fa.segment_ids_from_positions(pos)
+        q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(dev, dtype)
+                   for sh in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+        kw = dict(causal=True, window=window)
+        got, lse = fa.flash_attention(q, k, v, pos, pos, seg, seg, with_lse=True, **kw)
+        want, wlse = fa.attention_fwd_ref(q, k, v, q_pos=pos, k_pos=pos, q_seg=seg, k_seg=seg,
+                                          **kw)
+        tol = TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32
+        name = f"K1 {label} (B={b} S={s} H={h}/{kvh} D={d}, rows of {', '.join(map(str, lens))})"
+        err = check_close(f"{name} out", got, want, tol)
+        check_close(f"{name} lse", lse, wlse, TOL_F32)
+        dead = pos < 0
+        if bool(dead.any()) and not (got[dead].abs().max() == 0 and bool(
+                (lse.transpose(1, 2)[dead] == fa.NEG_INF).all())):
+            fail(f"{name}: a padded query must give out 0 and lse -1e30")
+        if not torch.equal(got, fa.flash_attention(q, k, v, pos, pos, seg, seg, **kw)):
+            fail(f"{name}: the out of the lse run differs from the run without it")
+        t = cuda_ms_interleaved({
+            "kernel": lambda: fa.flash_attention(q, k, v, pos, pos, seg, seg, **kw),
+            "plain": lambda: fa.attention_fwd_ref(q, k, v, q_pos=pos, k_pos=pos, q_seg=seg,
+                                                  k_seg=seg, **kw)})
+        print(f"  {name} (ms): kernel={t['kernel']:.6f} plain={t['plain']:.6f}", flush=True)
+        cases[label] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"])
+        records["flash_attention_fwd"]["max_abs_err"] = max(
+            records["flash_attention_fwd"]["max_abs_err"], err)
+    records["flash_attention_fwd"]["prefill_rank"] = cases
+
+
+# K12 with its log-sum-exp at the per-rank decode shapes of phase 10e's
+# (2, 2) grid, whose model ranks each hold half of the cache's slots:
+# phi4-mini's (B 4 of 8, C 264 of 528, H 24 over 8 kv heads, D 128) in f32,
+# as 10e serves it, and in bf16, and recurrentgemma-9b's local layer (B 4,
+# C 264, H 16 over 1, D 256, bf16: the 64-slot tiles).  Row 0 holds its
+# first half of the slots, row 1 none (its lane reaches no slot: out
+# exactly 0, lse -1e30), row 2 all of them, row 3 its second half.
+DECODE_LSE_CASES = (("phi4-mini rank f32", 24, 8, 128, "float32"),
+                    ("phi4-mini rank bf16", 24, 8, 128, "bfloat16"),
+                    ("recurrentgemma-9b rank bf16", 16, 1, 256, "bfloat16"))
+DECODE_LSE_SHAPE = (4, 264)  # rows, slots
+
+
+def check_decode_lse(records, rng):
+    """K12's ``with_lse`` against its plain version (decode_split_ref at the
+    kernel's chunk, decode_combine_ref with_lse) at DECODE_LSE_CASES: out
+    within the kernel's tolerance, lse within TOL_F32, the empty row's out
+    exactly 0 and lse -1e30; then the phi4-mini f32 case timed in turns
+    with the kernel without its lse, the plain version and SDPA, beside its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    dev = torch.device("cuda")
+    b, c = DECODE_LSE_SHAPE
+    k_pos = np.full((b, c), -1, np.int32)
+    k_pos[0, :c // 2] = np.arange(c // 2)
+    k_pos[2] = np.arange(c)
+    k_pos[3, c // 2:] = np.arange(c // 2)
+    k_seg = np.where(k_pos >= 0, 0, -1).astype(np.int32)
+    q_pos = np.array([[c // 2], [5], [c], [c // 2]], np.int32)
+    q_seg = np.zeros((b, 1), np.int32)
+    qp, kp, qs, ks = (torch.from_numpy(a).to(dev) for a in (q_pos, k_pos, q_seg, k_seg))
+    errs = []
+    for label, h, kvh, d, dtype_name in DECODE_LSE_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(dev, dtype)
+                   for sh in ((b, 1, h, d), (b, c, kvh, d), (b, c, kvh, d)))
+        tile, chunk, ns = fd._plan(b, 1, h, kvh, c, d, q.device)
+        out, lse = fd.flash_decode(q, k, v, qp, kp, qs, ks, with_lse=True)
+        parts = fd.decode_split_ref(q, k, v, qp, kp, qs, ks, causal=True, window=0, chunk=chunk)
+        want, wlse = fd.decode_combine_ref(*parts, dtype, with_lse=True)
+        tol = TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32
+        print(f"  K12 with lse, {label} (B={b} C={c} H={h}/{kvh} D={d}): tile={tile} "
+              f"chunk={chunk} splits={ns}", flush=True)
+        errs.append(check_close(f"{label} out (lse run)", out, want, tol))
+        errs.append(check_close(f"{label} lse", lse, wlse, TOL_F32))
+        if not torch.equal(out, fd.flash_decode(q, k, v, qp, kp, qs, ks)):
+            fail(f"{label}: the out of the lse run differs from the run without it")
+        if not (out[1].abs().max() == 0 and bool((lse[1] == fd.NEG_INF).all())):
+            fail(f"{label}: the row that reaches no slot must give out 0 and lse -1e30")
+        if label != DECODE_LSE_CASES[0][0]:
+            continue
+        dmask = fa.attention_mask(qp, kp, qs, ks, causal=True)
+        pairs = int(dmask.sum()) * h
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+        vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+        amask = dmask[:, None]
+
+        def plain():
+            parts = fd.decode_split_ref(q, k, v, qp, kp, qs, ks, causal=True, window=0,
+                                        chunk=chunk)
+            return fd.decode_combine_ref(*parts, dtype, with_lse=True)
+
+        t = cuda_ms_interleaved({
+            "kernel": lambda: fd.flash_decode(q, k, v, qp, kp, qs, ks, with_lse=True),
+            "without_lse": lambda: fd.flash_decode(q, k, v, qp, kp, qs, ks),
+            "plain": plain,
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)})
+        kv_need = int(dmask.any(dim=1).sum()) * kvh * d * k.element_size() * 2
+        b_ms, b_by = bound(nbytes(q, qp, kp, qs, ks, out, lse) + kv_need, pairs * 4 * d,
+                           dtype_name)
+        # the kernel's own device time in a profiler trace, with and without
+        # its lse, against the event timer's (a graph replay's launch included)
+        alone = {name: kernel_alone_ms(fn, "decode_kernel") for name, fn in (
+            ("kernel", lambda: fd.flash_decode(q, k, v, qp, kp, qs, ks, with_lse=True)),
+            ("without_lse", lambda: fd.flash_decode(q, k, v, qp, kp, qs, ks)))}
+        shown = {n: "not measured" if a is None else f"{a:.6f}" for n, a in alone.items()}
+        print(f"  K12 with lse at {label} (ms): kernel={t['kernel']:.6f} without lse="
+              f"{t['without_lse']:.6f} plain={t['plain']:.6f} sdpa={t['sdpa']:.6f} "
+              f"bound={b_ms:.6f} ({b_by}); the kernel alone in a profiler trace: with lse "
+              f"{shown['kernel']}, without {shown['without_lse']}", flush=True)
+        records["flash_decode"]["lse"] = dict(
+            shape=label, ms=t["kernel"], without_lse_ms=t["without_lse"], plain_ms=t["plain"],
+            library_ms=t["sdpa"], bound_ms=b_ms, bound_by=b_by,
+            kernel_alone_ms=alone["kernel"], without_lse_alone_ms=alone["without_lse"])
+    records["flash_decode"]["lse"]["max_abs_err"] = max(errs)
 
 
 # ---------------------------------------------------------------------------
@@ -683,6 +862,14 @@ def device_profile(fn, cpu=False):
         return (None, 0, []) if cpu else device_profile(fn, cpu=True)
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def kernel_alone_ms(fn, kernel: str, n: int = 50):
+    """The mean device time of the kernels whose name holds ``kernel`` over
+    ``n`` fn() calls in one profiler trace (the launches' gaps left out), or
+    None where the profiler saw no such kernel."""
+    rows = [r for r in device_profile(lambda: [fn() for _ in range(n)])[2] if kernel in r[0]]
+    return sum(r[1] for r in rows) / sum(r[2] for r in rows) if rows else None
 
 
 def graph_kernels(fn):
@@ -2679,8 +2866,9 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     overrides, the single-card run's, each step's fresh flag, whether the
     single-card loss splits each group over the ranks' rows):
     rank 0 first runs the single-card microbatch steps from the same weights
-    on the same batches (its step-1 update and state kept on the host);
-    then every rank runs the data-parallel steps, the launch counts held per
+    on the same batches (its step-1 update and state kept on the host),
+    while the other ranks first use the card (one single-card step of the
+    first run); then every rank runs the data-parallel steps, the launch counts held per
     step (``dp_counts``), the params checked bit-identical across the ranks
     after every step, and rank 0 holds the run against the single-card one
     within DP_TOL (compare_plans).  Writes its counts, walls,
@@ -2718,7 +2906,7 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
     def params():
         return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
 
-    for run, name, mesh_opt, single_opt, fresh, split in runs:
+    for i_run, (run, name, mesh_opt, single_opt, fresh, split) in enumerate(runs):
         ref = None
         if rank == 0:
             rc = plan_config(cfg, "fused", name=name, **single_opt)
@@ -2737,6 +2925,12 @@ def dp_rank(rank, world, init, out_dir, global_batch, runs):
                     del w0
             ref = (hist, first)
             del state, step
+            torch.cuda.empty_cache()
+        elif i_run == 0:  # the first use of the card (context, libraries, kernels) meanwhile:
+            rc = plan_config(cfg, "fused", name=name, **single_opt)  # cold, it held the first
+            state = init_state(rc, params=params(), device=dev)  # mesh step ~12 s (PERF.md)
+            make_train_step(rc, log_gsnr=True, device=dev)[0](state, batches[0], fresh[0])
+            del state
             torch.cuda.empty_cache()
         barrier()
         dc = plan_config(cfg, "fused", name=name, **mesh_opt)
@@ -2821,30 +3015,31 @@ def dp_axis_runs(world, runs):
 # VR-LAMB steps of each 10b and 10c run: two since phase 10d came in (three
 # before), to keep the script's wall (PERF.md)
 DP_STEPS = 2
-DP_GROUPS = (
-    (2, 64, "data_axis GSNR (k = 2)",
-     dp_axis_runs(2, (("vr_lamb", DP_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1)))),
-    (4, 128, "data_axis GSNR (k = 4)", dp_axis_runs(4, (("vr_lamb", DP_STEPS),))),
-)
 # Phase 10c: the microbatch source at k = 4 (each microbatch spread over the
 # ranks), stale steps, the vmap method and a baseline, against the
-# single-card runs of the same method at k = 4.
+# single-card runs of the same method at k = 4.  Its runs go in 10b's two
+# ranks, after their data-axis runs (a group of their own until phase 10e
+# came in: a group's spawn and first use of the card cost ~15 s; PERF.md).
 DP_PATHS_K = 4
-DP_PATH_GROUPS = (
-    (2, 64, f"microbatch GSNR (k = {DP_PATHS_K}, each microbatch over the ranks)", (
-        ("vr_lamb", "vr_lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,) * DP_STEPS,
-         True),
-        ("vr_adam refresh 2", "vr_adam", {"k": DP_PATHS_K, "gsnr_refresh": 2},
-         {"k": DP_PATHS_K, "gsnr_refresh": 2}, (True, False, True), True),
-        ("vr_lamb vmap", "vr_lamb", {"k": DP_PATHS_K, "stats_method": "vmap"},
-         {"k": DP_PATHS_K, "stats_method": "vmap"}, (True,), True),
-        ("lamb", "lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,), True),
-    )),
+DP_PATH_RUNS = (
+    ("vr_lamb k4", "vr_lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,) * DP_STEPS, True),
+    ("vr_adam refresh 2", "vr_adam", {"k": DP_PATHS_K, "gsnr_refresh": 2},
+     {"k": DP_PATHS_K, "gsnr_refresh": 2}, (True, False, True), True),
+    ("vr_lamb vmap", "vr_lamb", {"k": DP_PATHS_K, "stats_method": "vmap"},
+     {"k": DP_PATHS_K, "stats_method": "vmap"}, (True,), True),
+    ("lamb", "lamb", {"k": DP_PATHS_K}, {"k": DP_PATHS_K}, (True,), True),
+)
+DP_GROUPS = (
+    (2, 64, f"data_axis GSNR (k = 2), then (10c) microbatch GSNR (k = {DP_PATHS_K}, each "
+     "microbatch over the ranks)",
+     dp_axis_runs(2, (("vr_lamb", DP_STEPS), ("vr_adam", 1), ("vr_lars", 1), ("vr_sgd", 1)))
+     + DP_PATH_RUNS),
+    (4, 128, "data_axis GSNR (k = 4)", dp_axis_runs(4, (("vr_lamb", DP_STEPS),))),
 )
 DP_DEADLINE_S = 600.0
 
 
-def phase_train_dp(records, groups, tag):
+def phase_train_dp(records):
     """10b (``DP_GROUPS``): data-parallel bert-large at full width (depth
     CUT_LAYERS) on the
     card, every rank a process sharing the card over gloo (NCCL refuses two
@@ -2854,7 +3049,7 @@ def phase_train_dp(records, groups, tag):
     microbatch steps.  Four ranks at global batch 128, whose row shards pad
     the layout (10,710 blocks at 2 layers): two VR-LAMB steps against
     single-card k=4.
-    10c (``DP_PATH_GROUPS``): two ranks at global batch 64 with the
+    10c (``DP_PATH_RUNS``, in 10b's two ranks): the
     microbatch source at k = 4 (8 sequences per rank per microbatch): two
     VR-LAMB steps, VR-Adam with gsnr_refresh 2 (fresh, stale, fresh), one
     vmap VR-LAMB step and one LAMB step, against the single-card k = 4
@@ -2866,8 +3061,8 @@ def phase_train_dp(records, groups, tag):
 
     cfg = cut_train_config()
     path_counts = {}
-    for world, batch, source, runs in groups:
-        print(f"[train dp {tag}] {cfg.model.name} at full width, depth cut to "
+    for world, batch, source, runs in DP_GROUPS:
+        print(f"[train dp 10b+c] {cfg.model.name} at full width, depth cut to "
               f"{cfg.model.n_layers} layers, "
               f"{world} gloo ranks on one card, global batch {batch} ({batch // world} sequences "
               f"per rank), seq {cfg.seq_len}, fused plan, {source}: "
@@ -3657,8 +3852,13 @@ def grid_rank(rank, init, out_dir):
                "whole": whole, "peak_bytes": peak,
                "one_card_peak_bytes": one_card_peak, "collectives": bert_collectives,
                "coords": mesh.coords, "tokens": GRID_BATCH * cfg.seq_len, "gaps": gaps}
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    # written whole under another name, then renamed: the parent reads it
+    # as soon as the name appears, while this rank serves on
+    part = os.path.join(out_dir, f"rank{rank}.json.part")
+    with open(part, "w") as f:
         json.dump(summary, f)
+    os.replace(part, os.path.join(out_dir, f"rank{rank}.json"))
+    serve_grid(rank, mesh, dev, out_dir)  # phase 10e, in these warm ranks
     mesh.close()
 
 
@@ -3793,12 +3993,32 @@ def hold_grid(label, hist, first, ref, layout, tol, tol_leaf, witnesses=(), f32=
     return out
 
 
+def wait_for_files(ctx, paths, deadline_s):
+    """Wait until every one of ``paths`` exists while the ranks of
+    ``ctx`` (launch/mesh.py::start_ranks) run on: a rank that died fails
+    the wait with its error, and so does the deadline (every rank killed).
+    A rank writes each path whole under another name and renames it, so a
+    path that exists is complete."""
+    from repro_torch.launch.mesh import wait_ranks
+
+    end = time.monotonic() + deadline_s
+    while not all(os.path.exists(p) for p in paths):
+        if not all(p.is_alive() for p in ctx.processes):
+            wait_ranks(ctx, 10.0)  # raises the rank's error
+            raise RuntimeError("a rank ended before it wrote its results")
+        if time.monotonic() > end:
+            wait_ranks(ctx, 0.0)  # kills the ranks, raises TimeoutError
+        time.sleep(0.2)
+
+
 def phase_train_grid(records):
     """10d: FSDP+TP of bert-large's weights on a (2, 2) grid (module
-    docstring)."""
+    docstring).  Its four ranks go on to serve phase 10e once they have
+    written their results (``serve_grid``): returns (their handle, out_dir)
+    for phase_serve_grid."""
     import tempfile
 
-    from repro_torch.launch.mesh import local_init_method, run_ranks
+    from repro_torch.launch.mesh import local_init_method, start_ranks, wait_ranks
 
     cfg = cut_train_config(GRID_BATCH)
     d, mm = GRID_SHAPE
@@ -3812,18 +4032,30 @@ def phase_train_grid(records):
           f"{', '.join(GRID_BLOCKS)} at seq {GRID_BLOCKS_SEQ} (GRID_BLOCKS)", flush=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
+    ctx = start_ranks(grid_rank, d * mm, args=(local_init_method(), out))
     try:
-        run_ranks(grid_rank, d * mm, args=(local_init_method(), out),
-                  deadline_s=GRID_DEADLINE_S)
+        wait_for_files(ctx, [os.path.join(out, f"rank{r}.json") for r in range(d * mm)],
+                       GRID_DEADLINE_S)
     except Exception as e:  # a rank failed, died or hung: the phase fails
         fail(f"grid of {d * mm} ranks: {type(e).__name__}: {e}")
     ranks = []
     for r in range(d * mm):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    shutil.rmtree(out)
     print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, init, the one-card run and "
           "the checks included)", flush=True)
+    try:
+        path_counts = _print_train_grid(ranks)
+    except BaseException:  # the serving ranks go too
+        wait_ranks(ctx, 0.0)
+        raise
+    add_path(records, "train_grid", path_counts)
+    return ctx, out
+
+
+def _print_train_grid(ranks):
+    """Phase 10d's report of its ranks' results; returns the launches
+    summed over them by kernel."""
     path_counts = {}
     for r, res in enumerate(ranks):
         h, w = res["held"], res["whole"]
@@ -3910,7 +4142,399 @@ def phase_train_grid(records):
           f"{max(res['blocks_wall'] for res in ranks):.1f} s, of which the one-card runs, "
           f"each entry's on its holder and the ranks at once, "
           f"{max(res['blocks_ones_wall'] for res in ranks):.1f} s ({smi})", flush=True)
-    add_path(records, "train_grid", path_counts)
+    return path_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10e: sharded serving on the (data, model) grid
+# ---------------------------------------------------------------------------
+
+# Phase 10e: two decoder configs at published width served on a (2, 2) grid
+# of four gloo ranks on the card (models/transformer.py::prefill_grid,
+# decode_step_grid through serve/engine.py::Engine on each rank's
+# GridParams): the weights placed by the reference's rules, the caches by
+# its cache rule (each model rank holds its data rows' cache for half the
+# slots, every kv head), K1 on each rank's prefill, K12 with its lse on
+# each rank's slots, merged over the model axis.  phi4-mini-3.8b
+# (arXiv:2412.08905; GQA 24/8, head dim 128, vocab 200,064) in f32 (its
+# weights f32, as phase 6b serves it), depth cut to 2 of 32 layers, ragged
+# prompts of 64-512 tokens (the 64-token row leaves model rank 1's slots
+# empty in the first decode steps); recurrentgemma-9b (arXiv:2402.19427;
+# MQA 16/1, head dim 256, window 2048) in bf16, one pattern group (rec,
+# rec, local), prompts of 512.  Batch 8, 8 new tokens, a 528-slot cache.
+# Label -> (arch, compute dtype, layers, ragged prompts, new tokens of one
+# Engine.generate call on the grid besides the teacher-forced steps, or
+# None: that call drives the user's entry point once, on phi4-mini, whose
+# f32 tokens are held).
+GRID_SERVE = {"phi4-mini-3.8b": ("phi4-mini-3.8b", "float32", 2, True, 1),
+              "recurrentgemma-9b": ("recurrentgemma-9b", "bfloat16", 3, False, None)}
+GRID_SERVE_SHAPE = (8, 512, 8)  # batch, prompt, new tokens
+GRID_SERVE_CACHE = 528
+GRID_SERVE_DEADLINE_S = 300.0
+# Phase 10e runs in phase 10d's four ranks, whose card, libraries and gloo
+# groups are warm (a group of its own spent ~10-25 s reaching its first
+# config: PERF.md): each goes on to serve once it has written its 10d
+# results.
+# The holds.  The grid and one card run the same teacher-forced steps (the
+# one-card run's greedy tokens fed to both).  In bf16 the logits hold to
+# SERVE_GATE at every step, as the fused plan against the plain one.  In f32
+# they differ only in the order of the sums (the row products summed over
+# the model axis, the logits over the data axis, the attention merged from
+# the slot halves), a perturbation of the size of one f32 ulp of the
+# weights: the bound is GRID_SERVE_F32_FACTOR x the largest logit gap of the
+# witness, the one-card run with every weight one ulp away (nudge_params),
+# and a greedy token must be the one-card run's wherever that run's top-2
+# margin exceeds the bound.  Each rank's cache blocks (k, v, kpos, kseg,
+# fill, h, conv) against their slices of the one-card cache: the integers
+# equal, the floats within the same bound (bf16: SERVE_GATE).
+GRID_SERVE_F32_FACTOR = 10.0
+
+
+def grid_serve_config(arch, dtype, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_layers=layers))
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel, compute_dtype=dtype))
+
+
+def grid_serve_prompts(cfg, ragged):
+    """(prompts (B, S), lens (B,)): seeded tokens; ragged lengths in
+    [64, S] with one row of 64 and one of S, else all S."""
+    b, s, _ = GRID_SERVE_SHAPE
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.model.vocab_size, size=(b, s))
+    lens = np.full(b, s, np.int32)
+    if ragged:
+        lens = rng.integers(64, s + 1, size=b).astype(np.int32)
+        lens[0], lens[1] = s, 64
+    return prompts, lens
+
+
+def serve_chain(eng, prompts, lens, forced, mesh=None, timed=()):
+    """The engine's teacher-forced run on its rows: the prefill, then one
+    decode step per column of ``forced`` (B, n) -> (f32 logits (rows, n +
+    1, V) on the host, the cache, prefill ms, decode ms per step; host
+    clock, the card synchronized).  The decode steps in ``timed`` run with
+    ``mesh.timed`` (each collective's wall recorded)."""
+    import torch
+
+    dev = eng.device
+    rows = eng.rows(len(prompts))
+    p, ln = prompts[rows], lens[rows]
+    ar = np.arange(p.shape[1])[None, :]
+    positions = torch.as_tensor(np.where(ar < ln[:, None], ar, -1).astype(np.int32), device=dev)
+    toks = torch.as_tensor(p, device=dev)
+    gidx = torch.as_tensor((ln - 1)[:, None], device=dev)
+    feed = torch.as_tensor(forced[rows], device=dev)
+    with torch.no_grad():
+        (logits, cache), prefill_ms = host_ms(
+            lambda: eng._prefill(toks, positions=positions, gather_idx=gidx))
+        out, walls = [logits[:, -1].float().cpu()], []
+        pos = torch.as_tensor(ln, device=dev)
+        for t in range(feed.shape[1]):
+            if mesh is not None:
+                mesh.timed = t in timed
+            (logits, cache), ms = host_ms(lambda: eng._decode(cache, feed[:, t:t + 1], pos))
+            out.append(logits[:, -1].float().cpu())
+            walls.append(ms)
+            pos = pos + 1
+    return torch.stack(out, 1), cache, prefill_ms, walls
+
+
+def nudge_params(params, seed):
+    """A copy of a params tree with every nonzero weight one f32 ulp up or
+    down (a seeded coin each)."""
+    import torch
+
+    from repro_torch.core.layout import tree_map
+
+    gen = None
+
+    def one(t):
+        nonlocal gen
+        gen = gen or torch.Generator(device=t.device).manual_seed(seed)
+        up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+        far = torch.where(up, float("inf"), float("-inf")).to(t.dtype)
+        return torch.where(t != 0, torch.nextafter(t, far), t)
+
+    return tree_map(one, params)
+
+
+def _cpu_tree(tree):
+    from repro_torch.core.layout import tree_map
+
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def serve_grid(rank, mesh, dev, out_dir):
+    """One rank of phase 10e's (2, 2) grid on card 0 (gloo).  For each
+    GRID_SERVE config: rank 0 runs the one-card Engine.generate, its
+    teacher-forced steps and (f32) the witness's, while the other ranks
+    wait; the one-card tokens are broadcast; every rank draws the weights,
+    keeps its blocks and runs the teacher-forced steps (launches held: K1
+    once a layer in the prefill, K12 once a layer a decode step) and, where
+    the config says, Engine.generate on the grid.  Writes what the holds
+    read to out_dir (serve{r}.pt, one_card.pt, marks0.pt)."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine
+    from repro_torch.train.trainer import grid_params
+
+    t_start = time.perf_counter()
+    b, s, new = GRID_SERVE_SHAPE
+    res, ones = {"coords": dict(mesh.coords)}, {}
+    marks = {}
+    for label, (arch, dtype, layers, ragged, n_gen) in GRID_SERVE.items():
+        cfg = grid_serve_config(arch, dtype, layers)
+        m = cfg.model
+        n_attn = sum(k in ("attn", "swa", "local") for k in m.pattern_layers())
+        prompts, lens = grid_serve_prompts(cfg, ragged)
+
+        def params():
+            return init_params(m, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+        tokens = torch.zeros((b, new), dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            w = params()
+            eng = Engine(cfg, w, cache_len=GRID_SERVE_CACHE, device=dev)
+            gen = eng.generate(prompts, new, prompt_lens=lens)
+            logits, cache, pre_ms, walls = serve_chain(eng, prompts, lens, gen.tokens)
+            one = {"tokens": gen.tokens, "logprobs": gen.logprobs, "logits": logits,
+                   "cache": _cpu_tree(cache), "prefill_ms": pre_ms, "decode_ms": walls,
+                   "cache_bytes": sum(t.numel() * t.element_size() for t in _leaves(cache)),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            del eng, cache
+            if dtype == "float32":
+                weng = Engine(cfg, nudge_params(w, WITNESS_SEED), cache_len=GRID_SERVE_CACHE,
+                              device=dev)
+                one["witness_gap"] = float((serve_chain(weng, prompts, lens, gen.tokens)[0]
+                                            - logits).abs().max())
+                del weng
+            ones[label] = one
+            tokens.copy_(torch.as_tensor(gen.tokens))
+            del w
+        torch.cuda.empty_cache()
+        mesh.broadcast_(tokens, 0)  # also the barrier after rank 0's one-card runs
+        one_card_s = time.perf_counter() - t0
+        forced = tokens.cpu().numpy()
+        gp = grid_params(cfg, params(), mesh, dev)[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        marks[f"{label} params"] = time.perf_counter() - t0
+        eng = Engine(cfg, gp, cache_len=GRID_SERVE_CACHE, device=dev)
+        reset_counts()
+        mesh.walls = {}  # the collectives of the last half of the decode steps
+        logits, cache, pre_ms, walls = serve_chain(eng, prompts, lens, forced, mesh,
+                                                   range(new // 2, new))
+        mesh.timed = False
+        marks[f"{label} chain"] = time.perf_counter() - t0
+        chain_counts = read_counts()
+        want = {"flash_attention_fwd": n_attn, "flash_decode": n_attn * new}
+        want.update({k: 0 for k in chain_counts if k not in want})
+        if chain_counts != want:
+            raise RuntimeError(f"{label} rank {rank}: launches {chain_counts} != {want}")
+        gen, gen_ms, gen_counts = None, None, {k: 0 for k in chain_counts}
+        if n_gen is not None:
+            reset_counts()
+            gen, gen_ms = host_ms(lambda: eng.generate(prompts, n_gen, prompt_lens=lens))
+            gen_counts = read_counts()
+            want = {**want, "flash_decode": n_attn * n_gen}
+            if gen_counts != want:
+                raise RuntimeError(f"{label} rank {rank}: generate's launches {gen_counts} != "
+                                   f"{want}")
+        res[label] = {
+            "logits": logits, "cache": _cpu_tree(cache), "prefill_ms": pre_ms,
+            "decode_ms": walls, "generate": gen, "generate_ms": gen_ms,
+            "counts": {k: chain_counts[k] + gen_counts[k] for k in chain_counts},
+            "cache_bytes": sum(t.numel() * t.element_size() for t in _leaves(cache)),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "one_card_s": one_card_s,
+            "vocab_blocks": eng.placement.vocab_blocks,
+            "collectives": {f"{k} {b / 2**20:.2f} MiB": v for (k, b), v in mesh.walls.items()}}
+        del eng, gp, cache, logits
+        torch.cuda.empty_cache()
+        marks[f"{label} done"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(res, os.path.join(out_dir, f"serve{rank}.pt"))
+    if rank == 0:
+        torch.save(ones, os.path.join(out_dir, "one_card.pt"))
+    marks["save"] = time.perf_counter() - t0
+    marks["total"] = time.perf_counter() - t_start
+    torch.save(marks, os.path.join(out_dir, f"marks{rank}.pt"))
+
+
+def _tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in tree for kv in _tree_items(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _tree_items(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def hold_serve_grid(label, cfg, n_gen, ranks, one, smi):
+    """Phase 10e's holds of one config (GRID_SERVE_F32_FACTOR's note);
+    returns the gaps printed."""
+    import torch
+
+    from repro_torch.sharding.placement import block_slices, shard_shape
+    from repro_torch.models.transformer import cache_specs
+    from repro_torch.sharding.rules import MeshShape, Rules
+
+    b, s, new = GRID_SERVE_SHAPE
+    f32 = cfg.parallel.compute_dtype == "float32"
+    rows = b // GRID_SHAPE[0]
+    want = one["logits"]
+    got = torch.zeros_like(want)
+    for res in ranks:
+        i = res["coords"]["data"]
+        r = res[label]
+        if not r["vocab_blocks"]:
+            fail(f"{label}: the grid gathered the embedding table or the head")
+        if res["coords"]["model"] == 0:
+            got[i * rows:(i + 1) * rows] = r["logits"]
+        elif not torch.equal(r["logits"], got[i * rows:(i + 1) * rows]):
+            fail(f"{label}: the model ranks of data row {i} hold different logits")
+    gap = (got - want).abs()
+    out = {"max": float(gap.max()), "mean": float(gap.mean())}
+    if f32:
+        tol = GRID_SERVE_F32_FACTOR * one["witness_gap"]
+        out.update(witness=one["witness_gap"], bound=tol)
+        print(f"  {label} (f32; {smi}): teacher-forced logits, all {new + 1} steps: max |grid - "
+              f"one card| {out['max']:.3e}, mean {out['mean']:.3e}; the one-ulp witness's max "
+              f"{one['witness_gap']:.3e}; bound {GRID_SERVE_F32_FACTOR:g} x witness = "
+              f"{tol:.3e}", flush=True)
+        if out["max"] > tol:
+            fail(f"{label}: the grid's f32 logits lie {out['max']:.3e} from one card's, past "
+                 f"{tol:.3e}")
+        top2 = torch.topk(want[:, :new], 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol
+        choice = got[:, :new].argmax(-1).numpy()
+        wrong = clear.numpy() & (choice != one["tokens"])
+        print(f"  {label}: greedy tokens equal one card's at {int(clear.sum())} of {b * new} "
+              f"steps whose one-card top-2 margin exceeds the bound; "
+              f"{int((choice != one['tokens']).sum())} differ in all", flush=True)
+        if wrong.any():
+            fail(f"{label}: the grid's greedy token differs where the margin is clear")
+    else:
+        tol = None
+        check_logits(f"{label} grid vs one card, teacher-forced, all {new + 1} steps,", got,
+                     want)
+    specs = cache_specs(cfg.model, cfg.parallel, Rules(mesh=MeshShape(GRID_SHAPE,
+                                                                      ("data", "model"))),
+                        b, GRID_SERVE_CACHE)
+    sizes = dict(zip(("data", "model"), GRID_SHAPE))
+    whole = dict(_tree_items(one["cache"]))
+    spec_of = dict(_tree_items(specs))
+    worst = 0.0
+    for res in ranks:
+        for path, blk in _tree_items(res[label]["cache"]):
+            sp = spec_of[path]
+            w = whole[path][block_slices(shard_shape(whole[path].shape, sp, sizes), sp,
+                                         res["coords"], sizes)]
+            if blk.shape != w.shape:
+                fail(f"{label} rank {res['coords']} {path}: block {tuple(blk.shape)}, the "
+                     f"rule's slice {tuple(w.shape)}")
+            if not blk.is_floating_point():
+                if not torch.equal(blk, w):
+                    fail(f"{label} rank {res['coords']} {path}: not the one-card slice")
+                continue
+            d = (blk.float() - w.float()).abs()
+            worst = max(worst, float(d.max()))
+            bad = float(d.max()) > tol if f32 else not (
+                float(d.max()) <= SERVE_GATE["max"] and float(d.mean()) <= SERVE_GATE["mean"])
+            if bad:
+                fail(f"{label} rank {res['coords']} {path}: {float(d.max()):.3e} from the "
+                     "one-card slice")
+    out["cache"] = worst
+    print(f"  {label}: every rank's cache blocks are the rule's slices of the one-card cache "
+          f"(integers equal, floats within {worst:.3e})", flush=True)
+    if n_gen is None:
+        return out
+    gen, n = ranks[0][label]["generate"], n_gen
+    if any(res[label]["generate"] is not None for res in ranks[1:]):
+        fail(f"{label}: a rank other than 0 returned a generation result")
+    if gen.tokens.shape != (b, n) or not np.isfinite(gen.logprobs).all() or not (
+            (gen.tokens >= 0) & (gen.tokens < cfg.model.vocab_size)).all():
+        fail(f"{label}: the grid's generate returned {gen.tokens.shape} tokens / non-finite "
+             "logprobs / out-of-vocabulary tokens")
+    if f32:
+        top2 = torch.topk(want[:, :n], 2, dim=-1).values
+        clear = ((top2[..., 0] - top2[..., 1]) > tol).numpy()
+        if (clear & (gen.tokens != one["tokens"][:, :n])).any():
+            fail(f"{label}: the grid's generate chose another token where the margin is clear")
+    return out
+
+
+def phase_serve_grid(records, grid):
+    """10e: sharded serving on a (2, 2) grid (GRID_SERVE's note), in phase
+    10d's ranks, which serve once their 10d results are written (``grid``:
+    phase_train_grid's return)."""
+    import torch
+
+    from repro_torch.launch.mesh import wait_ranks
+
+    b, s, new = GRID_SERVE_SHAPE
+    d, mm = GRID_SHAPE
+    cfgs = ", ".join(f"{k} ({v[1]}, {v[2]} layers)" for k, v in GRID_SERVE.items())
+    print(f"[serve grid 10e] {cfgs} at published width on a ({d}, {mm}) (data, model) grid "
+          f"of {d * mm} gloo ranks on one card: batch {b}, prompt {s}, {new} new tokens, a "
+          f"{GRID_SERVE_CACHE}-slot cache", flush=True)
+    t0 = time.perf_counter()
+    ctx, out = grid
+    try:
+        wait_ranks(ctx, GRID_SERVE_DEADLINE_S)
+    except Exception as e:  # a rank failed, died or hung: the phase fails
+        fail(f"serving grid of {d * mm} ranks: {type(e).__name__}: {e}")
+    ranks = [torch.load(os.path.join(out, f"serve{r}.pt"), weights_only=False)
+             for r in range(d * mm)]
+    ones = torch.load(os.path.join(out, "one_card.pt"), weights_only=False)
+    marks = torch.load(os.path.join(out, "marks0.pt"))
+    shutil.rmtree(out)
+    print(f"  serving wall {marks['total']:.1f} s (rank 0's, from its 10d results written to "
+          f"its serving results saved, the one-card runs included; the parent waited "
+          f"{time.perf_counter() - t0:.1f} s after 10d's report, the ranks' exit included); "
+          f"rank 0's marks (s from the "
+          f"start of its config): { {k: round(v, 1) for k, v in marks.items()} }", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    path_counts, summary = {}, {}
+    for label, (arch, dtype, layers, ragged, n_gen) in GRID_SERVE.items():
+        cfg = grid_serve_config(arch, dtype, layers)
+        one = ones[label]
+        for r, res in enumerate(ranks):
+            run = res[label]
+            for k, c in run["counts"].items():
+                path_counts[k] = path_counts.get(k, 0) + c
+            print(f"  {label} rank {r} {res['coords']} (gloo on one card, no claim of speed; "
+                  f"{smi}): prefill {run['prefill_ms']:.1f} ms, decode steps (ms) "
+                  f"{', '.join(f'{w:.1f}' for w in run['decode_ms'])}"
+                  + ("" if n_gen is None else
+                     f"; generate of {n_gen} tokens {run['generate_ms']:.1f} ms")
+                  + "; launches "
+                  f"{ {k: c for k, c in run['counts'].items() if c} }; peak "
+                  f"{run['peak_bytes'] / 2**30:.3f} GiB; cache {run['cache_bytes'] / 2**20:.2f} "
+                  f"MiB = {run['cache_bytes'] / one['cache_bytes']:.4f} of one card's "
+                  f"{one['cache_bytes'] / 2**20:.2f} MiB; rank 0's one-card runs and the "
+                  f"others' first use {run['one_card_s']:.1f} s", flush=True)
+        coll = sorted(ranks[0][label]["collectives"].items(), key=lambda kv: -kv[1][0])
+        print(f"  {label} rank 0's collectives over the last {new - new // 2} decode steps "
+              f"(host clock, card synchronized; the largest of {len(coll)} kinds by wall): "
+              + "; ".join(f"{k}: {v[0]:.1f} ms over {v[1]} calls" for k, v in coll[:8]),
+              flush=True)
+        print(f"  {label} one card: prefill {one['prefill_ms']:.1f} ms, decode steps (ms) "
+              f"{', '.join(f'{w:.1f}' for w in one['decode_ms'])}; peak "
+              f"{one['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        summary[label] = hold_serve_grid(label, cfg, n_gen, ranks, one, smi)
+        summary[label].update(
+            prefill_ms=[res[label]["prefill_ms"] for res in ranks],
+            decode_ms=[float(np.mean(res[label]["decode_ms"])) for res in ranks],
+            peak_gib=[res[label]["peak_bytes"] / 2**30 for res in ranks],
+            cache_share=[res[label]["cache_bytes"] / one["cache_bytes"] for res in ranks])
+    print(f"[serve grid] {json.dumps(summary)}", flush=True)
+    add_path(records, "serve_grid", path_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -5053,7 +5677,8 @@ def phase_dlrm(records):
 # ---------------------------------------------------------------------------
 
 # (a) runs the five ported benches (repro_torch/benchmarks) with the
-# reference's fast protocol on the card (the full protocol is
+# reference's fast protocol on the card, linreg's and gengap's points at
+# BENCH_STEPS steps (the full protocol is
 # ``python -m repro_torch.benchmarks.run``); (b) one point of each on the
 # fused and the reference plan, each step's launches held.  Stated
 # tolerances between the plans: the f32 benches (linreg, cifar, dlrm) take
@@ -5066,6 +5691,9 @@ def phase_dlrm(records):
 # eval losses within 2e-3 relative.
 BENCH_TOL = {"f32": 1e-4, "bf16": 2e-3, "acc_samples": 2, "auc": 1e-3}
 BENCH_POINT_STEPS = 5
+# (a)'s steps a point where the fast protocol's are cut, to keep the
+# script's wall (the protocol's 100 and 60 until phase 10e came in: PERF.md)
+BENCH_STEPS = {"bench_linreg": 40, "bench_gengap": 10}
 
 
 def rel(a, b) -> float:
@@ -5107,6 +5735,9 @@ def phase_benches(records):
     for mod in (bench_linreg, bench_cifar_proxy, bench_bert_proxy, bench_gengap,
                 bench_dlrm_proxy):
         kw = {"record_path": record} if mod is bench_bert_proxy else {}
+        name = mod.__name__.rsplit(".", 1)[-1]
+        if name in BENCH_STEPS:
+            kw["steps"] = BENCH_STEPS[name]
         mod.main(fast=True, device=dev, **kw)
     with open(record) as f:
         ab = json.load(f)
@@ -5201,15 +5832,17 @@ def phase_benches(records):
 # phase 16: the other block kinds (MoE, RG-LRU, xLSTM, cross-attention)
 # ---------------------------------------------------------------------------
 
-# (a) whisper-small whole (12 + 12 layers, 1,500 frames a row) and (b)
-# xlstm-1.3b at full width on two of its six pattern groups (16 layers):
-# global batch, seq (k = 8 microbatches, the configs' VR-Adam at lr 1e-3
-# with no warm-up), OTHER_STEPS steps a run (xlstm XLSTM_STEPS); (d) one VR step of each MoE
-# smoke in its own compute dtype (bf16).  Held by hold_with_witness.
-OTHER_STEPS = 3
-WHISPER_TRAIN = dict(global_batch=32, seq_len=128)
-XLSTM_TRAIN = dict(global_batch=16, seq_len=64, n_layers=16)
-XLSTM_STEPS = 2  # OTHER_STEPS before phase 10d came in (PERF.md)
+# (a) whisper-small at published width, depth cut to 6 + 6 layers (1,500
+# frames a row; whole, 12 + 12, until phase 10e came in: PERF.md) and (b)
+# xlstm-1.3b at full width on one of its six pattern groups (8 layers; two
+# groups, 16, until phase 10e came in: PERF.md): global batch, seq (k = 8
+# microbatches, the configs' VR-Adam at lr 1e-3 with no warm-up),
+# OTHER_STEPS steps a run (whisper's three until phase 10e came in,
+# xlstm's three until phase 10d came in: PERF.md); (d) one VR step of each
+# MoE smoke in its own compute dtype (bf16).  Held by hold_with_witness.
+OTHER_STEPS = 2
+WHISPER_TRAIN = dict(global_batch=32, seq_len=128, n_layers=6)  # decoder and encoder each
+XLSTM_TRAIN = dict(global_batch=16, seq_len=64, n_layers=8)
 MOE_SMOKES = ("llama4-maverick-400b-a17b", "mixtral-8x22b")
 MOE_SMOKE_STEPS = 1
 # (c) served at full width: (arch, layers kept or None) through
@@ -5574,16 +6207,21 @@ def phase_other_train(records):
     from repro_torch.configs import get_config, get_smoke
 
     out, t0 = {}, time.perf_counter()
-    whisper = get_config("whisper-small").replace(**WHISPER_TRAIN)
-    out["whisper-small"] = train_other(records, "whisper-small", whisper, "flat_vr_adam",
-                                       "train whisper-small")
+    w = get_config("whisper-small")
+    n = WHISPER_TRAIN["n_layers"]
+    whisper = w.replace(global_batch=WHISPER_TRAIN["global_batch"],
+                        seq_len=WHISPER_TRAIN["seq_len"],
+                        model=dataclasses.replace(w.model, n_layers=n, encoder=dataclasses.replace(
+                            w.model.encoder, n_layers=n)))
+    out["whisper-small"] = train_other(records, f"whisper-small ({n} + {n} layers)", whisper,
+                                       "flat_vr_adam", "train whisper-small")
     xl = get_config("xlstm-1.3b")
     xl = xl.replace(global_batch=XLSTM_TRAIN["global_batch"], seq_len=XLSTM_TRAIN["seq_len"],
                     model=dataclasses.replace(xl.model, n_layers=XLSTM_TRAIN["n_layers"]))
     out["whisper-small"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["xlstm-1.3b"] = train_other(records, f"xlstm-1.3b ({xl.model.n_layers} layers)", xl,
-                                    "flat_vr_adam", "train xlstm-1.3b", steps=XLSTM_STEPS)
+                                    "flat_vr_adam", "train xlstm-1.3b")
     out["xlstm-1.3b"]["wall_s"] = time.perf_counter() - t0
     for arch in MOE_SMOKES:
         cfg = get_smoke(arch)
@@ -5978,9 +6616,9 @@ def main() -> None:
         timed("9", phase_train_optimizers, records)
         timed("10a", phase_spmd_kernels, records, layout)
         timed("7b", phase_norm_sums, records)
-        timed("10b", phase_train_dp, records, DP_GROUPS, "10b")
-        timed("10c", phase_train_dp, records, DP_PATH_GROUPS, "10c")
-        timed("10d", phase_train_grid, records)
+        timed("10b+c", phase_train_dp, records)
+        grid = timed("10d", phase_train_grid, records)  # its ranks then serve 10e
+        timed("10e", phase_serve_grid, records, grid)
         timed("12", phase_per_leaf, records, layout)
         torch.cuda.empty_cache()
         timed("14", phase_dlrm, records)

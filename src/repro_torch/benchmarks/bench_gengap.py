@@ -69,9 +69,11 @@ def run_point(cfg0, name, steps, pool, test_batches, *, k: int = K, state=None, 
     return tr, te, state
 
 
-def main(fast: bool = False, *, device=None, backend=None) -> None:
+def main(fast: bool = False, *, device=None, backend=None, steps: int = 0) -> None:
+    """The four points (LAMB, Momentum and their VR forms) at ``steps``
+    steps each: 0 takes the protocol's, 180 (60 ``fast``)."""
     t0 = time.time()
-    steps = 180 if not fast else 60
+    steps = steps or (180 if not fast else 60)
     cfg0 = config(BATCH, backend)
     pool, test_batches = pool_and_test()
     for base, vr in [("lamb", "vr_lamb"), ("momentum", "vr_momentum")]:

@@ -40,7 +40,10 @@
 //     the output elements between them, each reading every peer's partial
 //     through distributed shared memory, and write out (B, L, H, D) in the
 //     output dtype: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,
-//     exactly 0 where every split has l = 0.  A second cluster barrier
+//     exactly 0 where every split has l = 0.  With an `lse` pointer the
+//     leader block (cluster rank 0) also writes each row's log-sum-exp,
+//     M + log(sum_s e^(m_s - M) l_s), f32 (B, L, H), -1e30 where every
+//     split has l = 0 (K1's with_lse contract).  A second cluster barrier
 //     keeps each block's shared memory alive until its peers have read it.
 //     No partial reaches device memory, and no block returns early: every
 //     block of a cluster reaches both barriers.
@@ -212,8 +215,9 @@ template <typename T, int D, int BT, int RR>
 __global__ void __launch_bounds__(NT) decode_kernel(
     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
     const T* __restrict__ q, const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    const int* __restrict__ q_seg, const int* __restrict__ k_seg, T* __restrict__ out, int L, int C,
-    int H, int KV, int causal, int window, float scale, int chunk) {
+    const int* __restrict__ q_seg, const int* __restrict__ k_seg, T* __restrict__ out,
+    float* __restrict__ lse, int L, int C, int H, int KV, int causal, int window, float scale,
+    int chunk) {
   using G = Geo<T, D, BT>;
   static_assert(RR <= RB, "a block holds at most RB rows");
   constexpr int SW = G::SW, VPL = G::VPL, EPC = G::EPC;
@@ -451,6 +455,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     const float ls = group_sum<MAX_SPLITS>(wt * l);
     coef[r][sp] = wt;
     if (sp == 0) lsum[r] = ls;
+    if (lse != nullptr && split == 0 && sp == 0 && r < rows) {
+      const int rr = rg * RB + r;
+      lse[((size_t)b * L + rr % L) * H + kvh * Gq + rr / L] = ls > 0.f ? M + logf(ls) : NEG_INF;
+    }
   }
   __syncthreads();
   for (int e = split * NT + tid; e < rows * D; e += ns * NT) {
@@ -490,6 +498,7 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, int B, int C, int KV, 
 struct Args {
   const void *q, *k, *v, *q_pos, *k_pos, *q_seg, *k_seg;
   void* out;
+  float* lse;
   int B, L, C, H, KV, causal, window;
   float scale;
   int chunk, splits;
@@ -542,8 +551,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&cfg, decode_kernel<T, D, BT, RR>, k_map, v_map,
                            static_cast<const T*>(a.q), static_cast<const int*>(a.q_pos),
                            static_cast<const int*>(a.k_pos), static_cast<const int*>(a.q_seg),
-                           static_cast<const int*>(a.k_seg), static_cast<T*>(a.out), a.L, a.C, a.H,
-                           a.KV, a.causal, a.window, a.scale, a.chunk);
+                           static_cast<const int*>(a.k_seg), static_cast<T*>(a.out), a.lse, a.L,
+                           a.C, a.H, a.KV, a.causal, a.window, a.scale, a.chunk);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -612,18 +621,19 @@ bool valid_plan(int L, int C, int H, int KV, int tile, int chunk, int splits) {
 }  // namespace
 
 // q (B,L,H,D) lanes, k/v (B,C,KV,D) cache, bf16 (is_bf16=1) or f32;
-// positions/segments int32 (B,L) and (B,C); out (B,L,H,D) in q's dtype.
+// positions/segments int32 (B,L) and (B,C); out (B,L,H,D) in q's dtype;
+// lse (B,L,H) f32, or null for none.
 // One launch: clusters of `splits` blocks, block s of a cluster taking
 // slots [s * chunk, (s + 1) * chunk) in tiles of `tile` slots; `splits` =
 // ceil(C / chunk) <= 8, chunk a multiple of tile (32 or 64).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* q_pos,
                             const void* k_pos, const void* q_seg, const void* k_seg, void* out,
-                            int B, int L, int C, int H, int KV, int D, int is_bf16, int causal,
+                            void* lse, int B, int L, int C, int H, int KV, int D, int is_bf16, int causal,
                             int window, float scale, int tile, int chunk, int splits,
                             void* stream) {
   if (B <= 0 || !valid_plan(L, C, H, KV, tile, chunk, splits)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, q_pos, k_pos, q_seg, k_seg, out, B, L, C, H, KV, causal, window, scale,
-               chunk, splits};
+  const Args a{q, k, v, q_pos, k_pos, q_seg, k_seg, out, static_cast<float*>(lse), B, L, C, H,
+               KV, causal, window, scale, chunk, splits};
   return dispatch(D, is_bf16, tile, rows_of(H, KV, L),
                   LaunchFn{a, static_cast<cudaStream_t>(stream)});
 }

@@ -9,6 +9,11 @@ row, kv head, row group) are the blocks of one thread-block cluster, each
 computes the (m, l, acc) partial of its chunk, and the cluster merges them
 in distributed shared memory.  ``decode_split_ref`` and
 ``decode_combine_ref`` state that split arithmetic in plain PyTorch.
+``with_lse=True`` also returns each lane's log-sum-exp (B, L, H) f32, the
+merge's M + log(sum_s e^(m_s - M) l_s): K1's ``with_lse`` contract, so
+that partial outputs over disjoint slot ranges (a cache split over the
+model axis of a grid, sharding/placement.py::Placement.merge_partials)
+merge into the whole cache's.
 
 EXPLICIT-SEGMENT CONTRACT: q_pos, k_pos, q_seg and k_seg are all required.
 The cache's kseg carries row-global segment numbering and a decode query
@@ -39,7 +44,7 @@ WIDE_D = 256  # built for 64-slot tiles only: a 32-slot ring cannot hold the war
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flash_decode": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _I, _P],
+    "flash_decode": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _I, _P],
     "flash_decode_active_clusters": [_I] * 10 + [ctypes.POINTER(_I)],
 }
 
@@ -117,16 +122,21 @@ def decode_split_ref(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal, window, chu
     return m.contiguous(), l.contiguous(), acc.contiguous()
 
 
-def decode_combine_ref(m, l, acc, dtype):
+def decode_combine_ref(m, l, acc, dtype, with_lse: bool = False):
     """The merge that a cluster does in distributed shared memory: the
     (B,H,L,NS) partials into out (B,L,H,D) in ``dtype``; exactly 0 where
-    every split has l == 0."""
+    every split has l == 0.  ``with_lse``: (out, lse (B,L,H) f32), lse =
+    M + log(sum_s e^(m_s - M) l_s), NEG_INF where every split has l == 0."""
     mmax = m.amax(dim=-1, keepdim=True)
     w = torch.exp(m - mmax)
     lsum = (w * l).sum(dim=-1)
     o = (w[..., None] * acc).sum(dim=-2)
     out = torch.where(lsum[..., None] > 0, o / lsum.clamp_min(1e-30)[..., None], 0.0)
-    return out.permute(0, 2, 1, 3).to(dtype)
+    out = out.permute(0, 2, 1, 3).to(dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(lsum > 0, mmax[..., 0] + torch.log(lsum.clamp_min(1e-30)), NEG_INF)
+    return out, lse.permute(0, 2, 1).contiguous()
 
 
 def _plan(b, lanes, h, kvh, c, d, device):
@@ -134,14 +144,19 @@ def _plan(b, lanes, h, kvh, c, d, device):
     return split_plan(b, kvh, (h // kvh) * lanes, c, device_info(device.index)[1], tiles)
 
 
-def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, window: int = 0):
-    """q: (B,L,H,D) decode lanes; k, v: (B,C,KV,D) paged cache -> (B,L,H,D).
+def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, window: int = 0,
+                 with_lse: bool = False):
+    """q: (B,L,H,D) decode lanes; k, v: (B,C,KV,D) paged cache -> (B,L,H,D),
+    or with ``with_lse`` (out, lse (B,L,H) f32; a lane that reaches no
+    valid slot: out exactly 0, lse NEG_INF).
 
     q_pos/q_seg: (B, L) int32 per-lane position / row-global segment (-1 =
     idle lane, gives exactly 0); k_pos/k_seg: (B, C) int32 per slot (-1 =
     empty).  All four are required.  On a CUDA tensor this launches the
     kernel (one launch, clusters of ``split_plan`` blocks) or raises; on a
-    CPU tensor it computes ``decode_attention_ref``."""
+    CPU tensor it computes ``decode_attention_ref``, or with ``with_lse``
+    the split arithmetic over the whole cache as one split
+    (``decode_split_ref``, ``decode_combine_ref``)."""
     if q_pos is None or k_pos is None or q_seg is None or k_seg is None:
         raise ValueError(
             "flash_decode: q_pos, k_pos, q_seg and k_seg are all required — "
@@ -153,6 +168,10 @@ def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, wi
     q_pos, q_seg = (as_rows(t, b, lanes, q.device) for t in (q_pos, q_seg))
     k_pos, k_seg = (as_rows(t, b, c, q.device) for t in (k_pos, k_seg))
     if q.device.type == "cpu":
+        if with_lse:
+            parts = decode_split_ref(q, k, v, q_pos, k_pos, q_seg, k_seg, causal=causal,
+                                     window=window, chunk=c)
+            return decode_combine_ref(*parts, q.dtype, with_lse=True)
         return decode_attention_ref(q, k, v, q_pos, k_pos, q_seg, k_seg,
                                     causal=causal, window=window)
     if q.device.type != "cuda":
@@ -164,16 +183,18 @@ def flash_decode(q, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, wi
         raise TypeError(f"flash_decode: head_dim {WIDE_D} is built for bf16, got {q.dtype}")
     tile, chunk, splits = _plan(b, lanes, h, kvh, c, d, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, lanes, h), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.library("flash_decode", _SIGNATURES)
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(), b, lanes, c, h, kvh, d,
+        q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, lanes, c, h, kvh, d,
         int(q.dtype == torch.bfloat16), int(causal), int(window), d**-0.5, tile, chunk, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def active_clusters(q, k) -> int:

@@ -56,12 +56,16 @@ def flash_attention(qh, k, v, q_pos=None, k_pos=None, *, q_seg=None, k_seg=None,
     return out.reshape(b, s, kvh, g, d)
 
 
-def flash_decode(qh, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, window: int = 0):
+def flash_decode(qh, k, v, q_pos, k_pos, q_seg, k_seg, *, causal: bool = True, window: int = 0,
+                 with_lse: bool = False):
     """qh (B,L,KV,G,D) lanes against a paged (B,C,KV,D) cache ->
-    (B,L,KV,G,D).  All four position/segment operands are required."""
+    (B,L,KV,G,D), or with ``with_lse`` (out, lse (B,L,KV*G) f32).  All four
+    position/segment operands are required."""
     b, l, kvh, g, d = qh.shape
     out = fd.flash_decode(qh.reshape(b, l, kvh * g, d), k, v, q_pos, k_pos, q_seg, k_seg,
-                          causal=causal, window=window)
+                          causal=causal, window=window, with_lse=with_lse)
+    if with_lse:
+        return out[0].reshape(b, l, kvh, g, d), out[1]
     return out.reshape(b, l, kvh, g, d)
 
 

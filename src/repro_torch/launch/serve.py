@@ -4,6 +4,8 @@
   python -m repro_torch.launch.serve --arch granite-20b    # 20 B params, held in bf16
   python -m repro_torch.launch.serve --smoke --device cpu  # reduced config on the CPU
   python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
+  torchrun --nproc_per_node 4 -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2,2 --dist-backend gloo            # sharded serving on a (2, 2) grid
 
 Every registered architecture runs: the MoE (mixtral-8x22b,
 llama4-maverick-400b-a17b), recurrent (recurrentgemma-9b, xlstm-1.3b) and
@@ -16,6 +18,14 @@ seeded with the config's seed), since no checkpoint ships with the repo.
 They are held in the config's ``parallel.param_dtype``, or in bf16 (rounded
 as drawn) where that would take more than half the card's memory
 (``weight_dtype``): granite-20b's f32 weights take 81 GB, its bf16 40.6 GB.
+
+``--mesh D,M`` (with ``--dist-backend``, under torchrun's D x M ranks)
+serves on a (data, model) grid: each rank draws the weights from the seed,
+keeps its blocks (train/trainer.py::grid_params: the reference's rules),
+serves its data index's rows of the batch from its blocks of the cache
+(the reference's cache rule), and rank 0 prints the whole batch's tokens.
+The decoder-only attention, RG-LRU and MoE models run there; the
+cross-attention and xLSTM ones raise (ROADMAP A9.4b).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_MODULES, get_config, get_smoke
+from repro_torch.launch.mesh import DIST_BACKENDS, init_grid_mesh
 from repro_torch.models import init_params
 from repro_torch.serve import Engine
 from repro_torch.serve.engine import resolve_device
@@ -73,14 +84,35 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
+                    help="the process-group backend of --mesh's ranks (torchrun)")
+    ap.add_argument("--mesh", default="",
+                    help="D,M: serve on a (data, model) grid of the ranks, the weights and "
+                         "the KV cache sharded by the reference's rules (needs --dist-backend)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.mesh and args.dist_backend is None:
+        ap.error("--mesh needs --dist-backend (nccl or gloo)")
+    mesh = None
+    if args.mesh:
+        try:
+            data, model = (int(n) for n in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: want D,M")
+        mesh = init_grid_mesh(args.dist_backend, data, model, args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     dtype = weight_dtype(cfg, device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = init_params(cfg.model, gen, device=device, dtype=dtype)
-    eng = Engine(cfg, params, cache_len=args.prompt_len + args.new_tokens + 8, device=device)
+    cache_len = args.prompt_len + args.new_tokens + 8
+    if mesh is not None:
+        from repro_torch.train.trainer import grid_params
+
+        params = grid_params(cfg, params, mesh, device)[0]
+    eng = Engine(cfg, params, cache_len=cache_len, device=device)
     rng = np.random.default_rng(cfg.seed)
     prompts = rng.integers(0, cfg.model.vocab_size, size=(args.batch, args.prompt_len))
     extra = stub_inputs(cfg, args.batch, rng)
@@ -89,10 +121,14 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.model.name} device={device} weights={dtype} generated "
-          f"{res.tokens.shape} in {dt:.2f}s ({args.batch * res.steps / dt:.1f} tok/s)")
-    for i in range(min(2, args.batch)):
-        print(f"  req{i}: {res.tokens[i].tolist()}")
+    if res is not None:  # on a grid, rank 0 holds the whole batch's result
+        where = "" if mesh is None else f" on a {mesh.shape} grid ({mesh.backend})"
+        print(f"arch={cfg.model.name} device={device}{where} weights={dtype} generated "
+              f"{res.tokens.shape} in {dt:.2f}s ({args.batch * res.steps / dt:.1f} tok/s)")
+        for i in range(min(2, args.batch)):
+            print(f"  req{i}: {res.tokens[i].tolist()}")
+    if mesh is not None:
+        mesh.close()
 
 
 if __name__ == "__main__":

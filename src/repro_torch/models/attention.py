@@ -25,6 +25,20 @@ reference, which returns new arrays, the port writes the cache IN PLACE:
 the returned dict holds the same tensors, and a cache passed to a decode
 step is consumed by it (the reference's engines donate it the same way).
 
+On a GridMesh (``grid``: a sharding/placement.py::Placement) prefill and
+decode serve from a cache placed by the reference's cache rule: each rank
+holds its data rows' cache for a contiguous block of the slots (``slots``:
+the block's first slot and the whole ring's count), every kv head.  The
+ring's arrival order, ``fill`` and the pads' spare slot are the whole
+ring's; a rank writes only the tokens whose slot lies in its block.
+Prefill runs the forward kernel within the fresh sequence on the rank's
+heads (``tp``) or all of them, then gathers the fresh k and v of every kv
+head over the model axis for the write.  Decode gathers q of every head,
+runs the decode kernel with its log-sum-exp over the rank's slots and
+merges the model ranks' partial outputs by their log-sum-exps
+(``Placement.merge_partials``) before the output projection (the row
+product over the rank's heads under ``tp``).
+
 Cross-attention (``memory`` given) projects the memory to k, v at train
 and prefill time (prefill keeps them as the cross cache {"k", "v",
 "kpos"}, which decode reads); it has no causal mask, window or segments.
@@ -73,15 +87,23 @@ def _mask(q_pos, k_pos, causal: bool, window: int, q_seg=None, k_seg=None):
     return m
 
 
-def _sdpa(q, k, v, mask) -> torch.Tensor:
+def _sdpa(q, k, v, mask, with_lse: bool = False):
     """q: (B,Sq,K,G,D); k,v: (B,Skv,K,D); mask: (B,Sq,Skv) -> (B,Sq,K,G,D).
-    Rows with no valid key give exactly 0."""
+    Rows with no valid key give exactly 0.  ``with_lse``: also the rows'
+    log-sum-exp (B,Sq,K*G) f32, NEG_INF where no key is valid (the decode
+    kernel's ``with_lse``)."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    w = torch.where(mask.any(-1)[:, None, None, :, None], w, 0)
-    return torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    live = mask.any(-1)[:, None, None, :]
+    w = torch.where(live[..., None], w, 0)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    if not with_lse:
+        return out
+    lse = torch.where(live, torch.logsumexp(scores, dim=-1), NEG_INF)  # (B,K,G,Sq)
+    b, kh, g, sq = lse.shape
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, kh * g)
 
 
 def _chunked_sdpa(q, k, v, q_pos, k_pos, causal, window, q_chunk, kv_chunk,
@@ -125,27 +147,54 @@ def _chunked_sdpa(q, k, v, q_pos, k_pos, causal, window, q_chunk, kv_chunk,
     return torch.cat(outs, dim=1).to(v.dtype)
 
 
-def _paged_write(cache: Dict, k_in, v_in, pos_in, seg_in) -> None:
+def _paged_write(cache: Dict, k_in, v_in, pos_in, seg_in, slots=None) -> None:
     """Scatter this call's valid tokens (pos >= 0) into the paged cache in
     arrival order and advance ``fill``; pads neither write nor advance.
 
     Pads are routed to a spare slot, (fill + n_valid) % C, which no valid
     token of this call writes, and rewrite it with its own contents — the
     reference's out-of-bounds drop, without a data-dependent shape (and so
-    without a host sync on the card)."""
+    without a host sync on the card).
+
+    ``slots`` = (lo, C): the cache is the block [lo, lo + c) of a ring of C
+    slots (a grid's model rank).  Arrival, ``fill`` and the spare slot are
+    the ring's; a token whose slot lies outside the block (and every pad)
+    goes to one slot of the block, d (the spare's place, else the first),
+    and writes there what d ends with: the block's own token for d, if one
+    comes, else d's contents."""
     ck, cv, ckpos, ckseg, cfill = (cache[n] for n in ("k", "v", "kpos", "kseg", "fill"))
     c = ck.shape[1]
+    lo, ring = (0, c) if slots is None else slots
     valid = pos_in >= 0
     arrival = torch.cumsum(valid.to(torch.int32), dim=1) - 1
     n_valid = valid.sum(dim=1, dtype=torch.int32)
-    spare = (cfill + n_valid) % c
-    slot = torch.where(valid, (cfill[:, None] + arrival) % c, spare[:, None]).long()
-    vmask = valid[..., None, None]
+    spare = (cfill + n_valid) % ring
+    slot = torch.where(valid, (cfill[:, None] + arrival) % ring, spare[:, None]).long()
+    new = (k_in, v_in, pos_in, seg_in)
+    old = (ck, cv, ckpos, ckseg)
+    if slots is None:
+        own = valid
+        keep = tuple(t.gather(1, slot.view(*slot.shape, *(1,) * (t.ndim - 2)).expand_as(n))
+                     for t, n in zip(old, new))
+    else:
+        slot = slot - lo
+        own = valid & (slot >= 0) & (slot < c)
+        d = spare.long() - lo
+        d = torch.where((d >= 0) & (d < c), d, 0)
+        slot = torch.where(own, slot, d[:, None])
+        writes_d = own & (slot == d[:, None])  # at most one token of a row
+        rows = torch.arange(slot.shape[0], device=slot.device)
+        src = writes_d.to(torch.int32).argmax(dim=1)
+        has = writes_d.any(dim=1)
+
+        def at_d(n, t):
+            x = torch.where(has.view(-1, *(1,) * (n.ndim - 2)), n[rows, src], t[rows, d])
+            return x[:, None].expand_as(n)
+
+        keep = tuple(at_d(n, t) for n, t in zip(new, old))
+    k_w, v_w, pos_w, seg_w = (
+        torch.where(own.view(*own.shape, *(1,) * (n.ndim - 2)), n, kp) for n, kp in zip(new, keep))
     idx4 = slot[..., None, None].expand_as(k_in)
-    k_w = torch.where(vmask, k_in, ck.gather(1, idx4))
-    v_w = torch.where(vmask, v_in, cv.gather(1, idx4))
-    pos_w = torch.where(valid, pos_in, ckpos.gather(1, slot))
-    seg_w = torch.where(valid, seg_in, ckseg.gather(1, slot))
     ck.scatter_(1, idx4, k_w)
     cv.scatter_(1, idx4, v_w)
     ckpos.scatter_(1, slot, pos_w)
@@ -186,6 +235,8 @@ def attention(
     q_seg: Optional[torch.Tensor] = None,
     seg_base: Optional[torch.Tensor] = None,
     tp=None,
+    grid=None,
+    slots: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self- or cross-attention.
 
@@ -201,18 +252,21 @@ def attention(
     row's numbering).  implicit_layout: q_pos is the broadcast arange(S),
     whose segments are all zero.  Returns (out (B,S,d), cache or None).
     tp: a sharding/placement.py::Placement whose model axis splits the heads
-    (train, self- or cross-attention): ``n_heads`` / ``n_kv_heads`` are then
+    (self- or cross-attention): ``n_heads`` / ``n_kv_heads`` are then
     the rank's, ``p``'s wq/wk/wv its columns and wo whole; the projections
     take the entered input (and memory: ``tp.col_product``) and the output
     is the row product summed over the model axis (``tp.row_product``).
+    grid: the rank's Placement in prefill and decode on a GridMesh (self-
+    attention; module note), whatever ``tp`` says of the heads; ``slots``
+    (first slot, the ring's slot count) of the rank's block of the cache,
+    None when the cache's slots are whole on the rank.
     """
     plan = backend if backend is not None else Backend()
     b, s, _ = x.shape
-    g = n_heads // n_kv_heads
     dtype = x.dtype
-    if tp is not None and mode != "train":
-        raise NotImplementedError(f"tensor-parallel attention in {mode} mode (sharded "
-                                  "serving: ROADMAP A9.4)")
+    if memory is not None and (grid is not None or (tp is not None and mode != "train")):
+        raise NotImplementedError(f"cross-attention in {mode} mode on a grid (its cache's "
+                                  "merge needs the plain cross path's LSE: ROADMAP A9.4b)")
     if memory is not None:
         return _cross_attention(p, x, memory, mem_pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
                                 head_dim=head_dim, q_pos=q_pos, cache=cache, mode=mode,
@@ -242,23 +296,32 @@ def attention(
         k_pos = q_pos
         new_cache = None
     else:
+        # the cache holds every kv head (of its block of the slots, on a grid)
+        k_all, v_all = k, v
+        if tp is not None and mode == "decode":
+            q, k_all, v_all = tp.gather_heads(q, k, v)
+        elif tp is not None:
+            k_all, v_all = tp.gather_heads(k, v)
         if mode == "prefill" and cache is None:
-            cache = empty_cache(b, cache_len, n_kv_heads, head_dim, dtype, x.device)
-        c = cache["k"].shape[1]
+            c_block = cache_len if slots is None else cache_len // grid.m
+            cache = empty_cache(b, c_block, k_all.shape[2], head_dim, dtype, x.device)
+        c = cache["k"].shape[1] if slots is None else slots[1]
         seg_in = seg_q if seg_q is not None else torch.zeros_like(q_pos)
         # only the last <= c tokens of an over-long prefill survive the ring
         if mode == "prefill" and s > c:
-            k_in, v_in, pos_in, seg_w = k[:, -c:], v[:, -c:], q_pos[:, -c:], seg_in[:, -c:]
+            k_in, v_in, pos_in, seg_w = (t[:, -c:] for t in (k_all, v_all, q_pos, seg_in))
         else:
-            k_in, v_in, pos_in, seg_w = k, v, q_pos, seg_in
-        _paged_write(cache, k_in, v_in, pos_in, seg_w)
+            k_in, v_in, pos_in, seg_w = k_all, v_all, q_pos, seg_in
+        _paged_write(cache, k_in, v_in, pos_in, seg_w, slots)
         new_cache = dict(cache)
         if mode == "decode":
             k, v, k_pos = cache["k"], cache["v"], cache["kpos"]
         else:
             k_pos = q_pos  # prefill attends within the fresh sequence
+    heads, kv_heads = q.shape[2], k.shape[2]
+    g = heads // kv_heads
 
-    qh = q.reshape(b, s, n_kv_heads, g, head_dim)
+    qh = q.reshape(b, s, kv_heads, g, head_dim)
     naive_elems = s * k.shape[1]
     if mode == "decode":
         if seg_q is None:  # implicit-layout decode: single segment 0
@@ -274,14 +337,24 @@ def attention(
         else:
             out = kops.flash_attention(qh, k, v, q_pos, k_pos, q_seg=seg_q, k_seg=seg_k,
                                        causal=causal, window=window, train=train)
+    elif fused and mode == "decode" and slots is not None:
+        out, lse = kops.flash_decode(qh, k, v, q_pos, k_pos, seg_q, seg_k, causal=causal,
+                                     window=window, with_lse=True)
     elif fused and mode == "decode":
         out = kops.flash_decode(qh, k, v, q_pos, k_pos, seg_q, seg_k,
                                 causal=causal, window=window)
+    elif mode == "decode" and slots is not None:
+        out, lse = _sdpa(qh, k, v, _mask(q_pos, k_pos, causal, window, seg_q, seg_k),
+                         with_lse=True)
     elif attn_chunk and naive_elems > attn_chunk * attn_chunk * 4:
         out = _chunked_sdpa(qh, k, v, q_pos, k_pos, causal, window, attn_chunk, attn_chunk,
                             q_seg=seg_q, k_seg=seg_k)
     else:
         out = _sdpa(qh, k, v, _mask(q_pos, k_pos, causal, window, seg_q, seg_k))
+    if mode == "decode" and slots is not None:  # the model ranks' blocks of the slots
+        out = grid.merge_partials(out.reshape(b, s, heads, head_dim), lse)
+    if mode == "decode" and tp is not None:  # the rank's heads of every head's output
+        out = tp.own(out.reshape(b, s, heads, head_dim), 2)
     out = out.reshape(b, s, n_heads * head_dim)
     if tp is not None:
         return tp.row_product(out, p["wo"]), new_cache

@@ -14,7 +14,7 @@ sliced off before the experts run, so it reaches no output, and its
 gradient is zero.  ``apply_moe_dense`` is the test oracle: every expert on
 every token, no drops.
 
-``apply_moe_grid`` is the train form on one rank of a GridMesh: the
+``apply_moe_grid`` is the form on one rank of a GridMesh: the
 experts sharded by the reference's rule (expert parallelism where the model
 axis divides E, else tensor parallelism inside each expert), with the
 reference's capacity and slots over the whole microbatch of the data ranks
@@ -169,8 +169,11 @@ def _mean_prob(pl, probs: torch.Tensor) -> torch.Tensor:
 def apply_moe_grid(p: Dict, x: torch.Tensor, act: str, cfg: MoEConfig,
                    pl) -> Tuple[torch.Tensor, Dict]:
     """``apply_moe`` on one rank of a GridMesh (``pl``, a sharding/
-    placement.py::Placement; train): x (B, S, d), the rank's rows, the same
-    on each model rank of a data row -> (out (B, S, d), aux).
+    placement.py::Placement): x (B, S, d), the rank's rows, the same on
+    each model rank of a data row -> (out (B, S, d), aux).  Train, prefill
+    and decode alike: a decode step's one token a row routes with the
+    capacity and slots of every data rank's rows, as the reference's
+    single-program decode over the whole batch.
 
     Every rank routes its rows (the router gathered whole, its compute
     replicated over the model axis).  On the microbatch source the slots,

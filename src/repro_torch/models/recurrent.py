@@ -15,12 +15,14 @@ same combine ``(a1 a2, a2 b1 + b2)``): ceil(log2 S) element-wise passes.
 Decode carries (h, conv window) in a constant-size cache
 ``{"h": (B, D) f32, "conv": (B, 3, D)}``.  ``a_log`` is kept and used in f32.
 
-On a GridMesh (``tp``, train) the model axis splits the channels: the
+On a GridMesh (``tp``) the model axis splits the channels: the
 recurrence is diagonal, so each rank scans its own D/M of them.  The gate
 branch and r, i are column products into the rank's channels, ``a_log``
 is read at them, ξ (the input projection and the conv) is computed whole
 on every model rank and entered once, and ``w_out`` is the row product
-summed over the model axis.
+summed over the model axis.  Serving there holds the reference's cache
+rule's blocks: ``h`` the rank's channels (B, D/M), ``conv`` whole over the
+model axis (B, 3, D), as ξ is computed whole.
 """
 from __future__ import annotations
 
@@ -82,15 +84,13 @@ def apply_rglru(p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
     """x (B, S, d_model) -> (out, cache').  Prefill and decode return the
     cache {"h": (B, D) f32, "conv": (B, 3, D)}; train returns None.
     ``tp``: a sharding/placement.py::Placement whose model axis splits the
-    channels (train; module note): w_y, w_rg_a and w_rg_x are then the
-    rank's columns, a_log and w_out whole."""
+    channels (module note): w_y, w_rg_a and w_rg_x are then the rank's
+    columns, a_log and w_out whole, and a cache's ``h`` the rank's
+    channels."""
     dtype = x.dtype
     xi = x @ p["w_gatein"].to(dtype)
     xi, new_conv = causal_conv(p["conv_w"], xi, None if cache is None else cache["conv"])
     if tp is not None:
-        if mode != "train":
-            raise NotImplementedError(f"the tensor-parallel RG-LRU in {mode} mode (sharded "
-                                      "serving: ROADMAP A9.4)")
         proj = lambda v, w: tp.col_product(v, w, dtype)
         x, xi_all = tp.enter(x), tp.enter(xi)
         xi_own, a_log = tp.own(xi_all), tp.own(p["a_log"])

@@ -25,10 +25,15 @@ Public API:
   decode_step(cfg, pcfg, params, cache, token, positions) -> (logits, cache)
   encode(cfg, pcfg, params, frames)                 -> encoder memory (whisper)
   cache_shapes(cfg, pcfg, batch, prompt_len, cache_len)   -> meta-tensor tree
+  cache_specs(cfg, pcfg, rules, batch, cache_len)   -> its spec tree on a grid
   Transformer(cfg, params)                          -> nn.Module holding them
   forward_grid(cfg, pcfg, tree, tokens, placement, extra=)
                                                     -> (logits, aux) of one rank
                                                        of a GridMesh (train)
+  prefill_grid(cfg, pcfg, tree, tokens, placement, cache_len=..., specs=...)
+  decode_step_grid(cfg, pcfg, tree, cache, token, positions, placement, cache_len=..., specs=...)
+                                                    -> (logits, cache) of one rank
+                                                       (sharded serving)
   model_layout(cfg)                                 -> the stacked flat layout
 """
 from __future__ import annotations
@@ -55,7 +60,7 @@ from repro_torch.models.common import (
     normal_init,
 )
 from repro_torch.models.mlp import mlp_hidden, mlp_init
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import Rules, Spec, batch_spec, constrain
 
 # Leaves the reference casts to the compute dtype at every use
 # (``x @ p["wq"].astype(dtype)``, ``p["embed"].astype(dtype)[tokens]``).
@@ -134,16 +139,19 @@ def _ffn(cfg: ModelConfig, p: Dict, x, tp=None):
 
 def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x, *,
                 q_pos, cache, mode, cache_len, implicit_layout, q_seg, seg_base,
-                memory=None, causal=None, tp=None):
+                memory=None, causal=None, tp=None, cache_spec=None):
     """(x_res, hidden, cache, aux) of one block.  Its output is ``x_res +
     hidden @ W`` for W at ``last_product`` (read nowhere here), or x_res
     when hidden is None; aux holds the MoE readings, or is None.  ``tp``:
-    one rank of a GridMesh (a sharding/placement.py::Placement; train),
-    whose model axis splits the self- and cross-attention heads, the MLP's
-    d_ff and the RG-LRU's channels where the placement says so (``attn_tp``,
+    one rank of a GridMesh (a sharding/placement.py::Placement), whose model
+    axis splits the self- and cross-attention heads, the MLP's d_ff and the
+    RG-LRU's channels where the placement says so (``attn_tp``,
     ``xattn_tp``, ``mlp_tp``, ``rec_tp``; hidden is then the rank's d_ff
     columns) and the experts by its ``moe_mode``; the mLSTM and sLSTM run
-    replicated."""
+    replicated (train).  In prefill and decode ``cache_spec`` is the spec
+    tree of the block's cache (``cache_specs``): the rank
+    holds that block of it."""
+    serve = tp is not None and mode != "train"
     causal = cfg.causal if causal is None else causal
     h = apply_norm(p["ln1"], x, cfg.norm)
 
@@ -159,11 +167,12 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
         window = cfg.sliding_window if kind in ("swa", "local") else 0
         eff_cache_len = min(cache_len, window) if (window and cache_len) else cache_len
         tp_attn, common = split(tp is not None and tp.attn_tp)
+        slots = tp.cache_slots(cache_spec["self"]["k"], eff_cache_len) if serve else None
         out, c_self = attn_mod.attention(
             p["attn"], h, rope_theta=cfg.rope_theta, causal=causal, window=window,
             cache=None if cache is None else cache["self"], cache_len=eff_cache_len,
             implicit_layout=implicit_layout, q_seg=q_seg, seg_base=seg_base, tp=tp_attn,
-            **common,
+            grid=tp if serve else None, slots=slots, **common,
         )
         x = x + out
         new_cache = None if mode == "train" else {"self": c_self}
@@ -179,6 +188,8 @@ def _block_body(cfg: ModelConfig, pcfg: ParallelismConfig, kind: str, p: Dict, x
         x, hidden, aux = _ffn(cfg, p, x, tp=tp)
         return x, hidden, new_cache, aux
     if kind == "rec":
+        if serve:
+            tp.check_rec_cache(cache_spec)
         out, new_cache = rec_mod.apply_rglru(p["rec"], h, cache=cache, mode=mode,
                                              tp=tp if tp is not None and tp.rec_tp else None)
         x, hidden, aux = _ffn(cfg, p, x + out, tp=tp)
@@ -570,15 +581,38 @@ class _RematGrid(torch.autograd.Function):
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
 
+# The block kinds a grid serves (ROADMAP A9.4b: cross-attention's cache merge
+# needs the plain cross path's LSE; the xLSTM cache's rule splits heads that
+# its cells compute replicated).
+GRID_SERVE_KINDS = ("attn", "swa", "local", "rec")
+
+
+def grid_serving_refusal(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a model whose blocks the grid does not
+    serve yet (cross-attention, mLSTM, sLSTM, an encoder or an image
+    stub)."""
+    bad = sorted({k for k in (*cfg.block_pattern, *cfg.tail_kinds())
+                  if k not in GRID_SERVE_KINDS})
+    if bad or cfg.encoder is not None or cfg.n_image_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: serving {bad or 'an encoder or image memory'} on a grid (the cross "
+            "cache's merge needs an LSE from the plain cross path; the xLSTM cache's rule "
+            "splits heads that its cells compute replicated): ROADMAP A9.4b")
+
+
 def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: torch.Tensor,
                  placement, *, positions: Optional[torch.Tensor] = None,
-                 extra: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
-    """The train forward of one rank of a GridMesh: tokens (B, S) (the
-    rank's rows) -> (f32 logits, aux).  ``tree`` is a core/layout.py::
+                 extra: Optional[Dict] = None, mode: str = "train", cache: Optional[Dict] = None,
+                 cache_len: int = 0, last_only: bool = False,
+                 gather_idx: Optional[torch.Tensor] = None,
+                 segments: Optional[torch.Tensor] = None, specs: Optional[Dict] = None):
+    """The forward of one rank of a GridMesh: tokens (B, S) (the rank's
+    rows) -> (f32 logits, aux) in mode "train", (f32 logits, aux, cache) in
+    "prefill" and "decode" (sharded serving).  ``tree`` is a core/layout.py::
     GridParams tree of the rank's weight blocks, ``placement`` its
     sharding/placement.py::Placement; ``extra`` the rank's rows of the
-    cross-attention's source, as for ``forward``.  The logits are the rank's
-    vocab columns when the placement splits the vocab
+    cross-attention's source, as for ``forward``.  In train mode the logits
+    are the rank's vocab columns when the placement splits the vocab
     (``placement.vocab_tp``; train/loss.py's vocab-parallel cross-entropy
     takes them), else the whole vocab.  The layer groups run under
     ``_RematGrid`` (with autograd on, ``pcfg.remat`` and
@@ -588,20 +622,50 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     ``forward``; its memory enters every group as an input, so that its
     gradient reaches the encoder.  aux holds the MoE readings of the rank's
     rows (models/moe.py::apply_moe_grid) summed over the layers and divided
-    by max(1, n_layers), as ``forward`` gives them (zeros without MoE)."""
+    by max(1, n_layers), as ``forward`` gives them (zeros without MoE).
+
+    Prefill and decode take ``forward``'s cache arguments, with
+    ``cache_len`` the whole ring's slot count in both (the cache's blocks
+    are placed by ``specs``, ``cache_specs`` of the grid's whole batch,
+    the rank's rows times the data axis; a fresh prefill builds the rank's
+    blocks).  They run no remat, serve only ``GRID_SERVE_KINDS``, and
+    return the whole vocab's logits of the rank's rows (all-gathered over
+    the model axis)."""
+    from repro_torch.sharding.placement import group_path
+
     pl, whole = placement, tree["whole"]
     dtype = getattr(torch, pcfg.compute_dtype)
-    kw = dict(q_pos=_q_pos(tokens, positions), cache=None, mode="train", cache_len=0,
-              implicit_layout=positions is None, q_seg=None, seg_base=None, tp=pl)
-    use = lambda path: pl.use(whole[path], path)
-    memory = _resolve_memory(cfg, pcfg, nest_paths({
+    serve = mode != "train"
+    if serve:
+        grid_serving_refusal(cfg)
+        if cache_len <= 0 or specs is None:
+            raise ValueError("prefill and decode on a grid take the ring's cache_len and the "
+                             "cache's specs (cache_specs)")
+    kw = dict(q_pos=_q_pos(tokens, positions), mode=mode, cache_len=cache_len,
+              implicit_layout=positions is None, q_seg=segments, seg_base=None, tp=pl)
+    # serving gathers a weight used in the compute dtype already cast to it
+    # (no gradient flows, and the cast commutes with the gather)
+    cast = serve and dtype != torch.float32
+
+    def use(path, x=None, dims=0):
+        x = whole[path] if x is None else x
+        if cast and path.split("/")[-1] in COMPUTE_CAST_LEAVES and path != "embed/embed":
+            x = x.to(dtype)
+        return pl.use(x, path, dims)
+
+    memory = None if serve else _resolve_memory(cfg, pcfg, nest_paths({
         path: use(path) for path in whole
         if path.startswith("encoder/") or path == "img_proj"}), extra, tp=pl)
     mem = () if memory is None else (memory,)
-    x = constrain(pl.embed(use("embed/embed"), tokens, dtype), ("batch", None, None))
+    blocks = serve and pl.vocab_blocks  # no gather of the table or the head
+    if blocks:
+        table = whole["embed/embed"]
+        x = pl.serve_embed(table, tokens, dtype)
+    else:
+        table = use("embed/embed")
+        x = pl.embed(table, tokens, dtype)
+    x = constrain(x, ("batch", None, None))
     moe = cfg.moe is not None
-
-    from repro_torch.sharding.placement import group_path
 
     # leaves of the groups held whole: an unstacked group's, gathered in the
     # group's body; a stacked leaf with its layer dim split, gathered here
@@ -610,23 +674,38 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
     names = sorted(tree["groups"][0]) if tree["groups"] else []
     n_in = len(names)
 
+    def gathered(leaves):
+        """The group's block params from its leaves (``names``, then the
+        held ones), each gathered as the placement's role gives it."""
+        flat = {name: use(f"groups/{name}", leaf, 1) for name, leaf in zip(names, leaves)}
+        for name, t in zip(sorted(held), leaves[n_in:]):
+            flat[name] = t if pl.stacked else use(held[name], t)
+        return nest_paths(flat)
+
     def body(xx, *args):
         gmem, leaves = args[:len(mem)], args[len(mem):]
-        flat = {name: pl.use(leaf, f"groups/{name}", 1) for name, leaf in zip(names, leaves)}
-        for name, t in zip(sorted(held), leaves[n_in:]):
-            flat[name] = t if pl.stacked else pl.use(t, held[name])
-        gp = nest_paths(flat)
+        gp = gathered(leaves)
         gkw = {**kw, "memory": gmem[0] if gmem else None}
         gaux = _aux_zero(xx.device)
         for i, kind in enumerate(cfg.block_pattern):
-            xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **gkw)
+            xx, _, a = _block_apply(cfg, pcfg, kind, gp[f"pos{i}"], xx, **gkw, cache=None)
             gaux = _aux_add(gaux, a)
         return (xx, torch.stack([gaux[k] for k in AUX_KEYS])) if moe else xx
 
-    remat_on = pcfg.remat and pl.remat and torch.is_grad_enabled()
+    remat_on = not serve and pcfg.remat and pl.remat and torch.is_grad_enabled()
     aux = _aux_zero(x.device)
+    layer_caches = []
     for g, gp in enumerate(tree["groups"]):
         held_g = [pre[n][g] if pl.stacked else whole[held[n]] for n in sorted(held)]
+        if serve:
+            bp = gathered([*(gp[n] for n in names), *held_g])
+            for i, kind in enumerate(cfg.block_pattern):
+                blk = None if cache is None else cache["groups"][g][f"pos{i}"]
+                x, c, a = _block_apply(cfg, pcfg, kind, bp[f"pos{i}"], x, cache=blk,
+                                       cache_spec=specs["groups"][g][f"pos{i}"], **kw)
+                aux = _aux_add(aux, a)
+                layer_caches.append(c)
+            continue
         args = [*mem, *(gp[n] for n in names), *held_g]
         out = _RematGrid.apply(body, x, *args) if remat_on else body(x, *args)
         if moe:
@@ -638,18 +717,36 @@ def forward_grid(cfg: ModelConfig, pcfg: ParallelismConfig, tree: Dict, tokens: 
         prefix = f"tail/{ti}/"
         p = nest_paths({path[len(prefix):]: use(path) for path in whole
                         if path.startswith(prefix)})
-        x, _, a = _block_apply(cfg, pcfg, kind, p, x, memory=memory, **kw)
+        blk = None if cache is None else cache["tail"][ti]
+        x, c, a = _block_apply(cfg, pcfg, kind, p, x, memory=memory, cache=blk,
+                               cache_spec=None if specs is None else specs["tail"][ti], **kw)
         aux = _aux_add(aux, a)
+        layer_caches.append(c)
+    if gather_idx is not None:
+        idx = gather_idx.long()[:, :, None].expand(-1, -1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    elif last_only:
+        x = x[:, -1:]
     x = apply_norm(nest_paths({path.split("/", 1)[1]: use(path) for path in whole
                                if path.startswith("final_norm/")}), x, cfg.norm)
-    if cfg.tie_embeddings:
-        logits = pl.logits(x, use("embed/embed"), tied=True)
+    if blocks:
+        logits = pl.serve_logits(x, table if cfg.tie_embeddings else whole["head"],
+                                 tied=cfg.tie_embeddings)
+    elif cfg.tie_embeddings:
+        logits = pl.logits(x, table if serve else use("embed/embed"), tied=True)
     else:
         logits = pl.logits(x, use("head"), tied=False)
-        if cfg.logit_softcap > 0:
-            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    if not cfg.tie_embeddings and cfg.logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     n_layers = max(1, cfg.n_layers)
-    return logits, {k: v / n_layers for k, v in aux.items()}
+    aux = {k: v / n_layers for k, v in aux.items()}
+    if not serve:
+        return logits, aux
+    n_pat = len(cfg.block_pattern)
+    out_cache = {"groups": [{f"pos{i}": layer_caches[g * n_pat + i] for i in range(n_pat)}
+                            for g in range(cfg.n_groups())],
+                 "tail": layer_caches[cfg.n_groups() * n_pat:]}
+    return pl.whole_logits(logits), aux, out_cache
 
 
 def model_layout(cfg: ModelConfig) -> ParamLayout:
@@ -688,6 +785,37 @@ def decode_step(cfg, pcfg, params, cache, token, positions, segments=None):
     return logits, cache
 
 
+def prefill_grid(cfg, pcfg, tree, tokens, placement, *, cache_len: int, extra=None, cache=None,
+                 specs, positions=None, segments=None, gather_idx=None):
+    """``prefill`` on one rank of a GridMesh (``forward_grid``): tokens the
+    rank's rows; (logits of the whole vocab, the rank's blocks of the
+    cache).  ``specs``: the cache's ``cache_specs`` of the grid's whole
+    batch (serve/engine.py::Engine computes them once a batch size)."""
+    logits, _aux, cache = forward_grid(
+        cfg, pcfg, tree, tokens, placement, mode="prefill", cache_len=cache_len, cache=cache,
+        extra=extra, positions=positions, segments=segments, last_only=True,
+        gather_idx=gather_idx, specs=specs)
+    return logits, cache
+
+
+def decode_step_grid(cfg, pcfg, tree, cache, token, positions, placement, *, cache_len: int,
+                     specs, segments=None):
+    """``decode_step`` on one rank of a GridMesh: the rank's rows of token
+    and positions, its blocks of a cache of ``cache_len`` slots (consumed,
+    as ``decode_step`` consumes its cache); ``specs`` as for
+    ``prefill_grid``."""
+    if token.ndim == 1:
+        token = token[:, None]
+    pos = positions if positions.ndim == 2 else positions[:, None]
+    seg = None
+    if segments is not None:
+        seg = segments if segments.ndim == 2 else segments[:, None]
+    logits, _aux, cache = forward_grid(cfg, pcfg, tree, token, placement, mode="decode",
+                                       cache=cache, cache_len=cache_len, positions=pos,
+                                       segments=seg, specs=specs)
+    return logits, cache
+
+
 def memory_len(cfg: ModelConfig) -> int:
     """The cross-attention memory's length: the encoder's frames or the
     image tokens (0 without either)."""
@@ -695,12 +823,21 @@ def memory_len(cfg: ModelConfig) -> int:
 
 
 def cache_shapes(cfg: ModelConfig, pcfg: ParallelismConfig, batch: int, prompt_len: int,
-                 cache_len: int):
+                 cache_len: int, placement=None):
     """The decode-input cache tree as meta tensors (shapes and dtypes, no
     storage); prompt_len does not change them (kept for the reference's
     signature).  A cross-attention model's memory has ``memory_len(cfg)``
-    rows."""
+    rows.  With a ``placement`` (one rank of a GridMesh, ``batch`` the
+    grid's whole batch): the rank's blocks under ``cache_specs``."""
     del prompt_len
+    if placement is not None:
+        from repro_torch.sharding.placement import shard_shape
+
+        specs = cache_specs(cfg, pcfg, placement.rules, batch, cache_len)
+        sizes = dict(placement.mesh.shape)
+        return tree_map(lambda t, sp: torch.empty(shard_shape(t.shape, sp, sizes), dtype=t.dtype,
+                                                  device="meta"),
+                        cache_shapes(cfg, pcfg, batch, 0, cache_len), specs)
     dtype = getattr(torch, pcfg.compute_dtype)
     d, hd, kvh = cfg.d_model, cfg.resolved_head_dim, cfg.n_kv_heads
     mem = memory_len(cfg)
@@ -730,6 +867,30 @@ def cache_shapes(cfg: ModelConfig, pcfg: ParallelismConfig, batch: int, prompt_l
     }
     if mem:
         out["memory"] = torch.empty((batch, mem, d), dtype=dtype, device="meta")
+    return out
+
+
+def cache_specs(cfg, pcfg, rules: Rules, batch: int, cache_len: int):
+    """The spec of every leaf of the decode cache of ``batch`` rows and
+    ``cache_len`` slots (the tree of ``cache_shapes``): sharding/rules.py::
+    ``batch_spec(kind="cache")`` of each leaf at the reference's shape,
+    which stacks the layer groups' caches as (groups, B, ...) where its
+    ``scan_layers`` (on by default; the port's layout is that stacked one,
+    ``model_layout``) stacks their params, more than one group, so that the
+    batch is found at dim 1 there; the group dim is then dropped for the
+    port's list of groups, as Placement.use(dims=1) drops it from a stacked
+    weight's spec.  The batch is found by size, as the reference finds it:
+    a leaf whose dim 1 equals ``batch`` takes the batch there."""
+    shapes = cache_shapes(cfg, pcfg, batch, 0, cache_len)
+    stacked = cfg.n_groups() > 1
+    n = cfg.n_groups()
+
+    def spec(t, lead):
+        return Spec(*batch_spec((*lead, *t.shape), rules, batch, kind="cache")[len(lead):])
+
+    out = {k: tree_map(lambda t: spec(t, ()), v) for k, v in shapes.items() if k != "groups"}
+    out["groups"] = [tree_map(lambda t: spec(t, (n,) if stacked else ()), g)
+                     for g in shapes["groups"]]
     return out
 
 

@@ -14,6 +14,16 @@ Port of ``repro/serve/engine.py``:
 Both run on the card unless the caller asks for the CPU: ``device=None``
 means ``cuda``, and raises when no CUDA device is present.  The cache is
 written in place (see models/attention.py).
+
+Sharded serving: ``Engine`` given one rank's core/layout.py::GridParams
+(train/trainer.py::grid_params) runs that rank of a (data, model) grid
+(models/transformer.py::prefill_grid, decode_step_grid): every rank calls
+``generate`` with the same prompts, takes its data index's rows, holds
+its blocks of the weights and of the cache (the reference's rules), and
+decodes until every row of the grid is done, a decision all ranks take
+together.  Rank 0 returns the whole batch's result, the others None.
+Sampling draws from a generator seeded by the rank's data index.  The
+ContinuousEngine is not served on a grid (ROADMAP A9.4b).
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import Config
-from repro_torch.models import Transformer, decode_step, prefill
+from repro_torch.core.layout import GridParams
+from repro_torch.models import Transformer, decode_step, decode_step_grid, prefill, prefill_grid
+from repro_torch.models.transformer import cache_specs, grid_serving_refusal
 
 # The kinds whose state is a paged, segment-aware cache that packed rows can
 # share; recurrent, xLSTM and cross-attention state is per row, so
@@ -77,20 +89,80 @@ class _Model:
 
 
 class Engine:
-    def __init__(self, cfg: Config, params: Dict, cache_len: int = 0, eos_id: int = -1,
+    """``params``: the weights tree, or one rank's GridParams (sharded
+    serving, module note; ``device`` then None or the rank's)."""
+
+    def __init__(self, cfg: Config, params, cache_len: int = 0, eos_id: int = -1,
                  device=None):
         self.cfg = cfg
-        self.model = _Model(cfg, params, device)
-        self.device = self.model.device
+        self.grid = params if isinstance(params, GridParams) else None
+        if self.grid is None:
+            self.model = _Model(cfg, params, device)
+            self.device = self.model.device
+        else:
+            grid_serving_refusal(cfg.model)
+            self.device = self.grid.device
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device {device} differs from the rank's {self.device}")
+            self.placement = self.grid.placement
+            self._specs = {}  # the cache's spec tree by the grid's batch
         self.eos_id = eos_id
         self.cache_len = cache_len or (cfg.seq_len + 64)
 
+    def _cache_specs(self, rows: int):
+        """The cache's spec tree (cache_specs) for ``rows`` rows on each
+        data rank, computed once for a batch size."""
+        b = rows * self.placement.mesh.shape[self.placement.dp]
+        if b not in self._specs:
+            self._specs[b] = cache_specs(self.cfg.model, self.cfg.parallel, self.placement.rules,
+                                         b, self.cache_len)
+        return self._specs[b]
+
     def _prefill(self, tokens, **kw):
+        if self.grid is not None:
+            return prefill_grid(self.cfg.model, self.cfg.parallel, self.grid.tree, tokens,
+                                self.placement, cache_len=self.cache_len,
+                                specs=self._cache_specs(tokens.shape[0]), **kw)
         return prefill(self.cfg.model, self.cfg.parallel, self.model.params, tokens,
                        cache_len=self.cache_len, **kw)
 
     def _decode(self, cache, tok, pos):
+        if self.grid is not None:
+            return decode_step_grid(self.cfg.model, self.cfg.parallel, self.grid.tree, cache, tok,
+                                    pos, self.placement, cache_len=self.cache_len,
+                                    specs=self._cache_specs(tok.shape[0]))
         return decode_step(self.cfg.model, self.cfg.parallel, self.model.params, cache, tok, pos)
+
+    def rows(self, b: int) -> slice:
+        """The rows of a batch of ``b`` that this engine serves: all of
+        them, or on a grid its data index's share (the data axis must divide
+        ``b``)."""
+        if self.grid is None:
+            return slice(0, b)
+        pl = self.placement
+        d = pl.mesh.shape[pl.dp]
+        if b % d:
+            raise ValueError(f"a batch of {b} rows does not split over {d} data ranks")
+        n = b // d
+        return slice(pl.data_index * n, (pl.data_index + 1) * n)
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        if self.grid is None:
+            return bool(done.all())
+        return not self.placement.any_rank(not bool(done.all()))
+
+    def _gather_rows(self, x: np.ndarray) -> Optional[np.ndarray]:
+        """The data ranks' rows of ``x`` in data order on rank 0 (None on
+        the other ranks): one gather of every rank's rows (on the CPU over
+        gloo, on the card over NCCL), the model index 0 ranks' kept."""
+        mesh = self.placement.mesh
+        dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+        parts = mesh.gather(torch.as_tensor(x, device=dev), dst=0)
+        if parts is None:
+            return None
+        tp = self.placement.tp
+        return np.concatenate([parts[r].cpu().numpy() for r in range(mesh.size)
+                               if mesh.coords_of(r)[tp] == 0])
 
     @torch.no_grad()
     def generate(
@@ -109,8 +181,14 @@ class Engine:
         of right-padded ragged prompts — pads get position -1, never enter
         the cache, and each row decodes at its own position.  One decode
         runs after every emitted token, the last one included, as in the
-        reference loop."""
-        prompts = np.asarray(prompts)
+        reference loop.  On a grid every rank passes the whole batch and
+        serves its rows; rank 0 returns the whole result, the others None."""
+        rows = self.rows(len(prompts))
+        prompts = np.asarray(prompts)[rows]
+        if prompt_lens is not None:
+            prompt_lens = np.asarray(prompt_lens)[rows]
+        if extra is not None:
+            extra = {k: v[rows] for k, v in extra.items()}
         b, s = prompts.shape
         dev = self.device
         toks_in = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
@@ -131,8 +209,9 @@ class Engine:
                 gather_idx=torch.as_tensor(gidx, device=dev), extra=extra,
             )
             pos = torch.as_tensor(lens, device=dev)
-        if generator is None and temperature > 0:
-            generator = torch.Generator(device=dev).manual_seed(0)
+        if generator is None and temperature > 0:  # on a grid, one per data index
+            seed = 0 if self.grid is None else self.placement.data_index
+            generator = torch.Generator(device=dev).manual_seed(seed)
         tok = logits[:, -1].argmax(dim=-1)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         eos = torch.tensor(self.eos_id, device=dev)
@@ -147,7 +226,7 @@ class Engine:
             lp_tok = lp.gather(1, tok[:, None])[:, 0]
             lps.append(torch.where(frozen, 0.0, lp_tok).cpu().numpy())
             done = done | (tok == self.eos_id)
-            if bool(done.all()):
+            if self._all_done(done):
                 break
             logits, cache = self._decode(cache, tok[:, None], pos)
             pos = pos + 1
@@ -161,6 +240,10 @@ class Engine:
         else:  # max_new_tokens == 0: empty, (B, 0)-shaped
             t_out = np.zeros((b, 0), np.int32)
             l_out = np.zeros((b, 0), np.float32)
+        if self.grid is not None:
+            t_out, l_out = self._gather_rows(t_out), self._gather_rows(l_out)
+            if t_out is None:
+                return None
         return GenerationResult(tokens=t_out, logprobs=l_out, steps=len(outs))
 
 
@@ -197,6 +280,10 @@ class ContinuousEngine:
     def __init__(self, cfg: Config, params: Dict, *, rows: int = 2, lanes: int = 2,
                  cache_len: int = 0, chunk: int = 0, eos_id: int = -1, seed: int = 0,
                  device=None):
+        if isinstance(params, GridParams):
+            raise NotImplementedError("ContinuousEngine on a grid (its packed rows' admission "
+                                      "and resets across the ranks' cache blocks): ROADMAP "
+                                      "A9.4b")
         bad = [k for k in tuple(cfg.model.block_pattern) + tuple(cfg.model.tail_kinds())
                if k not in _PAGEABLE_KINDS]
         if bad:

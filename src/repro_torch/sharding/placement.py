@@ -57,6 +57,20 @@ expert's d_ff columns where it splits d_ff (``expert_col_product``,
 ``expert_row_product``), and the data ranks' expert counts cross the data
 axis in one all-gather with no gradient (``data_counts``).
 
+Serving (models/transformer.py::prefill_grid, decode_step_grid; no
+autograd).  The caches are placed by the reference's cache rule
+(models/transformer.py::cache_specs): a paged cache's slots split over
+the model axis (``cache_slots``), every kv head on each rank, so the fresh
+k and v of a head-split attention and a decode step's q are all-gathered
+over the model axis (``gather_heads``: gloo has no all-to-all); each model
+rank's decode over its slots is merged by the log-sum-exps the decode
+kernel returns (``merge_partials``, ``lse_merge``); the embedding and the
+logits come from the rank's vocab blocks without gathering the table or
+the head (``serve_embed``, ``serve_logits``), and the whole vocab's logits
+of the rank's rows are all-gathered over the model axis
+(``whole_logits``).  A decode loop stops when no rank of the grid has a
+live row (``any_rank``).
+
 Precision.  Every tensor-parallel GEMM takes its operands in the compute
 dtype, as one card's does.  Its result is f32 only where the model axis
 sums partials across the ranks: the row product's forward and the column
@@ -74,6 +88,8 @@ import numpy as np
 import torch
 
 from repro_torch.sharding.rules import Rules, Spec, entry_axes
+
+NEG_INF = -1e30  # a masked score, the lse of a lane that reaches no slot
 
 # The RG-LRU's leaves whose last dim the model axis splits into the rank's
 # channels (models/recurrent.py::apply_rglru); its w_out is row-parallel.
@@ -547,6 +563,21 @@ class _GatherCounts(torch.autograd.Function):
         return _GatherCounts.apply(c.movedim(in_dims[0], 0), mesh, axis), 1
 
 
+def lse_merge(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Attention outputs over disjoint slot ranges merged into the output
+    over their union, in f32: o = sum_j e^(lse_j - M) o_j / sum_j
+    e^(lse_j - M), M = max_j lse_j (outs (B, L, H, D), lses (B, L, H)).  A
+    range that holds nothing a lane reaches (lse NEG_INF) has weight
+    exactly 0, and a lane no range reaches gives exactly 0."""
+    lse = torch.stack(list(lses))
+    live = lse > NEG_INF / 2
+    mx = torch.where(live, lse, -float("inf")).amax(dim=0)
+    w = torch.where(live, torch.exp(lse - torch.where(live.any(0), mx, 0.0)), 0.0)
+    num = sum(wj[..., None] * oj.float() for wj, oj in zip(w, outs))
+    den = w.sum(dim=0)[..., None]
+    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+
+
 def _map2(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map2(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
@@ -753,6 +784,124 @@ class Placement:
         axis (the combine sums it, models/moe.py)."""
         f = w.shape[1] // self.m
         return _BmmRowProduct.apply(h, w.narrow(1, self.j * f, f).to(h.dtype))
+
+    # -- sharded serving (models/attention.py, transformer.py::forward_grid) --
+
+    def cache_slots(self, spec: Spec, slots: int) -> Optional[Tuple[int, int]]:
+        """(the first slot of the rank's block, ``slots``) of a paged cache
+        leaf (B, C, ...) of ``slots`` slots placed by ``spec`` (the
+        reference's cache rule, models/transformer.py::cache_specs), or
+        None when the model axis leaves the slots whole.  The batch must be
+        split over the data axis and the slots over the model axis or not
+        at all:
+        another placement (the rule's by-size search taking another dim for
+        the batch, or a batch the data axis does not divide) raises."""
+        self._check_rows(spec)
+        seq = spec[1]
+        if seq is None:
+            return None
+        if seq != self.tp:
+            raise NotImplementedError(f"cache spec {spec}: slots over {seq!r}, not the model "
+                                      "axis alone")
+        return self.j * (slots // self.m), slots
+
+    def check_rec_cache(self, specs: Dict) -> None:
+        """Raise unless the RG-LRU cache's specs are the blocks its serving
+        path holds: ``h`` (B, D) the rank's channels exactly where
+        ``rec_tp`` splits them, ``conv`` (B, 3, D) whole over the model
+        axis (ξ is computed whole)."""
+        h, conv = specs["h"], specs["conv"]
+        self._check_rows(h)
+        self._check_rows(conv)
+        if (h[1] == self.tp) != self.rec_tp or conv[1:] != (None, None):
+            raise NotImplementedError(f"an RG-LRU cache placed as h {h}, conv {conv} with the "
+                                      f"channels {'split' if self.rec_tp else 'whole'}")
+
+    def _check_rows(self, spec: Spec) -> None:
+        """Raise unless a cache leaf's spec splits its dim 0, the rows, over
+        the data axis, as the serving grid splits the batch."""
+        if spec[0] != self.dp:
+            raise ValueError(f"cache spec {spec}: the serving grid splits the rows over "
+                             f"{self.dp!r} (is the batch a size another dim 1 has, or one "
+                             "the data axis does not divide?)")
+
+    def gather_heads(self, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each of ``ts`` (B, S, heads of the rank, D) with every rank's
+        heads (dim 2), rank order: one all-gather over the model axis of
+        them side by side, and concatenations (no all-to-all: gloo has
+        none).  No gradient."""
+        if self.m == 1:
+            return ts
+        sizes = [t.shape[2] for t in ts]
+        parts = self.mesh.all_gather(torch.cat(ts, dim=2).contiguous(), self.tp)
+        split = [p.split(sizes, dim=2) for p in parts]
+        return tuple(torch.cat([sp[i] for sp in split], dim=2) for i in range(len(ts)))
+
+    def merge_partials(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The attention over the whole cache from each model rank's over
+        its slots: every rank's out (B, L, H, D) and lse (B, L, H) f32,
+        all-gathered over the model axis side by side, merged by
+        ``lse_merge``."""
+        parts = self.mesh.all_gather(torch.cat([out.float(), lse[..., None]], dim=-1), self.tp)
+        return lse_merge([p[..., :-1] for p in parts], [p[..., -1] for p in parts]).to(out.dtype)
+
+    @property
+    def vocab_blocks(self) -> bool:
+        """The vocab split over the model axis and d_model over the data
+        axis in the embedding table (and the head): serving then looks up
+        the embedding and forms the logits from the rank's blocks
+        (``serve_embed``, ``serve_logits``), where a train step gathers
+        the table over the data axis."""
+        dp_tp, tp_dp = (self.tp, self.dp), (self.dp, self.tp)
+        return self.vocab_tp and tuple(self.specs["embed/embed"]) == dp_tp and (
+            self.cfg.tie_embeddings or tuple(self.specs["head"]) == tp_dp)
+
+    def serve_embed(self, table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+        """The embedding of the rank's rows (B, S) from its block of the
+        table (V/M rows, d/D columns; ``vocab_blocks``), without gathering
+        the table: the data ranks' tokens all-gathered, each rank's rows of
+        them looked up in its block (zero where the token falls outside
+        it), summed over the model axis, and the data ranks' column blocks
+        all-gathered onto the rank's rows."""
+        b = tokens.shape[0]
+        every = torch.cat(self.mesh.all_gather(tokens.contiguous(), self.dp))
+        local = every.long() - self.vocab_offset()
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(inside, local, 0)].to(dtype)
+        part = self.reduce(torch.where(inside[..., None], rows, 0))
+        own = slice(self.data_index * b, (self.data_index + 1) * b)
+        return torch.cat([c[own] for c in self.mesh.all_gather(part, self.dp)], dim=-1)
+
+    def serve_logits(self, x: torch.Tensor, weight: torch.Tensor, tied: bool) -> torch.Tensor:
+        """f32 logits of the rank's rows and vocab columns from its block of
+        the head (d/D rows, V/M columns) or of a tied table, without
+        gathering it (``vocab_blocks``): every data rank's rows of ``x``
+        all-gathered, their product with the rank's block over its d/D
+        columns of them, summed over the data axis onto each data rank's
+        rows (one reduce-scatter)."""
+        d = self.mesh.shape[self.dp]
+        b = x.shape[0]
+        w = weight.float().T if tied else weight.float()
+        every = torch.cat(self.mesh.all_gather(x.contiguous(), self.dp))
+        n = w.shape[0]
+        cols = every[..., self.data_index * n:(self.data_index + 1) * n].float()
+        part = (cols @ w).reshape(d, b, *x.shape[1:-1], w.shape[1])
+        return self.mesh.reduce_scatter_(part, self.dp)
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocab's logits of the rank's rows: its vocab columns
+        all-gathered over the model axis where the placement splits the
+        vocab, else ``logits``."""
+        if not self.vocab_tp:
+            return logits
+        return torch.cat(self.mesh.all_gather(logits.contiguous(), self.tp), dim=-1)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on some rank of the grid (one all-reduce:
+        a decision every rank takes alike, as a stop of the decode loop
+        must be)."""
+        t = torch.tensor([1.0 if flag else 0.0], device=self.mesh.device)
+        return float(self.mesh.all_reduce_(t, op="max")) > 0
 
     def vocab_offset(self) -> int:
         return self.j * (self.cfg.vocab_size // self.m)

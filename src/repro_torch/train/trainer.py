@@ -324,7 +324,13 @@ def init_state(cfg: Config, params: Optional[Dict] = None, device=None,
     return TrainState(flat, opt.init(flat), 0)
 
 
-def _grid_init(cfg: Config, params, mesh: GridMesh, device) -> TrainState:
+def grid_params(cfg: Config, params, mesh: GridMesh, device=None):
+    """(the rank's GridParams of ``params``, the plan's GridSpmd): the
+    rank's blocks of every leaf (``params``: the port's or the reference's
+    tree, whole, on any device; None draws ``init_params`` from the
+    config's seed) in one flat f32 buffer on ``device`` (default: the
+    mesh's)."""
+    device = _device_of(device, mesh)
     pl, spmd = grid_plan(cfg, mesh)
     shard = spmd.shard(spmd.layout)
     if params is None:
@@ -340,7 +346,11 @@ def _grid_init(cfg: Config, params, mesh: GridMesh, device) -> TrainState:
             np.asarray(leaf, np.float32))
         view.copy_(whole[block_slices(view.shape, spec, coords, sizes)])
     del params, leaves
-    flat = GridParams(data, shard, pl)
+    return GridParams(data, shard, pl), spmd
+
+
+def _grid_init(cfg: Config, params, mesh: GridMesh, device) -> TrainState:
+    flat, spmd = grid_params(cfg, params, mesh, device)
     opt = make_optimizer(cfg.optimizer, backend=cfg.parallel.backend,
                          effective_batch=cfg.global_batch, spmd=spmd)
     return TrainState(flat, opt.init(flat), 0)

@@ -28,12 +28,13 @@ thread each, a rendezvous file under the test's tmp dir) runs:
   loss within rtol 1e-6 and each rank's logit gradient within atol 1e-7 of
   its columns of the whole gradient.
 * The refusals on the grid: what is not ported yet raises
-  NotImplementedError naming ROADMAP A9: the tensor-parallel attention
-  outside train mode (prefill and decode) and the recurrentgemma smoke's
-  channel-split RG-LRU in prefill mode (sharded serving, A9.4).  Every optimizer,
-  source and stats method runs there (tests/test_torch_grid_paths.py), and
-  so do the MoE configs (tests/test_torch_grid_moe.py) and the RG-LRU,
-  xLSTM and cross-attention blocks (tests/test_torch_grid_blocks.py).
+  NotImplementedError naming ROADMAP A9.4b: cross-attention in decode mode,
+  the xlstm smoke's mLSTM in prefill mode and the ContinuousEngine on a
+  rank's GridParams.  Every optimizer, source and stats method trains there
+  (tests/test_torch_grid_paths.py), and so do the MoE configs
+  (tests/test_torch_grid_moe.py) and the RG-LRU, xLSTM and cross-attention
+  blocks (tests/test_torch_grid_blocks.py); the attention, RG-LRU and MoE
+  blocks serve there (tests/test_torch_grid_serve.py).
 * The checkpoint: the fused bert run's state saved from the grid (gathered,
   rank 0 writes) restores whole into a one-card template, equal
   (``torch.equal``, on the leaf elements) to the state gathered whole, and
@@ -64,10 +65,10 @@ ARCHS = ("bert-large", "internlm2-1.8b")
 PLANS = ("fused", "reference")
 FRESH = (True, False, True)
 OPT = dict(k=4, gsnr_refresh=2)
-# what still raises on the grid: the tensor-parallel attention and RG-LRU
-# outside train mode (sharded serving); every block kind, optimizer, source
-# and stats method trains there
-REFUSED = ("prefill attention", "decode attention", "prefill rg-lru")
+# what still raises on the grid (ROADMAP A9.4b): serving cross-attention
+# and the xLSTM cells, and the ContinuousEngine; every block kind,
+# optimizer, source and stats method trains there
+REFUSED = ("cross-attention decode", "mlstm prefill", "continuous engine")
 
 
 def _opt(arch):
@@ -166,8 +167,9 @@ def _ce_run(mesh, ce_inputs):
 
 def _refusals(mesh):
     from repro_torch.models.attention import attention
-    from repro_torch.models.recurrent import apply_rglru, rglru_init
-    from repro_torch.train.trainer import grid_plan
+    from repro_torch.models.transformer import forward_grid
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.train.trainer import grid_params, grid_plan
 
     cfg = _port_cfg("bert-large", "fused")
     m = cfg.model
@@ -177,18 +179,17 @@ def _refusals(mesh):
     pos = torch.arange(4, dtype=torch.int32)[None]
     attn = {n: torch.zeros(m.d_model, m.d_model // blocks) for n in ("wq", "wk", "wv")}
     attn["wo"] = torch.zeros(m.d_model, m.d_model)
-    rec_pl, _ = grid_plan(_port_cfg("recurrentgemma-9b", "fused"), mesh)
-    d_rec = rec_pl.cfg.d_model
+    xl_cfg = _port_cfg("xlstm-1.3b", "fused")
+    xl_pl, _ = grid_plan(xl_cfg, mesh)
     calls = {
-        "prefill attention": lambda: attention(
-            attn, x, n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
-            head_dim=m.resolved_head_dim, q_pos=pos, mode="prefill", cache_len=8, tp=pl),
-        "decode attention": lambda: attention(
+        "cross-attention decode": lambda: attention(
             attn, x[:, :1], n_heads=m.n_heads // blocks, n_kv_heads=m.n_kv_heads // blocks,
-            head_dim=m.resolved_head_dim, q_pos=pos[:, :1], mode="decode", tp=pl),
-        "prefill rg-lru": lambda: apply_rglru(
-            rglru_init(torch.Generator().manual_seed(0), d_rec), torch.zeros(1, 4, d_rec),
-            mode="prefill", tp=rec_pl),
+            head_dim=m.resolved_head_dim, q_pos=pos[:, :1], memory=x, mode="decode", tp=pl),
+        "mlstm prefill": lambda: forward_grid(
+            xl_cfg.model, xl_cfg.parallel, {"whole": {}, "groups": []},
+            torch.zeros(1, 4, dtype=torch.int64), xl_pl, mode="prefill", cache_len=8),
+        "continuous engine": lambda: ContinuousEngine(
+            cfg, grid_params(cfg, None, mesh, "cpu")[0], device="cpu"),
     }
     out = {}
     for case in REFUSED:
@@ -407,7 +408,7 @@ def test_unported_paths_raise_on_the_grid(grid_runs):
     for res in ranks:
         assert set(res["refused"]) == set(REFUSED)
         for case, msg in res["refused"].items():
-            assert msg is not None and "ROADMAP A9" in msg, (case, msg)
+            assert msg is not None and "ROADMAP A9.4b" in msg, (case, msg)
 
 
 def test_grid_checkpoint_restores_whole_and_into_the_grid(grid_runs):
